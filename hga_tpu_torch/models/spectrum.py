@@ -1,0 +1,115 @@
+"""Stage 1 (judged config 1) — k-mer counting + spectrum histogram (PyTorch).
+
+Counterpart of ``hga_tpu.models.spectrum`` (its single-device route): packed
+read batches -> device k-mer extraction (ops.kmer) -> ONE global device sort
+and segment sum over int64 keys (ops.count) -> histogram -> valley threshold
+-> solid k-mer set.  Only the histogram and the solid set come back to host.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from hga_tpu_torch.config import AssemblerConfig
+from hga_tpu_torch.io.encode import PackedReads
+from hga_tpu_torch.ops import count as C
+from hga_tpu_torch.ops import kmer as K
+from hga_tpu_torch.utils.device import resolve_device
+from hga_tpu_torch.utils.oracle import solid_threshold_from_hist
+
+log = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class SpectrumResult:
+    """Host-side result of the counting stage (same fields and artifact as
+    ``hga_tpu.models.spectrum.SpectrumResult``).  hi/lo/count hold the SOLID
+    k-mers; `distinct` carries the true distinct total."""
+
+    hi: np.ndarray        # uint32[n] canonical k-mers (sorted)
+    lo: np.ndarray        # uint32[n]
+    count: np.ndarray     # int32[n]
+    hist: np.ndarray      # int32[max_count+1]
+    threshold: int        # chosen solid threshold
+    k: int
+    distinct: int = -1    # total distinct k-mers (-1: same as hi.size)
+
+    @property
+    def n_distinct(self) -> int:
+        return int(self.distinct) if self.distinct >= 0 else int(self.hi.shape[0])
+
+    def solid_set(self) -> Tuple[np.ndarray, np.ndarray]:
+        m = self.count >= self.threshold
+        return self.hi[m], self.lo[m]
+
+    def save(self, path: str) -> None:
+        np.savez_compressed(path, hi=self.hi, lo=self.lo, count=self.count,
+                            hist=self.hist, threshold=np.int64(self.threshold),
+                            k=np.int64(self.k),
+                            distinct=np.int64(self.n_distinct))
+
+    @staticmethod
+    def load(path: str) -> "SpectrumResult":
+        from hga_tpu_torch.convert import load_spectrum
+
+        return load_spectrum(path)
+
+
+def _batch_keys(pr: PackedReads, sel: np.ndarray, k: int,
+                device: torch.device) -> torch.Tensor:
+    """Canonical k-mer keys of reads `sel` (invalid slots = sentinel key)."""
+    kb = K.extract_kmers(K.words_to_tensor(pr.packed[sel], device),
+                         K.words_to_tensor(pr.bad[sel], device),
+                         torch.from_numpy(pr.length[sel]).to(device), k)
+    key = C.pack_key(kb.hi, kb.lo)
+    return torch.where(kb.valid, key, C.SENTINEL_KEY).reshape(-1)
+
+
+def count_reads(
+    pr: PackedReads,
+    cfg: AssemblerConfig,
+    category: Optional[int] = None,
+    device="cuda",
+) -> SpectrumResult:
+    """Count canonical k-mers of (a category of) a read set; pick threshold.
+
+    Extraction runs batch-wise (cfg.batch_reads reads) on `device`; one
+    global sort counts every batch's keys at once.
+    """
+    dev = resolve_device(device)
+    idx = np.arange(pr.n_reads)
+    if category is not None:
+        idx = idx[pr.category == category]
+    B = cfg.batch_reads
+    parts = [_batch_keys(pr, idx[s:s + B], cfg.k, dev)
+             for s in range(0, len(idx), B)]
+    if not parts:
+        hist = np.zeros(cfg.max_count + 1, np.int64)
+        thr = cfg.solid_threshold or solid_threshold_from_hist(hist)
+        z = np.zeros(0, np.uint32)
+        return SpectrumResult(hi=z, lo=z.copy(), count=np.zeros(0, np.int32),
+                              hist=hist, threshold=int(thr), k=cfg.k,
+                              distinct=0)
+    key = torch.cat(parts)
+    del parts
+    keys, counts = C.count_keys(key, torch.ones_like(key))
+    del key
+    distinct = int(keys.shape[0])
+    c = torch.clamp(counts, 0, cfg.max_count)
+    hist = torch.bincount(c, minlength=cfg.max_count + 1).to(
+        torch.int32).cpu().numpy()
+    thr = cfg.solid_threshold or solid_threshold_from_hist(hist)
+    solid = counts >= thr
+    hi, lo = C.unpack_key(keys[solid])
+    hi = hi.cpu().numpy().astype(np.uint32)
+    lo = lo.cpu().numpy().astype(np.uint32)
+    cnt = counts[solid].to(torch.int32).cpu().numpy()
+    log.info("spectrum: %d distinct %d-mers (%d solid), threshold=%d",
+             distinct, cfg.k, hi.size, thr)
+    return SpectrumResult(hi=hi, lo=lo, count=cnt, hist=hist,
+                          threshold=int(thr), k=cfg.k, distinct=distinct)

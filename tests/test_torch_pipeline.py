@@ -1,0 +1,131 @@
+"""The port's whole hybrid pipeline against the JAX package's on the same
+simulated reads and config: every artifact equal (FASTA/GFA byte for byte),
+resume, and resume from the JAX package's own output directory."""
+
+import json
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from hga_tpu.config import AssemblerConfig as JCfg
+from hga_tpu.io.encode import pack_reads as jpack
+from hga_tpu.models.pipeline import run_pipeline as jrun
+from hga_tpu_torch import convert
+from hga_tpu_torch.config import AssemblerConfig as TCfg
+from hga_tpu_torch.io.encode import pack_reads as tpack
+from hga_tpu_torch.models.pipeline import run_pipeline as trun
+from hga_tpu_torch.utils import sim
+
+# tests/test_pipeline_cli.CFG, with copy arbitration off (not ported yet)
+KW = dict(k=15, w=5, band=24, max_seed_freq=64, min_shared_minimizers=2,
+          batch_reads=256, min_overlap_len=30, min_overlap_score=40,
+          min_contig_len=300, arbitrate=False)
+TEXT = ("contigs.fasta", "assembly.gfa", "polished.fasta")
+NPZ = ("spectrum.npz", "corrected.npz", "overlaps.npz")
+
+
+def _reads(pack, ds):
+    return (pack(ds.short_seqs, names=ds.short_names, pad_len=112),
+            pack(ds.long_seqs, names=ds.long_names,
+                 category=[1] * len(ds.long_seqs)))
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    ds = sim.make_dataset(genome_len=6000, short_cov=25, long_cov=6,
+                          seed=50, short_err=0.002, long_err=0.05)
+    root = tmp_path_factory.mktemp("pipe")
+    jdir, tdir = str(root / "jax"), str(root / "torch")
+    jres = jrun(*_reads(jpack, ds), JCfg(**KW), jdir, mesh=None)
+    tres = trun(*_reads(tpack, ds), TCfg(**KW), tdir, device="cpu")
+    return dict(ds=ds, root=root, jdir=jdir, tdir=tdir, jres=jres, tres=tres)
+
+
+def test_config_digest_matches_jax():
+    for kw in (KW, {}, dict(KW, mesh_shape=(2, 4), min_identity=0.7)):
+        assert TCfg(**kw).to_json() == JCfg(**kw).to_json()
+
+
+def test_every_artifact_matches_jax(runs):
+    assert runs["tres"].polished
+    assert runs["tres"].polished == runs["jres"].polished
+    assert runs["tres"].contigs == runs["jres"].contigs
+    for f in TEXT:
+        a = open(os.path.join(runs["tdir"], f), "rb").read()
+        b = open(os.path.join(runs["jdir"], f), "rb").read()
+        assert a == b, f
+    for f in NPZ:
+        za = np.load(os.path.join(runs["tdir"], f))
+        zb = np.load(os.path.join(runs["jdir"], f))
+        assert za.files == zb.files, f
+        for k in za.files:
+            assert za[k].dtype == zb[k].dtype, (f, k)
+            np.testing.assert_array_equal(za[k], zb[k], err_msg=f"{f}:{k}")
+    mj = json.load(open(os.path.join(runs["jdir"], "run_metrics.json")))
+    mt = json.load(open(os.path.join(runs["tdir"], "run_metrics.json")))
+    assert set(mt) == set(mj)
+    assert set(mt["stages"]) == set(mj["stages"])
+    assert mt["config"] == mj["config"]
+    for name in ("spectrum", "assembly"):
+        assert mt[name] == mj[name]
+    assert mt["overlaps"]["n"] == mj["overlaps"]["n"]
+    for s in mt["stages"]:
+        meta = lambda d: json.load(open(os.path.join(d, f"{s}.meta.json")))
+        assert {k: v for k, v in meta(runs["tdir"]).items() if k != "seconds"} \
+            == {k: v for k, v in meta(runs["jdir"]).items() if k != "seconds"}
+
+
+def test_resume_skips_heavy_stages(runs):
+    ds = runs["ds"]
+    res = trun(*_reads(tpack, ds), TCfg(**KW), runs["tdir"], resume=True,
+               device="cpu")
+    assert res.polished == runs["tres"].polished
+    for s in ("spectrum", "corrected", "overlaps", "assembly"):
+        assert s not in res.stats["stages"], s
+
+
+def test_resume_from_the_jax_output_directory(runs):
+    ds = runs["ds"]
+    d = str(runs["root"] / "from_jax")
+    shutil.copytree(runs["jdir"], d)
+    os.remove(os.path.join(d, "polished.fasta"))
+    res = trun(*_reads(tpack, ds), TCfg(**KW), d, resume=True, device="cpu")
+    for s in ("spectrum", "corrected", "overlaps", "assembly"):
+        assert s not in res.stats["stages"], s
+    assert "polish" in res.stats["stages"]
+    a = open(os.path.join(d, "polished.fasta"), "rb").read()
+    b = open(os.path.join(runs["jdir"], "polished.fasta"), "rb").read()
+    assert a == b
+
+
+def test_convert_loaders_read_jax_artifacts(runs):
+    j = runs["jdir"]
+    spec = convert.load_spectrum(os.path.join(j, "spectrum.npz"))
+    z = np.load(os.path.join(j, "spectrum.npz"))
+    spec2 = convert.load_spectrum({k: z[k] for k in z.files})
+    assert spec.threshold == spec2.threshold == int(z["threshold"])
+    np.testing.assert_array_equal(spec.hist, spec2.hist)
+    pr = convert.load_corrected(os.path.join(j, "corrected.npz"))
+    dr = convert.load_packed_reads(os.path.join(j, "corrected.npz"),
+                                   device="cpu")
+    np.testing.assert_array_equal(dr.host.packed, pr.packed)
+    np.testing.assert_array_equal(
+        dr.packed.numpy().view(np.uint32), pr.packed)
+    assert dr.length.dtype == torch.int32 and dr.host.names == pr.names
+    ov = convert.load_overlaps(os.path.join(j, "overlaps.npz"))
+    assert ov.n == runs["tres"].stats["overlaps"]["n"]
+
+
+def test_unported_modes_and_missing_gpu_raise(runs, tmp_path):
+    s, l = _reads(tpack, runs["ds"])
+    with pytest.raises(NotImplementedError, match="arbitrat"):
+        trun(s, l, TCfg(**dict(KW, arbitrate=True)), str(tmp_path / "a"),
+             device="cpu")
+    with pytest.raises(NotImplementedError, match="short-read"):
+        trun(s, None, TCfg(**KW), str(tmp_path / "b"), device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            trun(s, l, TCfg(**KW), str(tmp_path / "c"))

@@ -10,6 +10,7 @@ resumes from a directory the JAX package wrote, through these loaders.
 * ``spectrum.npz``  -> models.spectrum.SpectrumResult
 * ``corrected.npz`` -> io.encode.PackedReads (corrected long reads)
 * ``overlaps.npz``  -> models.overlap.OverlapRecords
+* ``candidates.npz`` -> models.seeding.SeedingResult
 * packed reads      -> DeviceReads: the host PackedReads plus its packed
   words and lengths on a device (the copy correction/overlap gather from)
 """
@@ -65,6 +66,16 @@ def load_overlaps(src: Source):
     names = {f.name for f in dataclasses.fields(OverlapRecords)}
     return OverlapRecords(**{k: np.asarray(v) for k, v in z.items()
                              if k in names})
+
+
+def load_candidates(src: Source):
+    from hga_tpu_torch.models.seeding import SeedingResult
+
+    z = _arrays(src)
+    return SeedingResult(a=np.asarray(z["a"]), b=np.asarray(z["b"]),
+                         rel=np.asarray(z["rel"]), diag=np.asarray(z["diag"]),
+                         shared=np.asarray(z["shared"]),
+                         overflow=int(z["overflow"]))
 
 
 @dataclasses.dataclass

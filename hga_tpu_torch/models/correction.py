@@ -27,9 +27,11 @@ from hga_tpu_torch.config import AssemblerConfig
 from hga_tpu_torch.io.encode import (PackedReads, decode_bases, pack_reads,
                                      unpack_codes)
 from hga_tpu_torch.models.overlap import SENT_BASE
+from hga_tpu_torch.models.seeding import drop_unsolid, extract_seed_entries
 from hga_tpu_torch.ops import pileup as PU
 from hga_tpu_torch.ops.kmer import unpack_bases, words_to_tensor
 from hga_tpu_torch.ops.myers_cuda import myers_batch_planes_cuda
+from hga_tpu_torch.ops.pairs import candidate_pairs
 from hga_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -44,22 +46,46 @@ MAX_VOTE_COLS = 24_000_000  # nb * Lpad budget per correction group
 
 
 def find_candidates_cross(pr_a: PackedReads, pr_b: PackedReads,
-                          cfg: AssemblerConfig, solid=None, seed_index=None,
-                          device="cuda"):
-    """Candidates between short reads pr_a and backbones pr_b as host arrays
-    (a, b, rel, diag), through the sorted-index route.
+                          cfg: AssemblerConfig,
+                          pair_cap: Optional[int] = None,
+                          solid=None, seed_index=None, device="cuda"):
+    """Candidates between two read sets as host arrays (a, b, rel, diag):
+    `a` indexes pr_a, `b` indexes pr_b.
 
-    The reference also has a bounded device self-join for small inputs
-    without an index; the pipeline always passes an index, so only the
-    indexed route is ported.
+    solid: optional (hi, lo) solid k-mers; only solid seeds generate
+    candidates.  With a seed_index, or above INDEXED_ROUTE_ENTRIES estimated
+    entries, the memory-bounded sorted-index route of models/overlap_long.py
+    runs; otherwise both read sets' seed entries go through the bounded
+    self-join of ops/pairs.py in "cross" mode.  pair_cap is the reference's
+    signature only: the self-join returns every kept pair.
     """
-    from hga_tpu_torch.models.overlap_long import find_candidates_cross_indexed
+    from hga_tpu_torch.models import overlap_long as OL
 
-    return find_candidates_cross_indexed(
-        pr_a, pr_b, cfg, solid=solid, index=seed_index,
-        depth_cap=cfg.corr_depth_cap,
-        rare_cap=max(0, cfg.corr_rare_seed_freq),
-        anchor_min=cfg.corr_anchor_min, device=device)
+    dev = resolve_device(device)
+    est = (int(pr_a.length.sum()) + int(pr_b.length.sum())) \
+        // max(cfg.w, 1) * 2
+    if seed_index is not None or est > OL.INDEXED_ROUTE_ENTRIES:
+        return OL.find_candidates_cross_indexed(
+            pr_a, pr_b, cfg, solid=solid, index=seed_index,
+            depth_cap=cfg.corr_depth_cap,
+            rare_cap=max(0, cfg.corr_rare_seed_freq),
+            anchor_min=cfg.corr_anchor_min, device=dev)
+    ea = extract_seed_entries(pr_a, cfg, device=dev)
+    eb = extract_seed_entries(pr_b, cfg, device=dev)
+    na = pr_a.n_reads
+    hi, lo = drop_unsolid(np.concatenate([ea.hi, eb.hi]),
+                          np.concatenate([ea.lo, eb.lo]), solid, cfg, dev,
+                          "correction")
+    t = lambda *xs: torch.from_numpy(
+        np.concatenate(xs).astype(np.int64)).to(dev)
+    cp = candidate_pairs(
+        t(hi), t(lo), t(ea.read, eb.read + na), t(ea.pos, eb.pos),
+        t(ea.strand, eb.strand), t(pr_a.length, pr_b.length),
+        t(np.zeros(na), np.ones(pr_b.n_reads)), k=cfg.k,
+        max_freq=cfg.max_seed_freq, min_shared=cfg.min_shared_minimizers,
+        mode="cross")
+    host = lambda x: x.cpu().numpy()
+    return host(cp.a), host(cp.b) - na, host(cp.rel), host(cp.diag)
 
 
 def _planes_inner(q, t, ql, tl):

@@ -19,8 +19,9 @@ per-segment bit-parallel DP (PyTorch port of ``hga_tpu.models.overlap_long``).
 
 Each DP batch is read back right after its launch; the reference's depth-8
 in-flight queue existed to hide a tunnel round trip this port does not have.
-The sorted-index candidate route for correction/polish
-(``find_candidates_cross_indexed``) lives here too, as in the reference.
+The sorted-index candidate routes (``find_candidates_cross_indexed`` for
+correction/polish and config 3, ``find_candidates_all_indexed`` for
+all-vs-all above INDEXED_ROUTE_ENTRIES) live here too, as in the reference.
 """
 
 from __future__ import annotations
@@ -36,7 +37,8 @@ import torch
 from hga_tpu_torch.config import AssemblerConfig
 from hga_tpu_torch.io.encode import PackedReads
 from hga_tpu_torch.models.overlap import OverlapRecords, SENT_BASE, default_edit
-from hga_tpu_torch.models.seeding import extract_seed_entries, solid_mask
+from hga_tpu_torch.models.seeding import (SeedingResult, extract_seed_entries,
+                                         solid_mask)
 from hga_tpu_torch.ops.kmer import words_to_tensor
 from hga_tpu_torch.utils.device import resolve_device
 
@@ -288,6 +290,82 @@ def find_candidates_cross_indexed(
         log.info("cross-indexed: %d candidate pairs", a.size)
     return (a, cat(outs_b, np.int32), cat(outs_rel, np.int32),
             cat(outs_diag, np.int32))
+
+
+def find_candidates_all_indexed(
+    pr: PackedReads,
+    cfg: AssemblerConfig,
+    solid=None,
+    index: Optional[SeedIndex] = None,
+    chunk_reads: int = 4096,
+    device="cuda",
+) -> SeedingResult:
+    """Scalable all-vs-all candidates: the pair semantics of
+    ops/pairs.candidate_pairs mode="all" (canonical a < b, rel = strand
+    mismatch, diagonal = median over shared seeds of pos_a - pos_b', kept
+    iff >= min_shared_minimizers shared seeds from runs of <= max_seed_freq)
+    with memory bounded by the read chunk.  Each unordered anchor pair is
+    enumerated once: read a's entries query the sorted index and keep hits
+    with t > a.  Solid masking comes from the index side — a non-solid seed
+    has no run in the solid-filtered index.  overflow is always 0.
+    """
+    idx = index or build_seed_index(pr, cfg, solid=solid, device=device)
+    ent = extract_seed_entries(pr, cfg, device=device)
+    key_e = (ent.hi.astype(np.uint64) << 32) | ent.lo.astype(np.uint64)
+    S = idx.srt_key.shape[0]
+    slot0 = np.searchsorted(idx.srt_key, key_e)
+    hit = (slot0 < S) & (idx.srt_key[np.clip(slot0, 0, S - 1)] == key_e)
+    run = idx.run_of_slot[np.clip(slot0, 0, S - 1)]
+    freq = np.where(hit, idx.run_len[run], 0)
+    # repeat mask: drop the whole run past max_freq
+    take_all = np.where(freq > cfg.max_seed_freq, 0, freq)
+    k = cfg.k
+    read_len = pr.length.astype(np.int64)
+
+    outs = {f: [] for f in ("a", "b", "rel", "diag", "shared")}
+    for a_lo in range(0, pr.n_reads, chunk_reads):
+        a_hi = min(pr.n_reads, a_lo + chunk_reads)
+        m = (ent.read >= a_lo) & (ent.read < a_hi)
+        take = take_all[m]
+        total = int(take.sum())
+        if total == 0:
+            continue
+        eidx = np.repeat(np.arange(take.shape[0]), take)
+        within = np.arange(total) - np.repeat(np.cumsum(take) - take, take)
+        sl = idx.run_start[run[m]][eidx] + within
+        a = ent.read[m][eidx].astype(np.int64)
+        t = idx.srt_read[sl].astype(np.int64)
+        keep = t > a                       # each unordered pair counted once
+        a, t, sl, eidx2 = a[keep], t[keep], sl[keep], eidx[keep]
+        if a.size == 0:
+            continue
+        rel = (ent.strand[m][eidx2] != idx.srt_strand[sl]).astype(np.int32)
+        pa = ent.pos[m][eidx2].astype(np.int64)
+        pt = idx.srt_pos[sl].astype(np.int64)
+        lt = read_len[t]
+        pt_adj = np.where(rel == 1, lt - k - pt, pt)
+        diag = pa - pt_adj
+        # aggregate per (a, t, rel): shared count + median diagonal
+        order = _argsort_keys(diag, rel, t, a)
+        a, t, rel, diag = a[order], t[order], rel[order], diag[order]
+        gnew = np.ones(a.shape[0], bool)
+        gnew[1:] = ((a[1:] != a[:-1]) | (t[1:] != t[:-1])
+                    | (rel[1:] != rel[:-1]))
+        g_first = np.nonzero(gnew)[0]
+        g_len = np.diff(np.append(g_first, a.shape[0]))
+        keep_g = g_len >= cfg.min_shared_minimizers
+        med = g_first + g_len // 2
+        outs["a"].append(a[g_first][keep_g])
+        outs["b"].append(t[g_first][keep_g])
+        outs["rel"].append(rel[g_first][keep_g])
+        outs["diag"].append(diag[med][keep_g])
+        outs["shared"].append(g_len[keep_g])
+
+    cat = lambda xs: (np.concatenate(xs).astype(np.int32) if xs
+                      else np.zeros(0, np.int32))
+    res = SeedingResult(overflow=0, **{f: cat(v) for f, v in outs.items()})
+    log.info("all-indexed: %d candidate pairs", res.n_pairs)
+    return res
 
 
 def _anchors_for_chunk(q_lo: int, q_hi: int,

@@ -3,7 +3,11 @@
 
   1. k-mer spectrum on short reads (config 1)       -> spectrum.npz
   2. hybrid correction of long reads (config 5a)    -> corrected.npz
-  3. all-vs-all overlap of corrected longs (2+3)    -> overlaps.npz
+  3. overlaps of the assembled reads                -> overlaps.npz
+     long reads (pad > 1024): anchor chains + segment DPs (K1)
+     short reads (pad <= 1024, e.g. short-read-only input): candidates
+     (config 2, -> candidates.npz), then the Myers gate (K1) and the
+     refine (K3 when overlap_refine="sw")
   4. string graph -> contigs (config 4)             -> contigs.fasta / .gfa
   5. short-read polish of contigs (config 5b)       -> polished.fasta
 
@@ -11,9 +15,9 @@ Every stage writes the reference's artifact under the reference's
 config+input digest, so ``resume=True`` skips stages whose artifact matches —
 including artifacts the JAX package wrote (loaded through convert.py).
 
-One process, one device.  Not ported yet (they raise): copy arbitration
-(``cfg.arbitrate=True``; ROADMAP slice 2) and the short-read-only assembly
-route taken when the assembled reads are short (ROADMAP slice 4).
+One process, one device.  Not ported yet: copy arbitration, which the
+reference runs when ``cfg.arbitrate`` is set, long reads are given and the
+assembly made contigs; the port raises there.
 """
 
 from __future__ import annotations
@@ -36,13 +40,16 @@ from hga_tpu_torch.models.assembly import assemble
 from hga_tpu_torch.models.correction import (LAST_TIMINGS as CT,
                                              correct_long_reads,
                                              polish_contigs)
+from hga_tpu_torch.models.overlap import (LAST_TIMINGS as OV_TIMINGS,
+                                          compute_overlaps)
+from hga_tpu_torch.models.seeding import find_candidates
 from hga_tpu_torch.models.spectrum import count_reads
 from hga_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
 
-# corrected reads longer than this take the long-read overlap route; the
-# reference's threshold (hga_tpu/ops/align_pallas.MAX_QUERY_LEN)
+# assembled reads padded longer than this take the long-read overlap route;
+# the reference's threshold (hga_tpu/ops/align_pallas.MAX_QUERY_LEN)
 LONG_READ_PAD = 1024
 
 
@@ -153,15 +160,6 @@ def run_pipeline(
     """Full hybrid pipeline on one device (``"cuda"`` unless the caller asks
     for ``"cpu"``; CUDA without a GPU raises)."""
     dev = resolve_device(device)
-    if pr_long is None:
-        raise NotImplementedError(
-            "short-read-only assembly is not ported yet (ROADMAP Queue 1, "
-            "slice 4: the short-read path)")
-    if cfg.arbitrate:
-        raise NotImplementedError(
-            "copy arbitration (cfg.arbitrate=True) is not ported yet "
-            "(ROADMAP Queue 1, slice 2: models/arbitration.py); pass "
-            "cfg.replace(arbitrate=False)")
     st = _Stage(outdir, resume, cfg)
     t_all = time.perf_counter()
     inputs = _inputs_digest(pr_short, pr_long)
@@ -192,7 +190,7 @@ def run_pipeline(
                 cfg = cfg.replace(max_seed_freq=cap)
             # correction depth cap ~0.7x base coverage (correction only;
             # polish keeps full depth)
-            if cfg.corr_depth_cap == 0:
+            if cfg.corr_depth_cap == 0 and pr_long is not None:
                 mean_l = float(pr_short.length.mean())
                 base_cov = peak * mean_l / max(mean_l - cfg.k + 1, 1.0)
                 dcap = max(8, int(np.ceil(0.7 * base_cov)))
@@ -229,38 +227,65 @@ def run_pipeline(
         return _sidx["v"]
 
     # --- stage: correction (config 5a) ---
-    if st.fresh("corrected", inputs) and os.path.exists(path("corrected.npz")):
-        asm_reads = convert.load_corrected(path("corrected.npz"))
-    else:
-        t0 = time.perf_counter()
-        if pr_short is not None:
-            asm_reads = correct_long_reads(
-                pr_short, pr_long, cfg_corr, device=dev, solid=solid,
-                seed_index=short_seed_index())
+    asm_reads = pr_short
+    if pr_long is not None:
+        if st.fresh("corrected", inputs) and os.path.exists(
+                path("corrected.npz")):
+            asm_reads = convert.load_corrected(path("corrected.npz"))
         else:
-            asm_reads = pr_long
-        asm_reads.save(path("corrected.npz"))
-        st.done("corrected", t0, inputs)
-        st.stats["correction_detail"] = dict(CT)
+            t0 = time.perf_counter()
+            if pr_short is not None:
+                asm_reads = correct_long_reads(
+                    pr_short, pr_long, cfg_corr, device=dev, solid=solid,
+                    seed_index=short_seed_index())
+            else:
+                asm_reads = pr_long
+            asm_reads.save(path("corrected.npz"))
+            st.done("corrected", t0, inputs)
+            st.stats["correction_detail"] = dict(CT)
+    if asm_reads is None:
+        raise ValueError("no reads given")
 
-    if asm_reads.pad_len <= LONG_READ_PAD:
-        raise NotImplementedError(
-            f"assembled reads pad to {asm_reads.pad_len} <= {LONG_READ_PAD}: "
-            "the short-read candidate/overlap route is not ported yet "
-            "(ROADMAP Queue 1, slice 4)")
-
-    # --- stage: long overlaps (anchor chaining + segment DPs, K1) ---
     ov_timings: Dict = {}
-    if st.fresh("overlaps", inputs) and os.path.exists(path("overlaps.npz")):
-        ov = convert.load_overlaps(path("overlaps.npz"))
-    else:
-        from hga_tpu_torch.models import overlap_long as OL
+    if asm_reads.pad_len > LONG_READ_PAD:
+        # --- stage: long overlaps (anchor chaining + segment DPs, K1) ---
+        if st.fresh("overlaps", inputs) and os.path.exists(
+                path("overlaps.npz")):
+            ov = convert.load_overlaps(path("overlaps.npz"))
+        else:
+            from hga_tpu_torch.models import overlap_long as OL
 
-        t0 = time.perf_counter()
-        ov = OL.compute_overlaps_long(asm_reads, cfg, device=dev)
-        ov_timings = dict(OL.LAST_TIMINGS)
-        ov.save(path("overlaps.npz"))
-        st.done("overlaps", t0, inputs)
+            t0 = time.perf_counter()
+            ov = OL.compute_overlaps_long(asm_reads, cfg, device=dev)
+            ov_timings = dict(OL.LAST_TIMINGS)
+            ov.save(path("overlaps.npz"))
+            st.done("overlaps", t0, inputs)
+    else:
+        # --- stage: candidates (config 2) ---
+        if st.fresh("candidates", inputs) and os.path.exists(
+                path("candidates.npz")):
+            cands = convert.load_candidates(path("candidates.npz"))
+        else:
+            t0 = time.perf_counter()
+            # solid-seed masking applies when assembling the short reads
+            # directly; corrected long reads keep all seeds
+            cands = find_candidates(
+                asm_reads, cfg, solid=solid if pr_long is None else None,
+                device=dev)
+            cands.save(path("candidates.npz"))
+            st.done("candidates", t0, inputs)
+        st.stats["candidates"] = {"n": cands.n_pairs}
+
+        # --- stage: overlaps (config 3: Myers gate + refine) ---
+        if st.fresh("overlaps", inputs) and os.path.exists(
+                path("overlaps.npz")):
+            ov = convert.load_overlaps(path("overlaps.npz"))
+        else:
+            t0 = time.perf_counter()
+            ov = compute_overlaps(asm_reads, cands, cfg, device=dev)
+            ov_timings = dict(OV_TIMINGS)
+            ov.save(path("overlaps.npz"))
+            st.done("overlaps", t0, inputs)
     st.stats["overlaps"] = {"n": ov.n, **ov_timings}
 
     # --- stage: assembly (config 4) ---
@@ -281,6 +306,13 @@ def run_pipeline(
             "contained": res.n_contained,
             "identity_floor": res.identity_floor,
         }
+
+    # --- stage: arbitration (repeat resolution): not ported yet ---
+    if cfg.arbitrate and pr_long is not None and contigs:
+        raise NotImplementedError(
+            "copy arbitration (cfg.arbitrate=True with long reads) is not "
+            "ported yet (ROADMAP Queue 1: models/arbitration.py); pass "
+            "cfg.replace(arbitrate=False)")
 
     # --- stage: polish (config 5b) ---
     polished = contigs

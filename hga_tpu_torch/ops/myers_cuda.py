@@ -24,41 +24,28 @@ lies on the CPU, which is how the CPU tests run the port.  There is no
 fallback from a CUDA tensor to the plain version.
 
 The kernels are built at first use with nvcc (``-gencode
-arch=compute_90a,code=sm_90a``) from the sources in ``csrc/`` into
-``hga_tpu_torch/_build/``, keyed by a hash of the sources and flags, and
-loaded with ctypes.  Each launch goes on ``torch.cuda.current_stream()``; the
-wrapper raises when the launch reports an error.
+arch=compute_90a,code=sm_90a``) from ``csrc/myers.cu`` into
+``hga_tpu_torch/_build/`` (ops/cuda_build.py), keyed by a hash of the source
+and flags, and loaded with ctypes.  Each launch goes on
+``torch.cuda.current_stream()``; the wrapper raises when the launch reports
+an error.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from hga_tpu_torch.ops import cuda_build
 from hga_tpu_torch.ops.myers import (MAX_WORDS, MyersResult, myers_batch,
                                      myers_batch_planes, n_words,
                                      query_planes)
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("myers.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
 # launches of each kernel by its wrapper (reset with reset_launches())
 LAUNCHES: Dict[str, int] = {"myers_batch_cuda": 0,
                             "myers_batch_planes_cuda": 0}
-
-# what the last build did: seconds, library path, ptxas report
-BUILD_INFO: Dict[str, object] = {}
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -68,50 +55,10 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
-                       "with the CUDA toolkit")
-
-
-def build(force: bool = False) -> str:
-    """Compile csrc/ into a shared library (once per source hash); returns
-    its path.  The ptxas report (registers, spills) lands next to it."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        with open(os.path.join(CSRC, src), "rb") as fh:
-            h.update(fh.read())
-    tag = h.hexdigest()[:16]
-    lib = os.path.join(BUILD_DIR, f"libhga_myers_{tag}.so")
-    log = os.path.join(BUILD_DIR, f"libhga_myers_{tag}.ptxas.txt")
-    if os.path.exists(lib) and not force:
-        BUILD_INFO.update(lib=lib, seconds=0.0, cached=True)
-        if os.path.exists(log):
-            with open(log) as fh:
-                BUILD_INFO["ptxas"] = fh.read()
-        return lib
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    dt = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    with open(log, "w") as fh:
-        fh.write(proc.stderr)
-    os.replace(tmp, lib)
-    BUILD_INFO.update(lib=lib, seconds=dt, cached=False, ptxas=proc.stderr)
-    return lib
-
-
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build())
+        lib = ctypes.CDLL(cuda_build.build("myers"))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.hga_myers_launch.argtypes = [vp] * 7 + [ci, ci, ci] + [vp] * 5
         lib.hga_myers_launch.restype = ci

@@ -26,6 +26,11 @@ def _module_names():
 def test_importing_the_port_loads_no_jax():
     mods = sorted(_module_names())
     assert len(mods) >= 16, mods
+    for m in ("hga_tpu_torch.cli", "hga_tpu_torch.ops.align",
+              "hga_tpu_torch.ops.align_cuda", "hga_tpu_torch.ops.cuda_build",
+              "hga_tpu_torch.ops.pairs", "hga_tpu_torch.models.overlap",
+              "hga_tpu_torch.models.seeding"):
+        assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -1,6 +1,8 @@
-"""The port's whole hybrid pipeline against the JAX package's on the same
-simulated reads and config: every artifact equal (FASTA/GFA byte for byte),
-resume, and resume from the JAX package's own output directory."""
+"""The port's whole pipeline against the JAX package's on the same simulated
+reads and config: every artifact equal (FASTA/GFA byte for byte), resume,
+and resume from the JAX package's own output directory — the hybrid path,
+and the short-read-only path (candidates + overlaps with both refine modes,
+under the default copy-arbitration setting)."""
 
 import json
 import os
@@ -25,6 +27,16 @@ KW = dict(k=15, w=5, band=24, max_seed_freq=64, min_shared_minimizers=2,
           min_contig_len=300, arbitrate=False)
 TEXT = ("contigs.fasta", "assembly.gfa", "polished.fasta")
 NPZ = ("spectrum.npz", "corrected.npz", "overlaps.npz")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Small tensors: one intra-op thread avoids oversubscribing the cores
+    that parallel test workers share (results do not depend on it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _reads(pack, ds):
@@ -120,12 +132,79 @@ def test_convert_loaders_read_jax_artifacts(runs):
 
 
 def test_unported_modes_and_missing_gpu_raise(runs, tmp_path):
+    # the reference arbitrates only with long reads and contigs: the port
+    # raises there, after the assembly stage
     s, l = _reads(tpack, runs["ds"])
+    d = str(tmp_path / "a")
     with pytest.raises(NotImplementedError, match="arbitrat"):
-        trun(s, l, TCfg(**dict(KW, arbitrate=True)), str(tmp_path / "a"),
-             device="cpu")
-    with pytest.raises(NotImplementedError, match="short-read"):
-        trun(s, None, TCfg(**KW), str(tmp_path / "b"), device="cpu")
+        trun(s, l, TCfg(**dict(KW, arbitrate=True)), d, device="cpu")
+    assert os.path.exists(os.path.join(d, "contigs.fasta"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             trun(s, l, TCfg(**KW), str(tmp_path / "c"))
+
+
+# the short-read-only route under the default config (arbitrate=True: the
+# reference arbitrates only with long reads)
+SR_KW = dict(k=15, w=5, band=24, max_seed_freq=64, min_shared_minimizers=2,
+             batch_reads=256, min_overlap_len=30, min_overlap_score=40,
+             min_contig_len=300)
+SR_TEXT = ("contigs.fasta", "assembly.gfa", "polished.fasta")
+SR_NPZ = ("spectrum.npz", "candidates.npz", "overlaps.npz")
+
+
+@pytest.fixture(scope="module", params=["sw", "myers"])
+def short_runs(request, tmp_path_factory):
+    ds = sim.make_dataset(genome_len=3000, short_cov=25, long_cov=0,
+                          seed=52, short_err=0.002)
+    kw = dict(SR_KW, overlap_refine=request.param)
+    assert JCfg(**kw).arbitrate and TCfg(**kw).arbitrate
+    root = tmp_path_factory.mktemp("short_" + request.param)
+    jdir, tdir = str(root / "jax"), str(root / "torch")
+    reads = lambda pack: pack(ds.short_seqs, names=ds.short_names,
+                              pad_len=112)
+    jres = jrun(reads(jpack), None, JCfg(**kw), jdir, mesh=None)
+    tres = trun(reads(tpack), None, TCfg(**kw), tdir, device="cpu")
+    return dict(reads=reads, kw=kw, root=root, jdir=jdir, tdir=tdir,
+                jres=jres, tres=tres)
+
+
+def test_short_read_only_artifacts_match_jax(short_runs):
+    r = short_runs
+    assert r["tres"].polished and r["tres"].polished == r["jres"].polished
+    assert r["tres"].contigs == r["jres"].contigs
+    for f in SR_TEXT:
+        a = open(os.path.join(r["tdir"], f), "rb").read()
+        b = open(os.path.join(r["jdir"], f), "rb").read()
+        assert a == b, f
+    for f in SR_NPZ:
+        za = np.load(os.path.join(r["tdir"], f))
+        zb = np.load(os.path.join(r["jdir"], f))
+        assert za.files == zb.files, f
+        for k in za.files:
+            assert za[k].dtype == zb[k].dtype, (f, k)
+            np.testing.assert_array_equal(za[k], zb[k], err_msg=f"{f}:{k}")
+    assert not os.path.exists(os.path.join(r["tdir"], "corrected.npz"))
+    mj = json.load(open(os.path.join(r["jdir"], "run_metrics.json")))
+    mt = json.load(open(os.path.join(r["tdir"], "run_metrics.json")))
+    assert set(mt) == set(mj) and set(mt["stages"]) == set(mj["stages"])
+    for name in ("spectrum", "candidates", "assembly", "config"):
+        assert mt[name] == mj[name], name
+    for key in ("n", "gate_pairs", "refine_pairs"):
+        assert mt["overlaps"][key] == mj["overlaps"][key], key
+
+
+def test_short_read_only_resumes_from_the_jax_directory(short_runs):
+    r = short_runs
+    d = str(r["root"] / "from_jax")
+    shutil.copytree(r["jdir"], d)
+    os.remove(os.path.join(d, "polished.fasta"))
+    res = trun(r["reads"](tpack), None, TCfg(**r["kw"]), d, resume=True,
+               device="cpu")
+    for s in ("spectrum", "candidates", "overlaps", "assembly"):
+        assert s not in res.stats["stages"], s
+    assert res.stats["candidates"]["n"] == \
+        r["jres"].stats["candidates"]["n"]
+    a = open(os.path.join(d, "polished.fasta"), "rb").read()
+    b = open(os.path.join(r["jdir"], "polished.fasta"), "rb").read()
+    assert a == b

@@ -30,10 +30,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   8. judged config 3, compute_overlaps_cross(device="cuda") with the SW
      refine, on the phase-4 reads: K1 and K3 counters must move; truth
      precision >= 0.95
+  9. the measurement path: X1 (exp/myers_micro run_b), X2 (exp/sw_variants
+     v1, v2, v3) and X3 (exp/vpu_micro) == their plain versions, bit-exact;
+     then the three harnesses' main() as a user runs them (their counters
+     must move), the SASS add/max count of X3 and the DPX instructions of
+     X2, and `hga-torch bench --what sw|myers|count|pipeline --pairs 8192`
+     through cli.main (K1's and K3's counters must move)
 
 Phase 5 also runs config 3 and the short-read-only pipeline (8 kb genome)
-on cuda and on cpu, byte-identical.  Phases run in the order 0 1 2 3 7 4 8
-5 6.
+on cuda and on cpu, byte-identical.  Phase 6 also times K1 at the config-3
+gate shape (W 4).  Phases run in the order 0 1 2 3 7 4 8 5 6 9.
 
 The last three lines of standard output are the `kernels` JSON line, the
 card's `name, power.limit`, and {"ok": true, "device": {...}}.
@@ -42,33 +48,36 @@ card's `name, power.limit`, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks used for bounds (NVIDIA data sheet): HBM3 3.35 TB/s; int32
-# ALU issue 64 lanes per SM per clock x 132 SMs x 1.98 GHz boost
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# int32 operations per word, target column and pair in the Myers recurrence
-# after the compiler's 3-input logic fusion (about 37 source-level ops)
-OPS_PER_WORD_COLUMN = 20
-# int32 operations per in-band cell of the SW recurrence (the Pallas
-# kernel's CostEstimate, hga_tpu/ops/align_pallas.py:222)
-SW_OPS_PER_CELL = 12
-
-SOURCES = {"myers_batch_cuda": "hga_tpu_torch/csrc/myers.cu",
-           "myers_batch_planes_cuda": "hga_tpu_torch/csrc/myers.cu",
-           "banded_sw_batch_cuda": "hga_tpu_torch/csrc/sw.cu"}
-REPLACES = {"myers_batch_cuda": "hga_tpu/ops/myers_pallas.py:47",
-            "myers_batch_planes_cuda": "hga_tpu/ops/myers_pallas.py:106",
-            "banded_sw_batch_cuda": "hga_tpu/ops/align_pallas.py:66"}
+# kernel (its wrapper's launch counter) -> (source, TPU kernel it replaces)
+KERNELS = {
+    "myers_batch_cuda": ("hga_tpu_torch/csrc/myers.cu",
+                         "hga_tpu/ops/myers_pallas.py:47"),
+    "myers_batch_planes_cuda": ("hga_tpu_torch/csrc/myers.cu",
+                                "hga_tpu/ops/myers_pallas.py:106"),
+    "banded_sw_batch_cuda": ("hga_tpu_torch/csrc/sw.cu",
+                             "hga_tpu/ops/align_pallas.py:66"),
+    "run_b_cuda": ("hga_tpu_torch/csrc/myers_micro.cu",
+                   "exp/myers_micro.py:58"),
+    "sw_variants_v1": ("hga_tpu_torch/csrc/sw_variants.cu",
+                       "exp/sw_variants.py:32"),
+    "sw_variants_v2": ("hga_tpu_torch/csrc/sw_variants.cu",
+                       "exp/sw_variants.py:95"),
+    "sw_variants_v3": ("hga_tpu_torch/csrc/sw_variants.cu",
+                       "exp/sw_variants.py:326"),
+    "vpu_chains_cuda": ("hga_tpu_torch/csrc/vpu_micro.cu",
+                        "exp/vpu_micro.py:16"),
+}
 
 
 def log(msg: str) -> None:
@@ -79,31 +88,40 @@ def fail(msg: str) -> None:
     raise SystemExit(f"FAIL: {msg}")
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()
-    return out[0].strip()
+_PTXAS_ENTRY = (
+    # (kind, mangled-name pattern, key of the instantiation from its groups)
+    ("K1/K2", r"myers_kernelILi(\d+)ELb([01])E", None),
+    ("K3", r"sw_kernelILb([01])E",
+     lambda g: "smem" if g[0] == "1" else "scratch"),
+    ("X1", r"myers_slab_kernelILi(\d+)E", lambda g: int(g[0])),
+    ("X2", r"swv_kernelILb([01])ELi(\d+)ELi(\d+)ELi(\d+)E",
+     lambda g: (f"{'v2' if g[0] == '1' else 'i32'}K{g[1]}G{g[2]}"
+                f"f{g[3]}")),
+    ("X3", r"vpu_kernelILi(\d+)ELi(\d+)E", lambda g: f"C{g[0]}S{g[1]}"),
+)
 
 
 def ptxas_report(text: str):
-    """(kernel, W or K3's buffer kind, registers, (spill store bytes, spill
-    load bytes)) per instantiation, from nvcc's -Xptxas -v report."""
+    """(kernel, instantiation, registers, (spill store bytes, spill load
+    bytes)) per instantiation, from nvcc's -Xptxas -v report: K1/K2 by W,
+    K3 by buffer kind, X1 by W, X2 by layout, K, G and ablation flags, X3
+    by C and STEPS."""
     import re
 
     rows, cur = [], None
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '.*myers_kernel"
-                      r"ILi(\d+)ELb([01])E", line)
-        m3 = re.search(r"Compiling entry function '.*sw_kernelILb([01])E",
-                       line)
-        if m or m3:
-            cur = ([("K2" if m.group(2) == "1" else "K1"), int(m.group(1)),
-                    0, (0, 0)] if m else
-                   ["K3", "smem" if m3.group(1) == "1" else "scratch",
-                    0, (0, 0)])
-            rows.append(cur)
+        if "Compiling entry function" in line:
+            cur = None
+            for kind, pat, key in _PTXAS_ENTRY:
+                m = re.search(r"Compiling entry function '.*?" + pat, line)
+                if m and kind == "K1/K2":
+                    cur = ["K2" if m.group(2) == "1" else "K1",
+                           int(m.group(1)), 0, (0, 0)]
+                elif m:
+                    cur = [kind, key(m.groups()), 0, (0, 0)]
+                if cur is not None:
+                    rows.append(cur)
+                    break
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -157,11 +175,29 @@ def to_dev(*xs):
     return tuple(torch.from_numpy(x).cuda() for x in xs)
 
 
+def gate_inputs(rng):
+    """The config-3 gate's K1 launch (models/overlap._myers_gate): N 4096
+    short-read segments (Lq 112, W 4) of ragged length padded with code 4,
+    windows of Lq + band + 8 = 184 that run off the long read's ends (code
+    4), every tlen the full window."""
+    import numpy as np
+
+    N, Lq, Lt = 4096, 112, 184
+    q, t, _, tl = planted_pairs(rng, N, Lq, Lt, lead=32)
+    ql = rng.integers(0, Lq + 1, N).astype(np.int32)
+    ql[:4] = [0, 31, 32, Lq]
+    q[np.arange(Lq)[None, :] >= ql[:, None]] = 4
+    row, x = np.arange(N), np.arange(Lt)[None, :]
+    pre = np.where(row < N // 4, rng.integers(0, Lt // 2, N), 0)
+    post = np.where((row >= N // 4) & (row < N // 2),
+                    rng.integers(0, Lt // 2, N), 0)
+    t[(x < pre[:, None]) | (x >= Lt - post[:, None])] = 4
+    return q, t, ql, tl
+
+
 # ---------------------------------------------------------------- phases
 
 def phase_k1(rng, MC, M):
-    import numpy as np
-
     log("phase 2: K1 myers_batch_cuda vs plain, bit-exact")
     errs = []
     N, Lq, Lt = 4096, 414, 478
@@ -176,20 +212,7 @@ def phase_k1(rng, MC, M):
     ref = M.myers_batch(*args)
     errs += [eq("K1 gate-shape dist", got.dist, ref.dist),
              eq("K1 gate-shape tend", got.tend, ref.tend)]
-    # the config-3 gate (models/overlap._myers_gate): short-read segments of
-    # ragged length padded with code 4, windows of Lq + band + 8 that run
-    # off the long read's ends (code 4), every tlen the full window
-    N, Lq, Lt = 4096, 112, 184
-    q, t, _, tl = planted_pairs(rng, N, Lq, Lt, lead=32)
-    ql = rng.integers(0, Lq + 1, N).astype(np.int32)
-    ql[:4] = [0, 31, 32, Lq]
-    q[np.arange(Lq)[None, :] >= ql[:, None]] = 4
-    row, x = np.arange(N), np.arange(Lt)[None, :]
-    pre = np.where(row < N // 4, rng.integers(0, Lt // 2, N), 0)
-    post = np.where((row >= N // 4) & (row < N // 2),
-                    rng.integers(0, Lt // 2, N), 0)
-    t[(x < pre[:, None]) | (x >= Lt - post[:, None])] = 4
-    args = to_dev(q, t, ql, tl)
+    args = to_dev(*gate_inputs(rng))
     got = MC.myers_batch_cuda(*args)
     ref = M.myers_batch(*args)
     errs += [eq("K1 config-3 gate shape (Lq 112, W 4) dist", got.dist,
@@ -595,60 +618,64 @@ def phase_config3(genome_len: int, MC, AC):
     return launches, out
 
 
-def cuda_ms(fn, arg_sets, reps: int) -> float:
-    """Mean ms per call over `reps` calls cycling through distinct inputs,
-    after one warm-up call per input set (CUDA events)."""
-    import torch
+def time_row(shape, wrapper, sets, kernel, kernel_sets, plain, cells, ops,
+             nbytes, counters):
+    """CUDA-event times of a wrapper and of its kernel alone (20 calls over
+    distinct input sets, warm) and of the plain version (one call), the
+    bound from `ops` int32 operations and `nbytes` bytes, GCUPS on `cells`.
+    Launches made here are no path's: the counters are restored."""
+    from hga_tpu_torch.utils import benchmarks as B
 
-    for a in arg_sets:
-        fn(*a)
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    for r in range(reps):
-        fn(*arg_sets[r % len(arg_sets)])
-    e.record()
-    torch.cuda.synchronize()
-    return s.elapsed_time(e) / reps
+    before = [dict(c) for c in counters]
+    ms = B.cuda_ms(wrapper, sets, 20)
+    kern_ms = B.cuda_ms(kernel, kernel_sets, 20)
+    plain_ms = B.cuda_ms(plain, sets[:1], 1)
+    for c, b in zip(counters, before):
+        c.update(b)
+    bound, by = B.bound_ms(ops, nbytes)
+    row = dict(shape=shape, ms=ms, kernel_ms=kern_ms, plain_ms=plain_ms,
+               bound_ms=bound, bound_by=by)
+    if cells:
+        row.update(cells=int(cells), gcups=cells / (ms * 1e-3) / 1e9,
+                   kernel_gcups=cells / (kern_ms * 1e-3) / 1e9)
+    return row
 
 
 def phase_times(rng, MC, M, PU):
     import torch
 
     from hga_tpu_torch.models import correction as CR
+    from hga_tpu_torch.utils import benchmarks as B
 
     log("phase 6: kernel times (CUDA events, distinct inputs, warm)")
-    rows = {}
-    for name, planes, (N, Lq, Lt) in (
-            ("myers_batch_cuda", False, (4096, 414, 478)),
-            ("myers_batch_planes_cuda", True, (4096, 112, 184))):
+
+    def myers_row(planes, sets):
+        N, Lq = sets[0][0].shape
+        Lt = sets[0][1].shape[1]
         W = M.n_words(Lq)
-        sets = [to_dev(*planted_pairs(rng, N, Lq, Lt)) for _ in range(4)]
-        wrapper = MC.myers_batch_planes_cuda if planes else MC.myers_batch_cuda
-        plain = M.myers_batch_planes if planes else M.myers_batch
-        ops = [MC.kernel_operands(*a, planes=planes) for a in sets]
-        n_before = dict(MC.LAUNCHES)
-        ms = cuda_ms(wrapper, sets, 20)
-        kern_ms = cuda_ms(MC.run_kernel, ops, 20)
-        plain_ms = cuda_ms(plain, sets[:1], 1)
-        MC.LAUNCHES.update(n_before)     # timing launches are not main path
-        cells = N * Lq * Lt
-        in_bytes = 4 * N * (Lq + Lt) + 8 * N
         out_bytes = 8 * N + (2 * 4 * Lt * N * W if planes else 0)
-        byte_ms = 1e3 * (in_bytes + out_bytes) / HBM_BYTES_PER_S
-        op_ms = 1e3 * N * Lt * W * OPS_PER_WORD_COLUMN / INT32_OPS_PER_S
+        row = time_row(
+            dict(N=N, Lq=Lq, Lt=Lt, W=W),
+            MC.myers_batch_planes_cuda if planes else MC.myers_batch_cuda,
+            sets, MC.run_kernel,
+            [MC.kernel_operands(*a, planes=planes) for a in sets],
+            M.myers_batch_planes if planes else M.myers_batch,
+            N * Lq * Lt, N * Lt * W * B.OPS_PER_WORD_COLUMN,
+            4 * N * (Lq + Lt) + 8 * N + out_bytes, [MC.LAUNCHES])
         regs, local = MC.kernel_attrs(W, planes)
-        rows[name] = dict(
-            shape=dict(N=N, Lq=Lq, Lt=Lt, W=W), ms=round(ms, 4),
-            kernel_ms=round(kern_ms, 4), plain_ms=round(plain_ms, 3),
-            gcups=round(cells / (ms * 1e-3) / 1e9, 2),
-            kernel_gcups=round(cells / (kern_ms * 1e-3) / 1e9, 2),
-            bound_ms=round(max(byte_ms, op_ms), 5),
-            bound_by="bytes" if byte_ms > op_ms else "operations",
-            registers=regs, local_bytes=local,
-            blocks=-(-N // 128))
-        log(f"  {name}: {json.dumps(rows[name])}")
+        row.update(registers=regs, local_bytes=local, blocks=-(-N // 128))
+        return row
+
+    rows = {}
+    rows["myers_batch_cuda"] = myers_row(False, [
+        to_dev(*planted_pairs(rng, 4096, 414, 478)) for _ in range(4)])
+    rows["myers_batch_planes_cuda"] = myers_row(True, [
+        to_dev(*planted_pairs(rng, 4096, 112, 184)) for _ in range(4)])
+    # K1 at the config-3 gate shape (W 4), where most of its launches run
+    rows["myers_batch_cuda"]["gate_shape"] = myers_row(False, [
+        to_dev(*gate_inputs(rng)) for _ in range(4)])
+    for name, r in rows.items():
+        log(f"  {name}: {json.dumps(r)}")
 
     # one correction batch at the judged shape: K2 + gate / traceback split
     N, Lq, Lt = 4096, 112, 184
@@ -691,6 +718,8 @@ def phase_times(rng, MC, M, PU):
 def phase_times_k3(rng, AC, A):
     """K3 at the refine's shapes: kernel alone and wrapper (CUDA events,
     distinct inputs), the plain version, GCUPS on in-band cells, bound."""
+    from hga_tpu_torch.utils import benchmarks as B
+
     log("phase 6: K3 times (CUDA events, distinct inputs, warm)")
     N, Lq, band = 4096, 112, 64
     Lt = Lq + band + 8
@@ -705,26 +734,14 @@ def phase_times_k3(rng, AC, A):
     for shape, sets, b in (("forward", fwd_sets, band),
                            ("reverse", rev_sets, 2 * band)):
         dev_sets = [to_dev(*x) for x in sets]
-        wrapper = lambda *x: AC.banded_sw_batch_cuda(*x, band=b)
-        plain = lambda *x: A.banded_sw_batch(*x, band=b)
-        ops = [AC.kernel_operands(*x, band=b) for x in dev_sets]
-        n_before = dict(AC.LAUNCHES)
-        ms = cuda_ms(wrapper, dev_sets, 20)
-        kern_ms = cuda_ms(AC.run_kernel, ops, 20)
-        plain_ms = cuda_ms(plain, dev_sets[:1], 1)
-        AC.LAUNCHES.update(n_before)     # timing launches are not main path
         cells = sum(A.sw_cells(x[2], x[3], b) for x in sets) / len(sets)
-        in_bytes = 4 * N * (Lq + Lt) + 8 * N
-        byte_ms = 1e3 * (in_bytes + 12 * N) / HBM_BYTES_PER_S
-        op_ms = 1e3 * cells * SW_OPS_PER_CELL / INT32_OPS_PER_S
-        rows[shape] = dict(
-            shape=dict(N=N, Lq=Lq, Lt=Lt, band=b), cells=int(cells),
-            ms=round(ms, 4), kernel_ms=round(kern_ms, 4),
-            plain_ms=round(plain_ms, 3),
-            gcups=round(cells / (ms * 1e-3) / 1e9, 2),
-            kernel_gcups=round(cells / (kern_ms * 1e-3) / 1e9, 2),
-            bound_ms=round(max(byte_ms, op_ms), 5),
-            bound_by="bytes" if byte_ms > op_ms else "operations")
+        rows[shape] = time_row(
+            dict(N=N, Lq=Lq, Lt=Lt, band=b),
+            lambda *x: AC.banded_sw_batch_cuda(*x, band=b), dev_sets,
+            AC.run_kernel, [AC.kernel_operands(*x, band=b) for x in dev_sets],
+            lambda *x: A.banded_sw_batch(*x, band=b), cells,
+            cells * B.SW_OPS_PER_CELL, 4 * N * (Lq + Lt) + 8 * N + 12 * N,
+            [AC.LAUNCHES])
         log(f"  banded_sw_batch_cuda {shape}: {json.dumps(rows[shape])}")
     regs, local = AC.kernel_attrs(smem=True)
     rows["forward"].update(registers=regs, local_bytes=local,
@@ -732,11 +749,249 @@ def phase_times_k3(rng, AC, A):
     return rows
 
 
+SW_FIELDS = ("score", "qend", "tend")
+
+
+def x_checks(rng, VM, MM, SV, M, A):
+    """Phase 9's comparisons: X3, X1 and X2 against their plain versions on
+    the card, bit-exact.  Returns {kernel: max |kernel - plain|} (0)."""
+    import numpy as np
+    import torch
+
+    err = {}
+    # X3 at the sweep's C and STEPS, with elements at and near INT32_MAX
+    # (the chains wrap there) and at INT32_MIN
+    x = np.random.default_rng(3).integers(0, 100, (128, 128)).astype(np.int32)
+    x[0, :4] = [2**31 - 5, 2**31 - 1, -2**31, -1]
+    xd = torch.from_numpy(x).cuda()
+    err["vpu_chains_cuda"] = max(
+        eq(f"X3 C={C} STEPS=2048 (3 copies)",
+           VM.vpu_chains_cuda(xd, C, 2048, reps=3),
+           VM.chains(xd, C, 2048).expand(3, *x.shape))
+        for C in (1, 2, 4, 8))
+    # X1 at the harness's main() shapes, then a ragged case: a partial
+    # block (N 1000) and slab (Lt 190), qlen 0..Lq with code 4 past it,
+    # ragged tlen, codes -1/4/9 in the targets
+    errs = []
+    for N, Lq, Lt, BLK, S in MM.SHAPES[:2]:
+        ops, (q, t, ql, tl) = MM.prep(N, Lq, Lt, "cuda")
+        got, ref = MM.run_b(*ops, S=S, BLK=BLK), M.myers_batch(q, t, ql, tl)
+        errs += [eq(f"X1 N {N} Lq {Lq} Lt {Lt} {f}", getattr(got, f),
+                    getattr(ref, f)) for f in ("dist", "tend")]
+    N, Lq, Lt = 1000, 128, 190
+    q, t, _, _ = planted_pairs(rng, N, Lq, Lt)
+    ql = rng.integers(0, Lq + 1, N).astype(np.int32)
+    ql[:4] = [0, 31, 62, Lq]
+    q[np.arange(Lq)[None, :] >= ql[:, None]] = 4
+    tl = rng.integers(1, Lt + 1, N).astype(np.int32)
+    t[:64, :8] = rng.choice([-1, 4, 9], size=(64, 8))
+    qd, td, qld, tld = to_dev(q, t, ql, tl)
+    planes = M.query_planes(qd, qld, M.n_words(Lq))
+    ref = M.myers_batch(qd, td, qld, tld)
+    for S, BLK in ((8, 32), (2, 8)):
+        got = MM.run_b(qld, tld, *planes, td, S=S, BLK=BLK)
+        errs += [eq(f"X1 ragged (N {N}, Lt {Lt}) S {S} BLK {BLK} {f}",
+                    getattr(got, f), getattr(ref, f))
+                 for f in ("dist", "tend")]
+    err["run_b_cuda"] = max(errs)
+    # X2 at check()'s shape and at K3's refine shapes (forward band 64 and
+    # reverse band 128, ragged, homopolymer and ACAC tie rows; band >= Lq)
+    cases = [("check() shape (N 256, Lq 128, Lt 256) band 64",
+              *SV.planted_inputs(256, 128, 256), 64)] + sw_cases(rng, A)[:3]
+    errs = {v: [] for v in ("v1", "v2", "v3")}
+    for label, q, t, ql, tl, band in cases:
+        args = to_dev(q, t, ql, tl)
+        ref = A.banded_sw_batch(*args, band=band)
+        for v in ("v1", "v2", "v3", "v3g2"):
+            got = SV.sw_pallas_exp(*args, band=band, variant=v)
+            errs[v[:2]] += [eq(f"X2 {v} {label} {f}", getattr(got, f),
+                               getattr(ref, f)) for f in SW_FIELDS]
+    for v, e in errs.items():
+        err[f"sw_variants_{v}"] = max(e)
+    return err
+
+
+def sass_dpx(cuda_build):
+    """{instantiation: counts of the integer max/add-max instructions, and
+    of all instructions} of X2's SASS: whether the DPX forms (VIADDMNMX,
+    VIMNMX) appear, and how long each instantiation's code is."""
+    import re
+
+    out = {}
+    for fn, ops in cuda_build.sass_opcodes("sw_variants").items():
+        m = re.search(r"swv_kernelILb([01])ELi(\d+)ELi(\d+)ELi(\d+)E", fn)
+        if m:
+            key = (f"{'v2' if m.group(1) == '1' else 'i32'} K{m.group(2)} "
+                   f"G{m.group(3)} flags{m.group(4)}")
+            out[key] = {op: n for op, n in sorted(ops.items())
+                        if op in ("VIADDMNMX", "VIMNMX", "VIMNMX3", "IMNMX",
+                                  "VIADD", "VHMNMX")}
+            out[key]["all"] = sum(ops.values())
+    return out
+
+
+def bench_path(cli):
+    """`hga-torch bench --what sw|myers|count|pipeline --pairs 8192`
+    through cli.main, as a user runs it; each prints one JSON line."""
+    out = {}
+    for what in ("sw", "myers", "count", "pipeline"):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["bench", "--what", what, "--pairs", "8192"])
+        res = json.loads(buf.getvalue().strip().splitlines()[-1])
+        log(f"  bench {what} ({time.perf_counter() - t0:.1f} s): "
+            f"{json.dumps(res)}")
+        need = ("gcups",) if what in ("sw", "myers") else ("reads_per_s",)
+        if rc != 0 or any(k not in res for k in need):
+            fail(f"bench --what {what}: rc {rc}, lacks one of {need}")
+        out[what] = res
+    if out["sw"]["impl"] != "cuda_k3" or out["myers"]["impl"] != "cuda_k1":
+        fail("bench sw/myers did not run K3/K1")
+    return out
+
+
+def x_times(x3_rows, x1_rows, sv_rows, VM, MM, SV, M, A):
+    """The X rows of the kernels line: each kernel beside its plain version
+    and its bound at the harness's timing shape, and beside K1 or K3 at the
+    same shape (from the harnesses' own rows)."""
+    import numpy as np
+    import torch
+
+    from hga_tpu_torch.utils import benchmarks as B
+
+    counters = [VM.LAUNCHES, MM.LAUNCHES, SV.LAUNCHES]
+    rows = {}
+    # X1 at the harness's first shape (N 4096, Lq 128, Lt 192, W 5)
+    N, Lq, Lt, BLK, S = MM.SHAPES[0]
+    W = M.n_words(Lq)
+    ops, _ = MM.prep(N, Lq, Lt, "cuda")
+    sets = MM.target_sets(ops)
+    rows["run_b_cuda"] = time_row(
+        dict(N=N, Lq=Lq, Lt=Lt, W=W, BLK=BLK, S=S),
+        lambda *a: MM.run_b(*a, S=S, BLK=BLK), sets,
+        lambda *k: MM.run_kernel(*k, S=S, BLK=BLK),
+        [MM.kernel_operands(*a, S=S) for a in sets],
+        lambda ql, tl, q0, q1, vq, mend, t: M.myers_batch_from_planes(
+            q0, q1, vq, mend, t, ql, tl),
+        N * Lq * Lt, N * Lt * W * B.OPS_PER_WORD_COLUMN,
+        16 * N * W + 4 * N * Lt + 8 * N + 8 * N, counters)
+    rows["run_b_cuda"].update(zip(("registers", "local_bytes"),
+                                  MM.kernel_attrs(W)))
+    beside = next(r for r in x1_rows if (r["N"], r["Lq"]) == (N, Lq))
+    rows["run_b_cuda"]["beside_k1"] = {
+        k: beside[k] for k in ("k1_ms", "k1_kernel_ms", "kernel_ms")}
+    # X2 at timeit()'s shape (N 4096, Lq 128, Lt 256, band 64)
+    N, Lq, Lt, band = 4096, 128, 256, 64
+    g = np.random.default_rng(0)
+    q = g.integers(0, 4, (N, Lq)).astype(np.int32)
+    t = g.integers(0, 4, (N, Lt)).astype(np.int32)
+    ql, tl = np.full(N, Lq, np.int32), np.full(N, Lt, np.int32)
+    sets = [to_dev((q + i) % 4, t, ql, tl) for i in range(4)]
+    cells = A.sw_cells([Lq], [Lt], band) * N
+    for v in ("v1", "v2", "v3"):
+        outs = [tuple(torch.empty(N, dtype=torch.int32, device="cuda")
+                      for _ in range(3)) for _ in sets]
+        rows[f"sw_variants_{v}"] = time_row(
+            dict(N=N, Lq=Lq, Lt=Lt, band=band, variant=v),
+            lambda *a: SV.sw_pallas_exp(*a, band=band, variant=v), sets,
+            lambda *a: SV.run_kernel(*a, variant=v, band=band),
+            [(*a, o) for a, o in zip(sets, outs)],
+            lambda *a: A.banded_sw_batch(*a, band=band), cells,
+            cells * B.SW_OPS_PER_CELL, 4 * N * (Lq + Lt) + 8 * N + 12 * N,
+            counters)
+        rows[f"sw_variants_{v}"].update(zip(("registers", "local_bytes"),
+                                            SV.kernel_attrs(v, Lq)))
+        beside = next(r for r in sv_rows if r["variant"] == v)
+        rows[f"sw_variants_{v}"]["beside_k3"] = {
+            k: beside[k] for k in ("k3_ms", "k3_kernel_ms", "kernel_ms")}
+    rows["sw_variants_v1"]["ablations"] = {
+        r["variant"]: {k: r[k] for k in ("ms", "kernel_ms", "gcups")}
+        for r in sv_rows if "no" in r["variant"]}
+    # X3 at the sweep's fastest C (R 128, STEPS 2048, default_reps copies)
+    best = max((r for r in x3_rows if "C" in r and r["R"] == 128),
+               key=lambda r: r["lane_ops_per_s"])
+    C, steps, reps = best["C"], best["steps"], best["reps"]
+    xs = [(torch.full((128, 128), 7 + i, dtype=torch.int32, device="cuda"),)
+          for i in range(4)]
+    outs = [torch.empty((reps, 128, 128), dtype=torch.int32, device="cuda")
+            for _ in xs]
+    elems = 128 * 128 * reps
+    # the bound counts the add/max instructions the SASS holds (nvcc fuses
+    # a step's add and max into one VIADDMNMX), issued at INT32_OPS_PER_S
+    instr = sum(best["sass_add_max"].values())
+    rows["vpu_chains_cuda"] = time_row(
+        dict(R=128, C=C, steps=steps, reps=reps),
+        lambda x: VM.vpu_chains_cuda(x, C, steps, reps), xs,
+        lambda x, o: VM.run_kernel(x, C, steps, o),
+        [(x, o) for (x,), o in zip(xs, outs)],
+        lambda x: VM.chains(x.repeat(reps, 1), C, steps), 0,
+        instr * elems, 8 * elems, counters)
+    rows["vpu_chains_cuda"].update(
+        zip(("registers", "local_bytes"), VM.kernel_attrs(C, steps)),
+        lane_ops_per_s=best["lane_ops_per_s"],
+        instr_per_s=best.get("instr_per_s"), share=best.get("share"),
+        sass_add_max=best.get("sass_add_max"))
+    for name, r in rows.items():
+        log(f"  {name}: {json.dumps(r)}")
+    return rows
+
+
+def phase_measurement(rng, VM, MM, SV, M, A, MC, AC, cuda_build):
+    """Phase 9: the measurement path.  Returns (max errors, launches by
+    path, timing rows, bench results)."""
+    from hga_tpu_torch import cli
+
+    log("phase 9: the measurement path (harness kernels X1-X3, "
+        "hga-torch bench)")
+    t9 = t0 = time.perf_counter()
+    err = x_checks(rng, VM, MM, SV, M, A)
+    log(f"  checks: {time.perf_counter() - t0:.1f} s")
+    dpx = sass_dpx(cuda_build)
+    log(f"  X2 SASS integer max / add-max instructions: {json.dumps(dpx)}")
+    # the harnesses as a user runs them: python -m hga_tpu_torch.exp.<name>
+    for mod in (VM, MM, SV):
+        mod.reset_launches()
+    t0 = time.perf_counter()
+    x3_rows = VM.main([])
+    x1_rows = MM.main([])
+    sv_rows = SV.main(["--time", "--variants",
+                       "v1,v2,v3,v3g2,v1nots,v1nos1,v1nomask,v1nobest"])
+    harness = dict(VM.LAUNCHES, **MM.LAUNCHES, **{
+        f"sw_variants_{k}": n for k, n in SV.LAUNCHES.items()})
+    log(f"  harnesses ({time.perf_counter() - t0:.1f} s), launches: "
+        f"{json.dumps(harness)}")
+    for name in ("vpu_chains_cuda", "run_b_cuda", "sw_variants_v1",
+                 "sw_variants_v2", "sw_variants_v3",
+                 "sw_variants_v1_ablation"):
+        if harness[name] <= 0:
+            fail(f"{name} was never launched by the harnesses")
+    if not all(r["ok"] for r in x1_rows):
+        fail("myers_micro main(): X1 differs from the plain version")
+    if not all("share" in r for r in x3_rows if "C" in r):
+        fail("vpu_micro main(): no SASS add/max count")
+    MC.reset_launches()
+    AC.reset_launches()
+    t0 = time.perf_counter()
+    bench = bench_path(cli)
+    launches = dict(MC.LAUNCHES, **AC.LAUNCHES)
+    log(f"  bench ({time.perf_counter() - t0:.1f} s), launches: "
+        f"{json.dumps(launches)}")
+    for name in ("myers_batch_cuda", "banded_sw_batch_cuda"):
+        if launches[name] <= 0:
+            fail(f"{name} was never launched by hga-torch bench")
+    rows = x_times(x3_rows, x1_rows, sv_rows, VM, MM, SV, M, A)
+    rows["dpx"] = dpx
+    log(f"  phase 9: {time.perf_counter() - t9:.1f} s")
+    paths = {"phase 9 harnesses": harness, "phase 9 bench": launches}
+    return err, paths, rows, bench
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--genome-len", type=int, default=1_000_000,
                     help="phase-4 genome length (default 1,000,000 bp)")
-    ap.add_argument("--phases", default="012345678",
+    ap.add_argument("--phases", default="0123456789",
                     help="phases to run (default all)")
     args = ap.parse_args()
 
@@ -752,12 +1007,16 @@ def main() -> int:
               file=sys.stderr)
         return 3
     sys.path.insert(0, HERE)
+    from hga_tpu_torch.exp import myers_micro as MM
+    from hga_tpu_torch.exp import sw_variants as SV
+    from hga_tpu_torch.exp import vpu_micro as VM
     from hga_tpu_torch.ops import align as A
     from hga_tpu_torch.ops import align_cuda as AC
     from hga_tpu_torch.ops import cuda_build
     from hga_tpu_torch.ops import myers as M
     from hga_tpu_torch.ops import myers_cuda as MC
     from hga_tpu_torch.ops import pileup as PU
+    from hga_tpu_torch.utils.benchmarks import card_line
 
     ph = set(args.phases)
     card = card_line()
@@ -768,25 +1027,28 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = cuda_build.build_all(force=True)
     built = {n: dict(cuda_build.BUILD_INFO[n]) for n in libs}
-    MC._lib()
-    AC._lib()
+    for mod in (MC, AC, VM, MM, SV):
+        mod._lib()
     log(f"phase 1: built {len(libs)} libraries (one nvcc each, in parallel) "
         f"in {time.perf_counter() - t0:.1f} s: " + ", ".join(
             f"{os.path.relpath(p, HERE)} {built[n]['seconds']:.1f} s"
             for n, p in libs.items()))
     report = ptxas_report("".join(str(b["ptxas"]) for b in built.values()))
-    log(f"  ptxas report: {len(report)} of {2 * M.MAX_WORDS + 2} kernel "
-        "instantiations parsed")
-    for kern in ("K1", "K2", "K3"):
+    expect = (2 * M.MAX_WORDS + 2 + M.MAX_WORDS
+              + sum(len(k) for k in SV.BUILT.values()) + len(VM.BUILT))
+    log(f"  ptxas report: {len(report)} of {expect} kernel instantiations "
+        "parsed")
+    for kern, by in (("K1", "W"), ("K2", "W"), ("K3", "buffer"), ("X1", "W"),
+                     ("X2", "layout"), ("X3", "C, STEPS")):
         rows = [r for r in report if r[0] == kern]
-        log(f"  ptxas {kern} registers by {'buffer' if kern == 'K3' else 'W'}: "
+        log(f"  ptxas {kern} registers by {by}: "
             + " ".join(f"{w}:{regs}" for _, w, regs, _ in rows))
         log(f"  ptxas {kern} spill stores/loads (bytes) where nonzero: "
             + (" ".join(f"{w}:{s[0]}/{s[1]}" for _, w, _, s in rows if any(s))
                or "none"))
 
     rng = np.random.default_rng(7)
-    err = dict.fromkeys(SOURCES)     # None: the kernel's check did not run
+    err = dict.fromkeys(KERNELS)     # None: the kernel's check did not run
     if "2" in ph:
         err["myers_batch_cuda"] = phase_k1(rng, MC, M)
     if "3" in ph:
@@ -795,8 +1057,9 @@ def main() -> int:
         err["banded_sw_batch_cuda"] = phase_k3(rng, AC, A)
     torch.cuda.synchronize()
 
-    # launches per kernel on each main path that ran: K1 and K2 on the
-    # hybrid pipeline (phase 4), K1 and K3 on config 3 (phase 8)
+    # launches per kernel on each path that ran: K1 and K2 on the hybrid
+    # pipeline (phase 4), K1 and K3 on config 3 (phase 8), X1-X3 on the
+    # harnesses and K1/K3 on hga-torch bench (phase 9)
     workdir = tempfile.mkdtemp(prefix="hga_smoke_")
     paths = {}
     try:
@@ -811,30 +1074,35 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    kernels = []
+    # every kernel in the line, each value null where its phase did not run
+    entries = {name: dict(
+        name=name, route="cuda", source=src, replaces=rep, launches=None,
+        launches_by_path={}, max_abs_err=None, matches_plain=None, ms=None,
+        kernel_ms=None, plain_ms=None, bound_ms=None, bound_by=None,
+        library_ms=None, gcups=None, shape=None, registers=None,
+        local_bytes=None) for name, (src, rep) in KERNELS.items()}
     if "6" in ph:
         rows, split = phase_times(rng, MC, M, PU)
         sw = phase_times_k3(rng, AC, A)
         rows["banded_sw_batch_cuda"] = dict(sw["forward"],
                                             reverse=sw["reverse"])
         for name, r in rows.items():
-            # null where the phase that measures a number did not run
-            by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
-            kernels.append(dict(
-                name=name, route="cuda", source=SOURCES[name],
-                replaces=REPLACES[name],
-                launches=sum(by_path.values()) if by_path else None,
-                launches_by_path=by_path,
-                max_abs_err=err[name], ms=r["ms"], plain_ms=r["plain_ms"],
-                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                library_ms=None, kernel_ms=r["kernel_ms"], gcups=r["gcups"],
-                matches_plain=None if err[name] is None else err[name] == 0,
-                shape=r["shape"],
-                registers=r["registers"], local_bytes=r["local_bytes"],
-                **({"reverse": r["reverse"]} if "reverse" in r else {})))
-        log("  no single PyTorch call computes Myers edit distance or "
-            "banded local SW: library_ms is null")
-    print(json.dumps({"kernels": kernels}), flush=True)
+            entries[name].update(r)
+    if "9" in ph:
+        x_err, x_paths, x_rows, bench = phase_measurement(
+            rng, VM, MM, SV, M, A, MC, AC, cuda_build)
+        err.update(x_err)
+        paths.update(x_paths)
+        for name in KERNELS:
+            entries[name].update(x_rows.get(name, {}))
+    for name, e in entries.items():
+        by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
+        e.update(launches=sum(by_path.values()) if by_path else None,
+                 launches_by_path=by_path, max_abs_err=err[name],
+                 matches_plain=None if err[name] is None else err[name] == 0)
+    log("  no single PyTorch call computes Myers edit distance, banded "
+        "local SW or the add/max chains: library_ms is null")
+    print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

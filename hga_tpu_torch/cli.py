@@ -11,6 +11,9 @@ versions):
   assemble  — config 4: with --overlaps only the graph + unitig stage,
               otherwise the full pipeline
   pipeline  — config 5: the full hybrid pipeline
+  bench     — one JSON line of GCUPS (``--what sw`` K3, ``myers`` K1) or
+              reads/s (``count``, ``pipeline``) on the device, with the
+              H100's roofline (utils/benchmarks.py)
 
 ``overlap_refine="sw"`` (the scored Smith-Waterman refine) is set through
 ``--config``, as in the reference.
@@ -197,6 +200,15 @@ def cmd_assemble(args) -> int:
     return 0
 
 
+def cmd_bench(args) -> int:
+    from hga_tpu_torch.utils.benchmarks import run_benchmark
+
+    out = run_benchmark(what=args.what, n_pairs=args.pairs,
+                        device=args.device)
+    print(json.dumps(out))
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="hga-torch",
@@ -219,6 +231,15 @@ def main(argv: Optional[List[str]] = None) -> int:
                            help="saved PackedReads artifact the overlaps "
                                 "index (e.g. corrected.npz)")
         p.set_defaults(fn=fn)
+    p = sub.add_parser("bench")
+    p.add_argument("--what", default="myers",
+                   choices=["myers", "sw", "count", "correction",
+                            "pipeline", "scaling", "comm"])
+    p.add_argument("--pairs", type=int, default=4096)
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default) or cpu")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.set_defaults(fn=cmd_bench)
     args = ap.parse_args(argv)
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,

@@ -525,14 +525,13 @@ def _seg_prep(packed_flat, rlen, qid, tid, relv, q0, seglen, t0, kindv,
 def compute_overlaps_long(
     pr: PackedReads,
     cfg: AssemblerConfig,
-    edit_fn=None,
     device="cuda",
     chunk_reads: int = 512,
     seg_batch: int = 4096,
 ) -> OverlapRecords:
     """All-vs-all overlaps of a LONG read set (multi-kb pads) on `device`."""
     dev = resolve_device(device)
-    edit = edit_fn or default_edit()
+    edit = default_edit()
     k = cfg.k
     n = pr.n_reads
     read_len = pr.length.astype(np.int64)

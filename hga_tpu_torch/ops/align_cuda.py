@@ -70,7 +70,7 @@ def kernel_attrs(smem: bool = True) -> Tuple[int, int]:
     return regs.value, local.value
 
 
-def _check(q, t, qlen, tlen) -> None:
+def check_operands(q, t, qlen, tlen) -> None:
     for name, x in (("q", q), ("t", t), ("qlen", qlen), ("tlen", tlen)):
         if x.device != q.device or x.device.type not in ("cuda", "cpu"):
             raise ValueError(f"{name} lies on {x.device}; all operands must "
@@ -129,7 +129,7 @@ def banded_sw_batch_cuda(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
     """K3: batched banded local SW, score + end cell; bit-exact with
     ops.align.banded_sw_batch.  q, t int32 (N, Lq), (N, Lt), lengths int32
     (N,), on one CUDA device (CPU tensors: the plain version)."""
-    _check(q, t, qlen, tlen)
+    check_operands(q, t, qlen, tlen)
     check_scores(band, gap)
     if not q.is_cuda:
         return banded_sw_batch(q, t, qlen, tlen, band=band, match=match,

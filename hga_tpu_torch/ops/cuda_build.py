@@ -4,19 +4,24 @@ Each library is one source compiled by ``nvcc`` (``-gencode
 arch=compute_90a,code=sm_90a``) into ``hga_tpu_torch/_build/`` as a shared
 library with a plain C interface, keyed by a hash of its source and the
 flags, and loaded with ctypes by its wrapper module (ops/myers_cuda.py,
-ops/align_cuda.py).  ``build_all`` starts one ``nvcc`` per library, all at
-once, and waits for them together.  The ptxas report (registers, spills)
-of each build is kept beside the library.
+ops/align_cuda.py, and the harness kernels' exp/vpu_micro.py,
+exp/myers_micro.py, exp/sw_variants.py).  ``build_all`` starts one
+``nvcc`` per library, all at once, and waits for them together.  The
+ptxas report (registers, spills)
+of each build is kept beside the library; ``sass_opcodes`` counts the
+instructions of each kernel in a built library (``cuobjdump -sass``).
 """
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
-from typing import Dict, Optional, Tuple
+from typing import Counter, Dict, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -25,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # library name -> its source in csrc/
-SOURCES = {"myers": "myers.cu", "sw": "sw.cu"}
+SOURCES = {"myers": "myers.cu", "sw": "sw.cu", "vpu_micro": "vpu_micro.cu",
+           "myers_micro": "myers_micro.cu", "sw_variants": "sw_variants.cu"}
 
 # what the last build of each library did: lib path, seconds, cached, ptxas
 BUILD_INFO: Dict[str, Dict[str, object]] = {}
@@ -103,3 +109,27 @@ def build(name: str) -> str:
     if started is not None:
         _finish(name, started)
     return str(BUILD_INFO[name]["lib"])
+
+
+_SASS_FUNC = re.compile(r"Function : (\S+)")
+_SASS_INSN = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                        r"([A-Z][A-Z0-9_]*)")
+
+
+def sass_opcodes(name: str) -> Dict[str, Counter[str]]:
+    """{mangled kernel name: opcode counts (modifiers dropped)} of one
+    built library, from the toolkit's ``cuobjdump -sass``."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", build(name)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    funcs: Dict[str, Counter[str]] = {}
+    cur: Optional[Counter[str]] = None
+    for line in out.splitlines():
+        m = _SASS_FUNC.search(line)
+        if m:
+            cur = funcs.setdefault(m.group(1), collections.Counter())
+            continue
+        m = _SASS_INSN.match(line)
+        if m and cur is not None:
+            cur[m.group(1)] += 1
+    return funcs

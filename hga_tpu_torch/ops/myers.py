@@ -78,16 +78,17 @@ def query_planes(q: torch.Tensor, qlen: torch.Tensor, W: int):
     return q0, q1, vq, mend
 
 
-def _columns(q, t, qlen, tlen, W, planes: bool):
-    """Run the column recurrence over every target column.
+def _columns(qp, t, qlen, tlen, planes: bool):
+    """Run the column recurrence over every target column, from the
+    query's (q0, q1, vq, mend) bit-planes (int32 (N, W), query_planes).
 
     Returns (best, bj) and, with planes=True, the int32 (Lt, N, W) Pv/Mv
     planes stored after every column.
     """
-    N, Lq = q.shape
+    q0, q1, vq, mend = (x.to(torch.int64) for x in qp)
+    N, W = q0.shape
     Lt = t.shape[1]
-    dev = q.device
-    q0, q1, vq, mend = (x.to(torch.int64) for x in query_planes(q, qlen, W))
+    dev = t.device
     pv = torch.full((N, W), M31, dtype=torch.int64, device=dev)
     mv = torch.zeros((N, W), dtype=torch.int64, device=dev)
     ql = qlen.to(torch.int64)
@@ -148,7 +149,18 @@ def myers_batch(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
 
     q, t: base codes (N, Lq), (N, Lt); codes outside 0..3 never match.
     """
-    res, _, _ = _columns(q, t, qlen, tlen, W or n_words(q.shape[1]), False)
+    W = W or n_words(q.shape[1])
+    res, _, _ = _columns(query_planes(q, qlen, W), t, qlen, tlen, False)
+    return res
+
+
+def myers_batch_from_planes(q0: torch.Tensor, q1: torch.Tensor,
+                            vq: torch.Tensor, mend: torch.Tensor,
+                            t: torch.Tensor, qlen: torch.Tensor,
+                            tlen: torch.Tensor) -> MyersResult:
+    """myers_batch from precomputed query bit-planes (query_planes, int32
+    (N, W) each): the plain version of the slab harness kernel X1."""
+    res, _, _ = _columns((q0, q1, vq, mend), t, qlen, tlen, False)
     return res
 
 
@@ -156,4 +168,5 @@ def myers_batch_planes(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
                        tlen: torch.Tensor, W: int = 0):
     """myers_batch + per-column Pv/Mv planes: (MyersResult, pv, mv) with
     planes int32 (Lt, N, W); planes[c] is the state AFTER target column c."""
-    return _columns(q, t, qlen, tlen, W or n_words(q.shape[1]), True)
+    W = W or n_words(q.shape[1])
+    return _columns(query_planes(q, qlen, W), t, qlen, tlen, True)

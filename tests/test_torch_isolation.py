@@ -29,16 +29,19 @@ def test_importing_the_port_loads_no_jax():
     for m in ("hga_tpu_torch.cli", "hga_tpu_torch.ops.align",
               "hga_tpu_torch.ops.align_cuda", "hga_tpu_torch.ops.cuda_build",
               "hga_tpu_torch.ops.pairs", "hga_tpu_torch.models.overlap",
-              "hga_tpu_torch.models.seeding"):
+              "hga_tpu_torch.models.seeding", "hga_tpu_torch.exp.myers_micro",
+              "hga_tpu_torch.exp.sw_variants", "hga_tpu_torch.exp.vpu_micro",
+              "hga_tpu_torch.utils.benchmarks"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
-        "             or m.startswith(('jax.', 'jaxlib', 'hga_tpu.'))\n"
-        "             or m == 'hga_tpu')\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'hga_tpu', "
+        "'exp')\n"
+        "             or m.startswith(('jax.', 'jaxlib', 'hga_tpu.', "
+        "'exp.')))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -59,4 +62,5 @@ def test_port_sources_import_nothing_of_jax():
                 names = [node.module]
             for n in names:
                 top = n.split(".")[0]
-                assert top not in ("jax", "jaxlib", "hga_tpu"), (path, n)
+                assert top not in ("jax", "jaxlib", "hga_tpu", "exp"), \
+                    (path, n)

@@ -8,38 +8,46 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   0. card facts: nvidia-smi name/power limit, torch and CUDA versions
   1. build the CUDA kernels from hga_tpu_torch/csrc (one nvcc per source,
      in parallel, sm_90a), timed; registers/spills per instantiation
-  2. K1 (myers_batch_cuda) == its plain PyTorch version, bit-exact, at the
+  2. K1' (myers_batch_cuda) == its plain PyTorch version, bit-exact, through
+     the wrapper and in the other design (G 1 or group_width(W)), at the
      long-overlap shape (N 4096, Lq 414, Lt 478), the config-3 gate shape
-     (N 4096, Lq 112, Lt 184, ragged, code-4 padding) and on edge cases
+     (N 4096, Lq 112, Lt 184, ragged, code-4 padding) and at W 1, 2, 4, 5,
+     14, 16, 24 with qlen 0, 1, 31, 32, 62, Lq - 1, ragged tlen and codes
+     -1, 4, 9
   3. K2 (myers_batch_planes_cuda) == its plain version (dist, tend, Pv, Mv)
      at the correction shape (N 4096, Lq 112, Lt 184), and the traceback
      votes made from each set of planes are equal
   4. the port's main path, run_pipeline(device="cuda"), on a simulated
-     genome with the judged read model; both kernels' launch counters must
+     genome with the judged read model; K1' and K2's launch counters must
      move; per-stage seconds, contigs, N50, k-mer identity (>= 0.99) and
      genome fraction
   5. the same pipeline on a ~20 kb genome on cuda and on cpu: artifacts
      byte-identical / array-equal
   6. CUDA-event times of each kernel (wrapper and kernel alone) and of its
-     plain version at the phase 2-3 and 7 shapes, GCUPS, bounds, and the
+     plain version, GCUPS, bounds and the share of them, registers: K1' in
+     both designs at W 14, 4, 5 and 1, K2, K3' at the refine's shapes
+     beside K3's kernel on the same inputs, K3 at Lq 320; and the
      correction batch split (K2 + gate / traceback)
-  7. K3 (banded_sw_batch_cuda) == its plain version, bit-exact, at the
+  7. banded_sw_batch_cuda == its plain version, bit-exact, every case
+     through the wrapper, whose route counter must move: K3' at the
      refine's forward (N 4096, Lq 112, Lt 184, band 64) and reverse (band
-     128, ragged) shapes and on edge cases (Lq 1024 and 1100, device
-     scratch)
+     128, ragged) shapes and at Lq 1, 31, 32, 33, 112, 128, 129, 256 at
+     bands 0, 64, 128, >= Lq; K3 (rows) at Lq 257, 1024, 1100 and band 960
+     (device scratch); tie rows, -1 and 4 codes, qlen/tlen 0 everywhere
   8. judged config 3, compute_overlaps_cross(device="cuda") with the SW
-     refine, on the phase-4 reads: K1 and K3 counters must move; truth
-     precision >= 0.95
+     refine, on the phase-4 reads: K1' and K3' counters must move, K3's
+     stay 0, truth precision >= 0.95; then 300 bp reads on a 100 kb genome,
+     whose refine width takes K3's row route (K3' stays 0)
   9. the measurement path: X1 (exp/myers_micro run_b), X2 (exp/sw_variants
      v1, v2, v3) and X3 (exp/vpu_micro) == their plain versions, bit-exact;
      then the three harnesses' main() as a user runs them (their counters
      must move), the SASS add/max count of X3 and the DPX instructions of
      X2, and `hga-torch bench --what sw|myers|count|pipeline --pairs 8192`
-     through cli.main (K1's and K3's counters must move)
+     through cli.main (the K1' and K3' counters must move)
 
 Phase 5 also runs config 3 and the short-read-only pipeline (8 kb genome)
-on cuda and on cpu, byte-identical.  Phase 6 also times K1 at the config-3
-gate shape (W 4).  Phases run in the order 0 1 2 3 7 4 8 5 6 9.
+on cuda and on cpu, byte-identical.  Phases run in the order
+0 1 2 3 7 4 8 5 6 9.
 
 The last three lines of standard output are the `kernels` JSON line, the
 card's `name, power.limit`, and {"ok": true, "device": {...}}.
@@ -61,12 +69,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # kernel (its wrapper's launch counter) -> (source, TPU kernel it replaces)
 KERNELS = {
-    "myers_batch_cuda": ("hga_tpu_torch/csrc/myers.cu",
+    "myers_batch_cuda": ("hga_tpu_torch/csrc/myers_gate.cu",
                          "hga_tpu/ops/myers_pallas.py:47"),
     "myers_batch_planes_cuda": ("hga_tpu_torch/csrc/myers.cu",
                                 "hga_tpu/ops/myers_pallas.py:106"),
     "banded_sw_batch_cuda": ("hga_tpu_torch/csrc/sw.cu",
                              "hga_tpu/ops/align_pallas.py:66"),
+    "banded_sw_batch_cuda_rows": ("hga_tpu_torch/csrc/sw.cu",
+                                  "hga_tpu/ops/align_pallas.py:66"),
     "run_b_cuda": ("hga_tpu_torch/csrc/myers_micro.cu",
                    "exp/myers_micro.py:58"),
     "sw_variants_v1": ("hga_tpu_torch/csrc/sw_variants.cu",
@@ -90,7 +100,10 @@ def fail(msg: str) -> None:
 
 _PTXAS_ENTRY = (
     # (kind, mangled-name pattern, key of the instantiation from its groups)
-    ("K1/K2", r"myers_kernelILi(\d+)ELb([01])E", None),
+    ("K1'", r"myers_gate_kernelILi(\d+)ELi(\d+)E",
+     lambda g: f"W{g[0]}G{g[1]}"),
+    ("K2", r"myers_kernelILi(\d+)E", lambda g: int(g[0])),
+    ("K3'", r"sw_diag_kernelILi(\d+)E", lambda g: f"K{g[0]}"),
     ("K3", r"sw_kernelILb([01])E",
      lambda g: "smem" if g[0] == "1" else "scratch"),
     ("X1", r"myers_slab_kernelILi(\d+)E", lambda g: int(g[0])),
@@ -103,9 +116,9 @@ _PTXAS_ENTRY = (
 
 def ptxas_report(text: str):
     """(kernel, instantiation, registers, (spill store bytes, spill load
-    bytes)) per instantiation, from nvcc's -Xptxas -v report: K1/K2 by W,
-    K3 by buffer kind, X1 by W, X2 by layout, K, G and ablation flags, X3
-    by C and STEPS."""
+    bytes)) per instantiation, from nvcc's -Xptxas -v report: K1' by W and
+    lanes a pair, K2 by W, K3' by slots a lane, K3 by buffer kind, X1 by W,
+    X2 by layout, K, G and ablation flags, X3 by C and STEPS."""
     import re
 
     rows, cur = [], None
@@ -114,10 +127,7 @@ def ptxas_report(text: str):
             cur = None
             for kind, pat, key in _PTXAS_ENTRY:
                 m = re.search(r"Compiling entry function '.*?" + pat, line)
-                if m and kind == "K1/K2":
-                    cur = ["K2" if m.group(2) == "1" else "K1",
-                           int(m.group(1)), 0, (0, 0)]
-                elif m:
+                if m:
                     cur = [kind, key(m.groups()), 0, (0, 0)]
                 if cur is not None:
                     rows.append(cur)
@@ -164,7 +174,7 @@ def planted_pairs(rng, N, Lq, Lt, lead=16):
         seg = mut[i][~ins[i]]
         t[i, lead:lead + seg.size] = seg[:Lt - lead]
     ql = np.full(N, Lq, np.int32)
-    ql[: N // 8] = rng.integers(1, Lq, N // 8)       # ragged lengths
+    ql[: N // 8] = rng.integers(1, max(Lq, 2), N // 8)   # ragged lengths
     tl = np.full(N, Lt, np.int32)
     return q, t, ql, tl
 
@@ -197,38 +207,50 @@ def gate_inputs(rng):
 
 # ---------------------------------------------------------------- phases
 
-def phase_k1(rng, MC, M):
-    log("phase 2: K1 myers_batch_cuda vs plain, bit-exact")
-    errs = []
-    N, Lq, Lt = 4096, 414, 478
+def myers_edges(rng, N, Lq, Lt):
+    """Planted pairs with K1's edge cases: qlen 0, 1, 31, 32, 62 and
+    Lq - 1 (those that fit), code 4 past qlen, ragged tlen, codes -1, 4 and
+    9 in queries and targets."""
+    import numpy as np
+
     q, t, ql, tl = planted_pairs(rng, N, Lq, Lt)
-    ql[:4] = [0, 31, 62, Lq - 1]                     # word-boundary lengths
-    tl[: N // 8] = rng.integers(1, Lt + 1, N // 8)    # ragged targets
-    t[8, :40] = -1                                   # sentinel codes
-    t[9, 100:140] = 4
-    t[10, 200:260] = 9
-    args = to_dev(q, t, ql, tl)
-    got = MC.myers_batch_cuda(*args)
-    ref = M.myers_batch(*args)
-    errs += [eq("K1 gate-shape dist", got.dist, ref.dist),
-             eq("K1 gate-shape tend", got.tend, ref.tend)]
-    args = to_dev(*gate_inputs(rng))
-    got = MC.myers_batch_cuda(*args)
-    ref = M.myers_batch(*args)
-    errs += [eq("K1 config-3 gate shape (Lq 112, W 4) dist", got.dist,
-                ref.dist),
-             eq("K1 config-3 gate shape (Lq 112, W 4) tend", got.tend,
-                ref.tend)]
-    for (n, lq, lt) in ((2048, 20, 64), (512, 24 * 31, 800)):   # W = 1, 24
-        q, t, ql, tl = planted_pairs(rng, n, lq, lt)
-        t[:64, :8] = rng.choice([-1, 4, 9], size=(64, 8))
-        ql[:3] = [0, min(31, lq), lq]
-        args = to_dev(q, t, ql, tl)
-        W = M.n_words(lq)
-        got = MC.myers_batch_cuda(*args)
+    edge = [x for x in (0, 1, 31, 32, 62, Lq - 1) if x <= Lq]
+    ql[:len(edge)] = edge
+    q[np.arange(Lq)[None, :] >= ql[:, None]] = 4
+    tl[N // 2:] = rng.integers(0, Lt + 1, N - N // 2)   # ragged targets
+    t[8:72, :8] = rng.choice([-1, 4, 9], size=(64, 8))
+    q[72:136, :6] = rng.choice([-1, 4, 9], size=(64, 6))
+    t[9, Lt // 4:Lt // 2] = 4
+    return q, t, ql, tl
+
+
+def phase_k1(rng, MC, M):
+    """K1' through its wrapper (GATE_GROUP's lanes a pair) and through the
+    other design at each shape, against the plain version."""
+    log("phase 2: K1' myers_batch_cuda vs plain, bit-exact, both designs")
+    errs = []
+    cases = [("long-overlap shape (N 4096, Lq 414, Lt 478)",
+              myers_edges(rng, 4096, 414, 478)),
+             ("config-3 gate shape (N 4096, Lq 112, Lt 184)",
+              gate_inputs(rng))]
+    for n, lq, lt in ((1024, 20, 64), (1024, 40, 96), (1024, 112, 184),
+                      (1024, 128, 192), (1024, 414, 478), (512, 480, 540),
+                      (512, 24 * 31, 800)):        # W 1, 2, 4, 5, 14, 16, 24
+        cases.append((f"W {M.n_words(lq)} (N {n}, Lq {lq}, Lt {lt})",
+                      myers_edges(rng, n, lq, lt)))
+    for label, x in cases:
+        args = to_dev(*x)
         ref = M.myers_batch(*args)
-        errs += [eq(f"K1 W={W} dist", got.dist, ref.dist),
-                 eq(f"K1 W={W} tend", got.tend, ref.tend)]
+        W = M.n_words(x[0].shape[1])
+        got = MC.myers_batch_cuda(*args)
+        G = MC.GATE_GROUP[W]
+        errs += [eq(f"K1' {label} G {G} {f}", getattr(got, f),
+                    getattr(ref, f)) for f in ("dist", "tend")]
+        for other in {1, MC.group_width(W)} - {G}:
+            *ops, outs = MC.kernel_operands(*args, group=other)
+            MC.run_kernel(*ops, outs)
+            errs += [eq(f"K1' {label} G {other} {f}", o, getattr(ref, f))
+                     for f, o in zip(("dist", "tend"), outs)]
     return max(errs)
 
 
@@ -284,11 +306,30 @@ def reversed_prefixes(q, t, qend, tend):
         tend.astype(np.int32)
 
 
-def sw_cases(rng, A):
-    """K3 checks: the refine's forward and reverse shapes, then edge cases.
-    Each case: (label, q, t, qlen, tlen, band)."""
-    import numpy as np
+def sw_edges(rng, n, lq, lt, band):
+    """Planted pairs with K3's edge cases: qlen and tlen 0 and full, ragged
+    lengths, a sentinel row, -1 codes in queries and targets, homopolymers
+    and ACAC... repeats (ties on many cells and slots)."""
+    q, t, ql, tl = planted_pairs(rng, n, lq, lt, lead=min(band, lt) // 2)
+    ql[:4] = [0, lq, 1, max(lq - 1, 0)]
+    tl[2:6] = [0, lt, 1, max(lt - 1, 0)]
+    tl[n // 2:] = rng.integers(0, lt + 1, n - n // 2)
+    q[6, :], t[6, :] = 4, 4
+    t[7, : lt // 2] = -1
+    q[7, ::3] = -1
+    q[8:16, :], t[8:16, :] = 0, 0
+    q[16:24, ::2], q[16:24, 1::2] = 0, 1
+    t[16:24, ::2], t[16:24, 1::2] = 1, 0
+    q[24:28, :], t[24:28, :] = -1, -1
+    return q, t, ql, tl
 
+
+def sw_cases(rng, A):
+    """K3' and K3 checks: the refine's forward and reverse shapes, band >=
+    Lq, the row route's shapes (Lq 1024 and 1100, band 960 with the device
+    scratch), then K3' at every slot count's edges (Lq 1 .. 256, and 257,
+    which takes the row route) at bands 0, 64, 128 and >= Lq.  Each case:
+    (label, q, t, qlen, tlen, band)."""
     N, Lq, band = 4096, 112, 64
     Lt = Lq + band + 8
     q, t, ql, tl = planted_pairs(rng, N, Lq, Lt, lead=band // 2)
@@ -313,30 +354,37 @@ def sw_cases(rng, A):
                                 (256, 1100, 1200, 64, "Lq 1100"),
                                 (64, 1000, 1000, 960,
                                  "band 960 (device scratch)")):
-        q, t, ql, tl = planted_pairs(rng, n, lq, lt)
-        ql[:2] = [0, lq]
-        tl[2:4] = [0, lt]
-        q[4, :] = 3
-        t[4, :] = 3
-        t[5, : lt // 2] = -1
         cases.append((f"{label} (N {n}, Lq {lq}, Lt {lt}) band {b}",
-                      q, t, ql, tl, b))
+                      *sw_edges(rng, n, lq, lt, b), b))
+    for lq in (1, 31, 32, 33, 112, 128, 129, 256, 257):
+        lt = lq + 72
+        for b in (0, 64, 128, lq + 7):
+            cases.append((f"Lq {lq} (N 512, Lt {lt}) band {b}",
+                          *sw_edges(rng, 512, lq, lt, b), b))
     return cases
 
 
 def phase_k3(rng, AC, A):
-    log("phase 7: K3 banded_sw_batch_cuda vs plain, bit-exact")
-    errs = []
+    """Every case through the wrapper, which picks the route by shape: the
+    route's counter must move; K3' and K3 are reported apart."""
+    log("phase 7: K3' and K3 banded_sw_batch_cuda vs plain, bit-exact")
+    errs = {"banded_sw_batch_cuda": [], "banded_sw_batch_cuda_rows": []}
     for label, q, t, ql, tl, band in sw_cases(rng, A):
         args = to_dev(q, t, ql, tl)
+        r = AC.route(q.shape[1], t.shape[1], band)
+        key = AC.ROUTE_COUNTER[r.kind]
+        before = AC.LAUNCHES[key]
         got = AC.banded_sw_batch_cuda(*args, band=band)
+        if AC.LAUNCHES[key] != before + 1:
+            fail(f"K3 {label}: the {r.kind} route was not launched")
         ref = A.banded_sw_batch(*args, band=band)
+        name = "K3'" if r.kind == "diag" else "K3 (rows)"
         for f in ("score", "qend", "tend"):
-            errs.append(eq(f"K3 {label} {f}", getattr(got, f),
-                           getattr(ref, f)))
+            errs[key].append(eq(f"{name} {label} {f}", getattr(got, f),
+                                getattr(ref, f)))
         if int(ref.score.max()) <= 0:
             fail(f"K3 {label}: no positive score")
-    return max(errs)
+    return {k: max(v) for k, v in errs.items()}
 
 
 def kmer_set(seq: str, k: int):
@@ -388,28 +436,35 @@ def evaluate(contigs, genome: str, k: int = 21):
 
 
 _SIMULATED: dict = {}
+# phase 8's second drive: 300 bp short reads (Illumina MiSeq 2 x 300), whose
+# refine width (pad 320) takes K3's row route, on a 100 kb genome
+MISEQ_GENOME = 100_000
 
 
-def simulate(genome_len: int, seed: int):
+def simulate(genome_len: int, seed: int, read_len: int = 100):
     """The judged read model (exp/scale_run.py): short 100 bp at 30x, 1%
     error, pad 112; long reads mean 8 kb, min 1 kb, 10% error, 20x.  Made
-    once per (genome_len, seed) and shared by the phases."""
-    if (genome_len, seed) not in _SIMULATED:
-        _SIMULATED[genome_len, seed] = _simulate(genome_len, seed)
-    return _SIMULATED[genome_len, seed]
+    once per (genome_len, seed, read_len) and shared by the phases;
+    `read_len` 300 (Illumina MiSeq's 2 x 300 reads) pads to 320."""
+    key = (genome_len, seed, read_len)
+    if key not in _SIMULATED:
+        _SIMULATED[key] = _simulate(*key)
+    return _SIMULATED[key]
 
 
-def _simulate(genome_len: int, seed: int):
+def _simulate(genome_len: int, seed: int, read_len: int):
     from hga_tpu_torch.io.encode import pack_reads
     from hga_tpu_torch.utils import sim
 
     genome = sim.random_genome(genome_len, seed=seed)
-    ss, sn = sim.simulate_short_reads(genome, coverage=30.0, read_len=100,
-                                      error_rate=0.01, seed=seed + 1)
+    ss, sn = sim.simulate_short_reads(genome, coverage=30.0,
+                                      read_len=read_len, error_rate=0.01,
+                                      seed=seed + 1)
     ls, ln = sim.simulate_long_reads(genome, coverage=20.0, mean_len=8000,
                                      min_len=1000, error_rate=0.10,
                                      seed=seed + 2)
-    pr_s = pack_reads(ss, names=sn, pad_len=112)
+    pad_s = 112 if read_len == 100 else -(-(read_len + 12) // 32) * 32
+    pr_s = pack_reads(ss, names=sn, pad_len=pad_s)
     pad_l = ((max(len(s) for s in ls) + 31) // 32) * 32
     pr_l = pack_reads(ls, names=ln, category=[1] * len(ls), pad_len=pad_l)
     return genome, pr_s, pr_l
@@ -564,31 +619,48 @@ def read_loci(names):
     return start, strand, length
 
 
-def phase_config3(genome_len: int, MC, AC):
+def phase_config3(genome_len: int, MC, AC, read_len: int = 100,
+                  seed: int = 42):
     """Judged config 3 on the card: short reads of the judged read model
-    against its long reads, refine sw; precision against the truth loci."""
+    against its long reads, refine sw; precision against the truth loci.
+    The refine's width (the short reads' pad) picks the SW route: K3' at
+    100 bp reads (pad 112), K3 at 300 bp reads (pad 320); the other route's
+    counter must stay at 0.  The 100 bp drive counts a record right when
+    the short read lies inside its long read's locus; at 300 bp about 5%
+    of true overlaps hang off a long read's end (a read-length share of the
+    ~8 kb long reads), so that drive counts a record right when the two
+    loci touch.  Both need rel = the strands' xor."""
     import numpy as np
     import torch
 
     from hga_tpu_torch.models import overlap as OV
 
     log(f"phase 8: config 3 (compute_overlaps_cross, refine sw) on a "
-        f"{genome_len} bp genome")
+        f"{genome_len} bp genome, {read_len} bp short reads")
     t0 = time.perf_counter()
-    _, pr_s, pr_l = simulate(genome_len, seed=42)
-    log(f"  {pr_s.n_reads} short + {pr_l.n_reads} long reads "
-        f"({time.perf_counter() - t0:.1f} s to simulate or reuse)")
+    _, pr_s, pr_l = simulate(genome_len, seed, read_len)
+    cfg = config3_cfg()
+    # the refine's widths: Lq = the pad, Lt = Lq + band + 8 (models/overlap)
+    route = AC.route(pr_s.pad_len, pr_s.pad_len + cfg.band + 8,
+                     cfg.band).kind
+    log(f"  {pr_s.n_reads} short (pad {pr_s.pad_len}: SW route {route}) + "
+        f"{pr_l.n_reads} long reads ({time.perf_counter() - t0:.1f} s to "
+        "simulate or reuse)")
     MC.reset_launches()
     AC.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    rec = OV.compute_overlaps_cross(pr_s, pr_l, config3_cfg(), device="cuda")
+    rec = OV.compute_overlaps_cross(pr_s, pr_l, cfg, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(MC.LAUNCHES, **AC.LAUNCHES)
-    for name in ("myers_batch_cuda", "banded_sw_batch_cuda"):
+    for name in ("myers_batch_cuda", AC.ROUTE_COUNTER[route]):
         if launches[name] <= 0:
             fail(f"{name} was never launched on the config-3 path")
+    for kind, name in AC.ROUTE_COUNTER.items():
+        if kind != route and launches[name]:
+            fail(f"{name} ran {launches[name]} times at the {route} route's "
+                 "width")
     if rec.n == 0:
         fail("config 3 found no overlap")
     s_start, s_strand, _ = read_loci(pr_s.names)
@@ -600,8 +672,9 @@ def phase_config3(genome_len: int, MC, AC):
     touching = (np.minimum(a0 + pr_s.length[a], b0 + l_len[b])
                 - np.maximum(a0, b0)) > 0
     t = OV.LAST_TIMINGS
-    out = dict(genome_len=genome_len, n_short=pr_s.n_reads,
-               n_long=pr_l.n_reads, candidates=t["gate_pairs"],
+    out = dict(genome_len=genome_len, read_len=read_len,
+               n_short=pr_s.n_reads, n_long=pr_l.n_reads,
+               candidates=t["gate_pairs"],
                survivors=t["refine_pairs"], records=rec.n,
                gate_s=t["gate_s"], refine_s=t["refine_s"],
                overlaps_s=round(wall, 3),
@@ -611,10 +684,11 @@ def phase_config3(genome_len: int, MC, AC):
                peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3),
                launches=launches)
     log("  config 3: " + json.dumps(out))
-    if out["precision"] < 0.95:
-        fail(f"config-3 precision {out['precision']} < 0.95: records must "
-             "pair a short read inside its long read's locus, rel = the "
-             "strands' xor")
+    judged = "precision" if read_len == 100 else "precision_touching"
+    if out[judged] < 0.95:
+        fail(f"config-3 {judged} {out[judged]} < 0.95: records must pair a "
+             "short read with a long read at its locus, rel = the strands' "
+             "xor")
     return launches, out
 
 
@@ -622,8 +696,9 @@ def time_row(shape, wrapper, sets, kernel, kernel_sets, plain, cells, ops,
              nbytes, counters):
     """CUDA-event times of a wrapper and of its kernel alone (20 calls over
     distinct input sets, warm) and of the plain version (one call), the
-    bound from `ops` int32 operations and `nbytes` bytes, GCUPS on `cells`.
-    Launches made here are no path's: the counters are restored."""
+    bound from `ops` int32 operations and `nbytes` bytes and the kernel's
+    share of it, GCUPS on `cells`.  Launches made here are no path's: the
+    counters are restored."""
     from hga_tpu_torch.utils import benchmarks as B
 
     before = [dict(c) for c in counters]
@@ -634,10 +709,51 @@ def time_row(shape, wrapper, sets, kernel, kernel_sets, plain, cells, ops,
         c.update(b)
     bound, by = B.bound_ms(ops, nbytes)
     row = dict(shape=shape, ms=ms, kernel_ms=kern_ms, plain_ms=plain_ms,
-               bound_ms=bound, bound_by=by)
+               bound_ms=bound, bound_by=by,
+               pct_of_bound=100 * bound / kern_ms)
     if cells:
         row.update(cells=int(cells), gcups=cells / (ms * 1e-3) / 1e9,
                    kernel_gcups=cells / (kern_ms * 1e-3) / 1e9)
+    return row
+
+
+def myers_cost(N, Lq, Lt, planes):
+    """(cells, int32 operations, bytes) of one Myers launch: Lq x Lt cells,
+    20 operations per word and column, codes and lengths read once, dist
+    and tend (and K2's planes) written once."""
+    from hga_tpu_torch.ops.myers import n_words
+    from hga_tpu_torch.utils import benchmarks as B
+
+    W = n_words(Lq)
+    out_bytes = 8 * N + (2 * 4 * Lt * N * W if planes else 0)
+    return (N * Lq * Lt, N * Lt * W * B.OPS_PER_WORD_COLUMN,
+            4 * N * (Lq + Lt) + 8 * N + out_bytes)
+
+
+def gate_row(MC, M, sets):
+    """K1' at one shape: the wrapper (GATE_GROUP's design) and, kernel
+    alone, each of the two designs (G 1 and G = group_width(W))."""
+    from hga_tpu_torch.utils import benchmarks as B
+
+    N, Lq = sets[0][0].shape
+    Lt = sets[0][1].shape[1]
+    W, G = M.n_words(Lq), MC.GATE_GROUP[M.n_words(Lq)]
+    cells, ops, nbytes = myers_cost(N, Lq, Lt, False)
+    row = time_row(dict(N=N, Lq=Lq, Lt=Lt, W=W, G=G), MC.myers_batch_cuda,
+                   sets, MC.run_kernel,
+                   [MC.kernel_operands(*a, group=G) for a in sets],
+                   M.myers_batch, cells, ops, nbytes, [MC.LAUNCHES])
+    row.update(zip(("registers", "local_bytes"), MC.kernel_attrs(W, group=G)),
+               blocks=MC.gate_blocks(N, G), designs={})
+    for g in sorted({1, MC.group_width(W)}):
+        ms = B.cuda_ms(MC.run_kernel,
+                       [MC.kernel_operands(*a, group=g) for a in sets], 20,
+                       passes=3)
+        regs, local = MC.kernel_attrs(W, group=g)
+        row["designs"][f"G{g}"] = dict(
+            kernel_ms=ms, pct_of_bound=100 * row["bound_ms"] / ms,
+            kernel_gcups=cells / (ms * 1e-3) / 1e9, registers=regs,
+            local_bytes=local, blocks=MC.gate_blocks(N, g))
     return row
 
 
@@ -645,35 +761,27 @@ def phase_times(rng, MC, M, PU):
     import torch
 
     from hga_tpu_torch.models import correction as CR
-    from hga_tpu_torch.utils import benchmarks as B
 
     log("phase 6: kernel times (CUDA events, distinct inputs, warm)")
-
-    def myers_row(planes, sets):
-        N, Lq = sets[0][0].shape
-        Lt = sets[0][1].shape[1]
-        W = M.n_words(Lq)
-        out_bytes = 8 * N + (2 * 4 * Lt * N * W if planes else 0)
-        row = time_row(
-            dict(N=N, Lq=Lq, Lt=Lt, W=W),
-            MC.myers_batch_planes_cuda if planes else MC.myers_batch_cuda,
-            sets, MC.run_kernel,
-            [MC.kernel_operands(*a, planes=planes) for a in sets],
-            M.myers_batch_planes if planes else M.myers_batch,
-            N * Lq * Lt, N * Lt * W * B.OPS_PER_WORD_COLUMN,
-            4 * N * (Lq + Lt) + 8 * N + out_bytes, [MC.LAUNCHES])
-        regs, local = MC.kernel_attrs(W, planes)
-        row.update(registers=regs, local_bytes=local, blocks=-(-N // 128))
-        return row
-
     rows = {}
-    rows["myers_batch_cuda"] = myers_row(False, [
+    # K1' at the long-overlap shape (W 14), the config-3 gate (W 4), the
+    # bench and harness shape (W 5) and W 1: both designs at each
+    rows["myers_batch_cuda"] = gate_row(MC, M, [
         to_dev(*planted_pairs(rng, 4096, 414, 478)) for _ in range(4)])
-    rows["myers_batch_planes_cuda"] = myers_row(True, [
-        to_dev(*planted_pairs(rng, 4096, 112, 184)) for _ in range(4)])
-    # K1 at the config-3 gate shape (W 4), where most of its launches run
-    rows["myers_batch_cuda"]["gate_shape"] = myers_row(False, [
+    rows["myers_batch_cuda"]["gate_shape"] = gate_row(MC, M, [
         to_dev(*gate_inputs(rng)) for _ in range(4)])
+    for name, lq in (("W5", 128), ("W1", 31)):
+        rows["myers_batch_cuda"][name] = gate_row(MC, M, [
+            to_dev(*planted_pairs(rng, 4096, lq, 192)) for _ in range(4)])
+    sets = [to_dev(*planted_pairs(rng, 4096, 112, 184)) for _ in range(4)]
+    rows["myers_batch_planes_cuda"] = time_row(
+        dict(N=4096, Lq=112, Lt=184, W=4), MC.myers_batch_planes_cuda, sets,
+        MC.run_planes_kernel, [MC.planes_operands(*a) for a in sets],
+        M.myers_batch_planes, *myers_cost(4096, 112, 184, True),
+        [MC.LAUNCHES])
+    rows["myers_batch_planes_cuda"].update(
+        zip(("registers", "local_bytes"), MC.kernel_attrs(4, planes=True)),
+        blocks=-(-4096 // MC.THREADS))
     for name, r in rows.items():
         log(f"  {name}: {json.dumps(r)}")
 
@@ -715,37 +823,77 @@ def phase_times(rng, MC, M, PU):
     return rows, split
 
 
-def phase_times_k3(rng, AC, A):
-    """K3 at the refine's shapes: kernel alone and wrapper (CUDA events,
-    distinct inputs), the plain version, GCUPS on in-band cells, bound."""
+def refine_sets(rng, A, N, Lq, band, n_sets=4):
+    """The refine's operands at one short-read width: forward (Lt = Lq +
+    band + 8, planted, ragged) and the reverse pass made from the forward
+    results (reversed prefixes, twice the band)."""
+    Lt = Lq + band + 8
+    fwd = [planted_pairs(rng, N, Lq, Lt, lead=band // 2)
+           for _ in range(n_sets)]
+    rev = []
+    for q, t, ql, tl in fwd:
+        r = A.banded_sw_batch(*to_dev(q, t, ql, tl), band=band)
+        rev.append(reversed_prefixes(q, t, r.qend.cpu().numpy(),
+                                     r.tend.cpu().numpy()))
+    return (("forward", fwd, band), ("reverse", rev, 2 * band)), Lt
+
+
+def sw_row(AC, A, sets, band, rows_route):
+    """One SW timing row: the wrapper and the kernel alone of the route the
+    shape takes (K3 when `rows_route`), GCUPS on in-band cells, bound."""
+    import numpy as np
+
     from hga_tpu_torch.utils import benchmarks as B
 
-    log("phase 6: K3 times (CUDA events, distinct inputs, warm)")
-    N, Lq, band = 4096, 112, 64
-    Lt = Lq + band + 8
-    fwd_sets = [planted_pairs(rng, N, Lq, Lt, lead=band // 2)
-                for _ in range(4)]
-    rev_sets = []
-    for q, t, ql, tl in fwd_sets:
-        r = A.banded_sw_batch(*to_dev(q, t, ql, tl), band=band)
-        rev_sets.append(reversed_prefixes(q, t, r.qend.cpu().numpy(),
-                                          r.tend.cpu().numpy()))
+    N, Lq = sets[0][0].shape
+    Lt = sets[0][1].shape[1]
+    dev_sets = [to_dev(*x) for x in sets]
+    cells = sum(A.sw_cells(x[2], x[3], band) for x in sets) / len(sets)
+    r = AC.rows_route(Lq, Lt, band) if rows_route else AC.route(Lq, Lt,
+                                                                  band)
+    row = time_row(
+        dict(N=N, Lq=Lq, Lt=Lt, band=band, route=r.kind),
+        lambda *x: AC.banded_sw_batch_cuda(*x, band=band), dev_sets,
+        AC.run_kernel,
+        [AC.kernel_operands(*x, band=band, rows=rows_route)
+         for x in dev_sets],
+        lambda *x: A.banded_sw_batch(*x, band=band), cells,
+        cells * B.SW_OPS_PER_CELL, 4 * N * (Lq + Lt) + 8 * N + 12 * N,
+        [AC.LAUNCHES])
+    row.update(zip(("registers", "local_bytes"), AC.kernel_attrs(r)),
+               K=r.K, warps=r.warps, smem=r.smem)
+    row["blocks"] = -(-N // r.warps) if r.kind == "diag" else \
+        -(-N // AC.THREADS)
+    if r.kind == "diag":
+        # slot-steps the warps sweep (32 K per anti-diagonal up to each
+        # pair's last in-band one) and the share of them in band
+        ql = np.clip(np.concatenate([x[2] for x in sets]), 0, Lq)
+        tl = np.minimum(np.concatenate([x[3] for x in sets]), Lt)
+        dend = np.where(ql >= 1, ql + np.minimum(tl, ql + band), 1)
+        swept = 32 * r.K * (dend - 1).clip(min=0).sum() / len(sets)
+        row["in_band_share"] = cells / swept
+    if not rows_route and r.kind == "diag":
+        # the wrapper's own route only: kernel alone of K3 at this shape
+        row["rows_kernel_ms"] = B.cuda_ms(
+            AC.run_kernel, [AC.kernel_operands(*x, band=band, rows=True)
+                            for x in dev_sets], 20, passes=3)
+    return row
+
+
+def phase_times_k3(rng, AC, A):
+    """K3' at the refine's shapes (Lq 112: forward band 64, reverse band
+    128) beside K3's kernel at the same inputs, and K3 at the shapes that
+    take its route (300 bp reads: Lq 320)."""
+    log("phase 6: K3' and K3 times (CUDA events, distinct inputs, warm)")
     rows = {}
-    for shape, sets, b in (("forward", fwd_sets, band),
-                           ("reverse", rev_sets, 2 * band)):
-        dev_sets = [to_dev(*x) for x in sets]
-        cells = sum(A.sw_cells(x[2], x[3], b) for x in sets) / len(sets)
-        rows[shape] = time_row(
-            dict(N=N, Lq=Lq, Lt=Lt, band=b),
-            lambda *x: AC.banded_sw_batch_cuda(*x, band=b), dev_sets,
-            AC.run_kernel, [AC.kernel_operands(*x, band=b) for x in dev_sets],
-            lambda *x: A.banded_sw_batch(*x, band=b), cells,
-            cells * B.SW_OPS_PER_CELL, 4 * N * (Lq + Lt) + 8 * N + 12 * N,
-            [AC.LAUNCHES])
-        log(f"  banded_sw_batch_cuda {shape}: {json.dumps(rows[shape])}")
-    regs, local = AC.kernel_attrs(smem=True)
-    rows["forward"].update(registers=regs, local_bytes=local,
-                           blocks=-(-N // AC.THREADS))
+    for key, Lq in (("banded_sw_batch_cuda", 112),
+                    ("banded_sw_batch_cuda_rows", 320)):
+        passes, Lt = refine_sets(rng, A, 4096, Lq, 64)
+        r = {shape: sw_row(AC, A, sets, b, key.endswith("rows"))
+             for shape, sets, b in passes}
+        rows[key] = dict(r["forward"], reverse=r["reverse"])
+        for shape, row in r.items():
+            log(f"  {key} {shape}: {json.dumps(row)}")
     return rows
 
 
@@ -1029,16 +1177,19 @@ def main() -> int:
     built = {n: dict(cuda_build.BUILD_INFO[n]) for n in libs}
     for mod in (MC, AC, VM, MM, SV):
         mod._lib()
+    MC._gate_lib()
     log(f"phase 1: built {len(libs)} libraries (one nvcc each, in parallel) "
         f"in {time.perf_counter() - t0:.1f} s: " + ", ".join(
             f"{os.path.relpath(p, HERE)} {built[n]['seconds']:.1f} s"
             for n, p in libs.items()))
     report = ptxas_report("".join(str(b["ptxas"]) for b in built.values()))
-    expect = (2 * M.MAX_WORDS + 2 + M.MAX_WORDS
-              + sum(len(k) for k in SV.BUILT.values()) + len(VM.BUILT))
+    expect = ((2 * M.MAX_WORDS - 1) + M.MAX_WORDS + len(AC.DIAG_SLOTS) + 2
+              + M.MAX_WORDS + sum(len(k) for k in SV.BUILT.values())
+              + len(VM.BUILT))
     log(f"  ptxas report: {len(report)} of {expect} kernel instantiations "
         "parsed")
-    for kern, by in (("K1", "W"), ("K2", "W"), ("K3", "buffer"), ("X1", "W"),
+    for kern, by in (("K1'", "W, lanes a pair"), ("K2", "W"),
+                     ("K3'", "slots a lane"), ("K3", "buffer"), ("X1", "W"),
                      ("X2", "layout"), ("X3", "C, STEPS")):
         rows = [r for r in report if r[0] == kern]
         log(f"  ptxas {kern} registers by {by}: "
@@ -1047,30 +1198,44 @@ def main() -> int:
             + (" ".join(f"{w}:{s[0]}/{s[1]}" for _, w, _, s in rows if any(s))
                or "none"))
 
+    def done(phase: str) -> None:
+        log(f"  phase {phase} done, {time.perf_counter() - t0:.1f} s since "
+            "phase 1 began")
+
+    done("1")
     rng = np.random.default_rng(7)
     err = dict.fromkeys(KERNELS)     # None: the kernel's check did not run
     if "2" in ph:
         err["myers_batch_cuda"] = phase_k1(rng, MC, M)
+        done("2")
     if "3" in ph:
         err["myers_batch_planes_cuda"] = phase_k2(rng, MC, M, PU)
+        done("3")
     if "7" in ph:
-        err["banded_sw_batch_cuda"] = phase_k3(rng, AC, A)
+        err.update(phase_k3(rng, AC, A))
+        done("7")
     torch.cuda.synchronize()
 
-    # launches per kernel on each path that ran: K1 and K2 on the hybrid
-    # pipeline (phase 4), K1 and K3 on config 3 (phase 8), X1-X3 on the
-    # harnesses and K1/K3 on hga-torch bench (phase 9)
+    # launches per kernel on each path that ran: K1' and K2 on the hybrid
+    # pipeline (phase 4), K1' and K3' on config 3 and K1' and K3 on its
+    # 300 bp drive (phase 8), X1-X3 on the harnesses and K1'/K3' on
+    # hga-torch bench (phase 9)
     workdir = tempfile.mkdtemp(prefix="hga_smoke_")
     paths = {}
     try:
         if "4" in ph:
             paths["phase 4 hybrid pipeline"], _ = phase_pipeline(
                 args.genome_len, MC, workdir)
+            done("4")
         if "8" in ph:
             paths["phase 8 config 3"], _ = phase_config3(args.genome_len,
                                                          MC, AC)
+            paths["phase 8 config 3, 300 bp reads"], _ = phase_config3(
+                MISEQ_GENOME, MC, AC, read_len=300, seed=44)
+            done("8")
         if "5" in ph:
             phase_cpu_equal(workdir)
+            done("5")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1083,11 +1248,10 @@ def main() -> int:
         local_bytes=None) for name, (src, rep) in KERNELS.items()}
     if "6" in ph:
         rows, split = phase_times(rng, MC, M, PU)
-        sw = phase_times_k3(rng, AC, A)
-        rows["banded_sw_batch_cuda"] = dict(sw["forward"],
-                                            reverse=sw["reverse"])
+        rows.update(phase_times_k3(rng, AC, A))
         for name, r in rows.items():
             entries[name].update(r)
+        done("6")
     if "9" in ph:
         x_err, x_paths, x_rows, bench = phase_measurement(
             rng, VM, MM, SV, M, A, MC, AC, cuda_build)
@@ -1095,6 +1259,7 @@ def main() -> int:
         paths.update(x_paths)
         for name in KERNELS:
             entries[name].update(x_rows.get(name, {}))
+        done("9")
     for name, e in entries.items():
         by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
         e.update(launches=sum(by_path.values()) if by_path else None,

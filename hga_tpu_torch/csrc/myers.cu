@@ -1,14 +1,13 @@
-// Bit-parallel Myers/Hyyro semi-global edit distance for Hopper (sm_90a).
+// Bit-parallel Myers/Hyyro semi-global edit distance with the Pv/Mv planes,
+// for Hopper (sm_90a).
 //
-// K1 (myers_kernel<W, false>) replaces the Pallas kernel `_myers_kernel`
-// (hga_tpu/ops/myers_pallas.py:47): per pair, dist = min_j D[m][j] and
-// tend = the smallest such j (1-based), both 0 when qlen = 0.  It is the
-// long-read overlap gate.
-// K2 (myers_kernel<W, true>) replaces `_myers_planes_kernel`
-// (hga_tpu/ops/myers_pallas.py:106): the same recurrence, plus the Pv/Mv
-// words stored after every target column into int32 planes laid out
+// K2 (myers_kernel<W>) replaces the Pallas kernel `_myers_planes_kernel`
+// (hga_tpu/ops/myers_pallas.py:106): per pair, dist = min_j D[m][j] and
+// tend = the smallest such j (1-based), both 0 when qlen = 0, plus the
+// Pv/Mv words stored after every target column into int32 planes laid out
 // (Lt, N, W), the layout the plane-based traceback
 // (hga_tpu_torch/ops/pileup.py) reads.  It is the correction/polish DP.
+// The gate without planes (K1') is csrc/myers_gate.cu.
 //
 // Design: one thread per pair, 128 threads a block.  The W query words are
 // template-unrolled into registers (W = 1..24), so the adder carry chain and
@@ -20,11 +19,10 @@
 // for the same reason.
 //
 // What bounds it: per column and word about 20 integer ALU operations, all
-// serial within a pair, so the kernel is bound by integer issue rate and, at
-// N = 4096 pairs (32 blocks on 132 SMs), by occupancy.  K2 additionally
-// writes 8 * W bytes per pair and column straight to device memory.
-// Making either fast (several pairs per thread, a pair split over a warp, a
-// traceback fused into K2) is later work; this version is the simple one.
+// serial within a pair, and 8 * W bytes per pair and column written straight
+// to device memory (byte-bound at the correction shape); at N = 4096 pairs
+// (32 blocks on 132 SMs) also occupancy.  A traceback fused into K2, which
+// would keep the planes out of device memory, is later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -34,7 +32,7 @@ namespace {
 constexpr uint32_t M31 = 0x7fffffffu;
 constexpr int kThreads = 128;
 
-template <int W, bool PLANES>
+template <int W>
 __global__ void __launch_bounds__(kThreads)
 myers_kernel(const int32_t* __restrict__ q0p, const int32_t* __restrict__ q1p,
              const int32_t* __restrict__ vqp,
@@ -45,7 +43,7 @@ myers_kernel(const int32_t* __restrict__ q0p, const int32_t* __restrict__ q1p,
              int N, int Lt,
              int32_t* __restrict__ dist, int32_t* __restrict__ tend,
              int32_t* __restrict__ pvp,
-             int32_t* __restrict__ mvp) {         // (Lt, N, W) or null
+             int32_t* __restrict__ mvp) {         // (Lt, N, W)
   const int n = blockIdx.x * kThreads + threadIdx.x;
   if (n >= N) return;
   uint32_t q0[W], q1[W], vq[W], mend[W], pv[W], mv[W];
@@ -87,11 +85,9 @@ myers_kernel(const int32_t* __restrict__ q0p, const int32_t* __restrict__ q1p,
       cm = ncm;
       pv[w] = (mh | ~(xv | ph)) & M31;
       mv[w] = ph & xv;
-      if (PLANES) {
-        const size_t o = (static_cast<size_t>(j) * N + n) * W + w;
-        pvp[o] = static_cast<int32_t>(pv[w]);
-        mvp[o] = static_cast<int32_t>(mv[w]);
-      }
+      const size_t o = (static_cast<size_t>(j) * N + n) * W + w;
+      pvp[o] = static_cast<int32_t>(pv[w]);
+      mvp[o] = static_cast<int32_t>(mv[w]);
     }
     score += (pb != 0u ? 1 : 0) - (mb != 0u ? 1 : 0);
     if (score < best && j < tl) {
@@ -104,25 +100,14 @@ myers_kernel(const int32_t* __restrict__ q0p, const int32_t* __restrict__ q1p,
 }
 
 template <int W>
-void launch_w(bool planes, const int32_t* q0, const int32_t* q1,
-              const int32_t* vq, const int32_t* mend, const int32_t* tT,
-              const int32_t* qlen, const int32_t* tlen, int N, int Lt,
-              int32_t* dist, int32_t* tend, int32_t* pvp, int32_t* mvp,
+void launch_w(const int32_t* q0, const int32_t* q1, const int32_t* vq,
+              const int32_t* mend, const int32_t* tT, const int32_t* qlen,
+              const int32_t* tlen, int N, int Lt, int32_t* dist,
+              int32_t* tend, int32_t* pvp, int32_t* mvp,
               cudaStream_t stream) {
   const int blocks = (N + kThreads - 1) / kThreads;
-  if (planes) {
-    myers_kernel<W, true><<<blocks, kThreads, 0, stream>>>(
-        q0, q1, vq, mend, tT, qlen, tlen, N, Lt, dist, tend, pvp, mvp);
-  } else {
-    myers_kernel<W, false><<<blocks, kThreads, 0, stream>>>(
-        q0, q1, vq, mend, tT, qlen, tlen, N, Lt, dist, tend, pvp, mvp);
-  }
-}
-
-template <int W>
-cudaError_t attrs_w(bool planes, cudaFuncAttributes* a) {
-  return planes ? cudaFuncGetAttributes(a, myers_kernel<W, true>)
-                : cudaFuncGetAttributes(a, myers_kernel<W, false>);
+  myers_kernel<W><<<blocks, kThreads, 0, stream>>>(
+      q0, q1, vq, mend, tT, qlen, tlen, N, Lt, dist, tend, pvp, mvp);
 }
 
 #define HGA_WORD_CASES(X) \
@@ -133,22 +118,24 @@ cudaError_t attrs_w(bool planes, cudaFuncAttributes* a) {
 
 extern "C" {
 
-// Launches K1 (pvp == mvp == null) or K2 on `stream`.  Returns the launch's
-// cudaGetLastError() (0 = cudaSuccess); W outside 1..24 returns
+// Launches K2 on `stream`.  Returns the launch's cudaGetLastError()
+// (0 = cudaSuccess); W outside 1..24 or null planes return
 // cudaErrorInvalidValue without launching.
 int hga_myers_launch(const void* q0, const void* q1, const void* vq,
                      const void* mend, const void* tT, const void* qlen,
                      const void* tlen, int N, int Lt, int W, void* dist,
                      void* tend, void* pvp, void* mvp, void* stream) {
-  const bool planes = pvp != nullptr;
+  if (pvp == nullptr || mvp == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   auto* s = static_cast<cudaStream_t>(stream);
   auto c = [](const void* p) { return static_cast<const int32_t*>(p); };
   auto m = [](void* p) { return static_cast<int32_t*>(p); };
   switch (W) {
 #define HGA_CASE(w)                                                        \
   case w:                                                                  \
-    launch_w<w>(planes, c(q0), c(q1), c(vq), c(mend), c(tT), c(qlen),      \
-                c(tlen), N, Lt, m(dist), m(tend), m(pvp), m(mvp), s);      \
+    launch_w<w>(c(q0), c(q1), c(vq), c(mend), c(tT), c(qlen), c(tlen), N,  \
+                Lt, m(dist), m(tend), m(pvp), m(mvp), s);                  \
     break;
     HGA_WORD_CASES(HGA_CASE)
 #undef HGA_CASE
@@ -158,15 +145,15 @@ int hga_myers_launch(const void* q0, const void* q1, const void* vq,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Registers per thread and local (spill) bytes per thread of one
-// instantiation, as the loaded module reports them.
-int hga_myers_attrs(int W, int planes, int* regs, int* local_bytes) {
+// Registers per thread and local (spill) bytes per thread of K2 at W, as
+// the loaded module reports them.
+int hga_myers_attrs(int W, int* regs, int* local_bytes) {
   cudaFuncAttributes a{};
   cudaError_t e = cudaErrorInvalidValue;
   switch (W) {
-#define HGA_CASE(w) \
-  case w:           \
-    e = attrs_w<w>(planes != 0, &a); \
+#define HGA_CASE(w)                               \
+  case w:                                         \
+    e = cudaFuncGetAttributes(&a, myers_kernel<w>); \
     break;
     HGA_WORD_CASES(HGA_CASE)
 #undef HGA_CASE

@@ -1,4 +1,4 @@
-"""Harness: Myers with the targets staged in slabs of columns (X1), beside K1.
+"""Harness: Myers with the targets staged in slabs of columns (X1), beside K1'.
 
 Counterpart of exp/myers_micro.py.  ``run_b`` launches X1
 (``csrc/myers_micro.cu`` ``myers_slab_kernel<W>``), which replaces the
@@ -207,7 +207,7 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
         ok = bool(torch.equal(got.dist, ref.dist)
                   and torch.equal(got.tend, ref.tend))
         sets = target_sets(ops)
-        k1_sets = [(q, s[-1], ql, tl) for s in sets]     # K1, same pairs
+        k1_sets = [(q, s[-1], ql, tl) for s in sets]     # K1', same pairs
         ms = time_ms(lambda *a: run_b(*a, S=S, BLK=BLK), sets, reps, dev)
         k1_ms = time_ms(MC.myers_batch_cuda, k1_sets, reps, dev)
         cells = N * Lq * Lt
@@ -215,19 +215,19 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
                    ms=ms, gcups=cells / (ms * 1e-3) / 1e9, k1_ms=k1_ms,
                    k1_gcups=cells / (k1_ms * 1e-3) / 1e9, device=dev.type)
         msg = (f"Lq={Lq} S={S} BLK={BLK} N={N} ({dev.type}): ok={ok} "
-               f"ms={ms:.4f} GCUPS={row['gcups']:.1f}  K1 ms={k1_ms:.4f} "
-               f"K1 GCUPS={row['k1_gcups']:.1f}")
+               f"ms={ms:.4f} GCUPS={row['gcups']:.1f}  K1' ms={k1_ms:.4f} "
+               f"K1' GCUPS={row['k1_gcups']:.1f}")
         if dev.type == "cuda":
             # the launches alone: the wrappers' torch preprocessing differs
-            # (K1 builds the query planes, X1 takes them)
+            # (X1 takes query planes and transposed int8 targets, K1' the
+            # codes as they are)
             row["kernel_ms"] = time_ms(
                 lambda *k: run_kernel(*k, S=S, BLK=BLK),
                 [kernel_operands(*a, S=S) for a in sets], reps, dev)
             row["k1_kernel_ms"] = time_ms(
-                MC.run_kernel,
-                [MC.kernel_operands(*a, planes=False) for a in k1_sets],
+                MC.run_kernel, [MC.kernel_operands(*a) for a in k1_sets],
                 reps, dev)
-            msg += (f"  kernels alone: X1 {row['kernel_ms']:.4f} ms, K1 "
+            msg += (f"  kernels alone: X1 {row['kernel_ms']:.4f} ms, K1' "
                     f"{row['k1_kernel_ms']:.4f} ms")
         rows.append(row)
         print(msg, flush=True)

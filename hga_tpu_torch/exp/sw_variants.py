@@ -1,4 +1,4 @@
-"""Harness: banded SW by anti-diagonals, a warp per pair (X2), beside K3.
+"""Harness: banded SW by anti-diagonals, a warp per pair (X2), beside K3'.
 
 Counterpart of exp/sw_variants.py.  ``sw_pallas_exp`` launches X2
 (``csrc/sw_variants.cu`` ``swv_kernel<PACKED, K, G, FLAGS>``), which
@@ -245,9 +245,9 @@ def timing_sets(n_pairs: int, Lq: int, Lt: int, dev):
 
 def timeit(variant: str, n_pairs: int = 4096, Lq: int = 128, Lt: int = 256,
            band: int = 64, device="cuda", pair_tile: int = 128) -> Dict:
-    """GCUPS of `variant` (v0 = K3) beside K3's at the same shape; on the
-    card also each kernel's launch alone, without the wrappers' torch
-    preprocessing."""
+    """GCUPS of `variant` (v0 = the production kernel: K3' at Lq <= 256)
+    beside the production kernel's at the same shape; on the card also each
+    kernel's launch alone, without the wrappers' torch preprocessing."""
     dev = resolve_device(device)
     reps = 20 if dev.type == "cuda" else 1
     sets = timing_sets(n_pairs, Lq, Lt, dev)
@@ -266,7 +266,7 @@ def timeit(variant: str, n_pairs: int = 4096, Lq: int = 128, Lt: int = 256,
                gcups=cells / (ms * 1e-3) / 1e9, k3_ms=k3_ms,
                k3_gcups=cells / (k3_ms * 1e-3) / 1e9, device=dev.type)
     msg = (f"{variant} pt={pair_tile}: {row['gcups']:8.2f} GCUPS "
-           f"({ms:.3f} ms/call, {n_pairs} pairs, {dev.type})   K3 "
+           f"({ms:.3f} ms/call, {n_pairs} pairs, {dev.type})   K3' "
            f"{row['k3_gcups']:8.2f} GCUPS ({k3_ms:.3f} ms)")
     if variant != "v0":
         # a warp sweeps all 32 K slots of each anti-diagonal up to its last
@@ -284,7 +284,7 @@ def timeit(variant: str, n_pairs: int = 4096, Lq: int = 128, Lt: int = 256,
                     [(*a, tuple(torch.empty(n_pairs, dtype=torch.int32,
                                             device=dev) for _ in range(3)))
                      for a in sets], reps, dev)
-        msg += (f"   kernels alone: {row['kernel_ms']:.3f} ms, K3 "
+        msg += (f"   kernels alone: {row['kernel_ms']:.3f} ms, K3' "
                 f"{row['k3_kernel_ms']:.3f} ms")
     print(msg, flush=True)
     return row

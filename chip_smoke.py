@@ -16,18 +16,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      -1, 4, 9
   3. K2 (myers_batch_planes_cuda) == its plain version (dist, tend, Pv, Mv)
      at the correction shape (N 4096, Lq 112, Lt 184), and the traceback
-     votes made from each set of planes are equal
+     votes made from each set of planes are equal; then K2'
+     (myers_votes_cuda: DP, gate, traceback and votes in one launch) ==
+     its plain version (dist, tend and the vote buffer less its sink) at
+     the correction shape (min_identity 0.9, weighted and unweighted, qlen
+     0, 1, 31, 62 and multiples of 10, target codes -1 and 9, ragged tlen),
+     at W 1, 2, 11 (300 bp reads) and 24, and on the device-scratch route
+     (band 960, by shape; and the correction shape on it); each route's
+     counter must move
   4. the port's main path, run_pipeline(device="cuda"), on a simulated
-     genome with the judged read model; K1' and K2's launch counters must
-     move; per-stage seconds, contigs, N50, k-mer identity (>= 0.99) and
-     genome fraction
+     genome with the judged read model; K1' and K2''s launch counters must
+     move and K2's stay 0; per-stage seconds, contigs, N50, k-mer identity
+     (>= 0.99) and genome fraction
   5. the same pipeline on a ~20 kb genome on cuda and on cpu: artifacts
      byte-identical / array-equal
   6. CUDA-event times of each kernel (wrapper and kernel alone) and of its
      plain version, GCUPS, bounds and the share of them, registers: K1' in
      both designs at W 14, 4, 5 and 1, K2, K3' at the refine's shapes
-     beside K3's kernel on the same inputs, K3 at Lq 320; and the
-     correction batch split (K2 + gate / traceback)
+     beside K3's kernel on the same inputs, K3 at Lq 320; K2' on real
+     correction batches (_prep's output) on both plane homes, its shared
+     memory and blocks an SM; and the correction batch split (_prep / K2')
   7. banded_sw_batch_cuda == its plain version, bit-exact, every case
      through the wrapper, whose route counter must move: K3' at the
      refine's forward (N 4096, Lq 112, Lt 184, band 64) and reverse (band
@@ -71,6 +79,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 KERNELS = {
     "myers_batch_cuda": ("hga_tpu_torch/csrc/myers_gate.cu",
                          "hga_tpu/ops/myers_pallas.py:47"),
+    "myers_votes_cuda": ("hga_tpu_torch/csrc/myers_votes.cu",
+                         "hga_tpu/ops/myers_pallas.py:106"),
+    "myers_votes_cuda_scratch": ("hga_tpu_torch/csrc/myers_votes.cu",
+                                 "hga_tpu/ops/myers_pallas.py:106"),
     "myers_batch_planes_cuda": ("hga_tpu_torch/csrc/myers.cu",
                                 "hga_tpu/ops/myers_pallas.py:106"),
     "banded_sw_batch_cuda": ("hga_tpu_torch/csrc/sw.cu",
@@ -103,6 +115,8 @@ _PTXAS_ENTRY = (
     ("K1'", r"myers_gate_kernelILi(\d+)ELi(\d+)E",
      lambda g: f"W{g[0]}G{g[1]}"),
     ("K2", r"myers_kernelILi(\d+)E", lambda g: int(g[0])),
+    ("K2'", r"myers_votes_kernelILi(\d+)ELb([01])E",
+     lambda g: f"G{g[0]}{'smem' if g[1] == '1' else 'scratch'}"),
     ("K3'", r"sw_diag_kernelILi(\d+)E", lambda g: f"K{g[0]}"),
     ("K3", r"sw_kernelILb([01])E",
      lambda g: "smem" if g[0] == "1" else "scratch"),
@@ -117,8 +131,9 @@ _PTXAS_ENTRY = (
 def ptxas_report(text: str):
     """(kernel, instantiation, registers, (spill store bytes, spill load
     bytes)) per instantiation, from nvcc's -Xptxas -v report: K1' by W and
-    lanes a pair, K2 by W, K3' by slots a lane, K3 by buffer kind, X1 by W,
-    X2 by layout, K, G and ablation flags, X3 by C and STEPS."""
+    lanes a pair, K2 by W, K2' by lanes a pair and plane home, K3' by slots
+    a lane, K3 by buffer kind, X1 by W, X2 by layout, K, G and ablation
+    flags, X3 by C and STEPS."""
     import re
 
     rows, cur = [], None
@@ -290,6 +305,101 @@ def phase_k2(rng, MC, M, PU):
         fail("traceback cast no votes")
     errs.append(eq("K2 traceback votes", votes[0], votes[1]))
     return max(errs)
+
+
+def votes_inputs(rng, N, Lq, band, nb=8):
+    """A correction batch for K2': planted pairs in windows of Lq + band + 8
+    columns, qlen 0, 1, 31, 62 (those that fit) and 32 rows of multiples of
+    10, code 4 past qlen, target codes -1 and 9, ragged tlen on N / 16 rows,
+    windows that start before the backbone or run past its end, weights
+    1..3 (0 past qlen).  Returns the operands (numpy) and lpad."""
+    import numpy as np
+
+    Lt = Lq + band + 8
+    q, t, ql, tl = planted_pairs(rng, N, Lq, Lt, lead=band // 2)
+    edge = [x for x in (0, 1, 31, 62) if x <= Lq]
+    ql[:len(edge)] = edge
+    ql[8:40] = 10 * rng.integers(1, Lq // 10 + 1, 32)
+    pos = np.arange(Lq)[None, :]
+    q[pos >= ql[:, None]] = 4
+    t[40:72, 5:9] = -1
+    t[72:104, 12:40:5] = 9
+    tl[104:104 + N // 16] = rng.integers(0, Lt + 1, N // 16)
+    lpad = max(512, -(-(Lt + 64) // 32) * 32)
+    bb = rng.integers(0, nb, N).astype(np.int32)
+    off = rng.integers(-16, lpad - Lt + 16, N).astype(np.int32)
+    lb = rng.integers(lpad - 64, lpad + 1, N).astype(np.int32)
+    qw = rng.integers(1, 4, (N, Lq)).astype(np.int32)
+    qw[pos >= ql[:, None]] = 0
+    return (q, t, ql, tl, bb, off, lb, qw), nb, lpad
+
+
+def votes_check(label, MC, PU, ops, nb, lpad, min_identity, weighted,
+                scratch=False):
+    """K2' through its wrapper (the route by shape, whose counter must move
+    by one), or forced onto the scratch route, against myers_votes on the
+    same inputs: dist, tend and the vote buffer less its sink, which the
+    kernel never writes."""
+    import torch
+
+    args = to_dev(*ops)
+    if not weighted:
+        args = args[:7] + (None,)
+    Lq = ops[0].shape[1]
+    size_v = nb * lpad * PU.N_SYM
+    size_all = size_v + nb * lpad * 3 * 4
+    kw = dict(min_identity=min_identity, size_v=size_v, lpad=lpad,
+              ins_slots=3, max_steps=Lq + int((1.0 - min_identity) * Lq) + 2)
+    ref_m = torch.zeros(size_all + 1, dtype=torch.int32, device="cuda")
+    ref, _ = PU.myers_votes(ref_m, *args, **kw)
+    got_m = torch.zeros_like(ref_m)
+    if scratch:
+        r, *kops, outs = MC.votes_operands(got_m, *args, scratch=True, **kw)
+        MC.run_votes_kernel(r, *kops, outs)
+        got = MC.MyersResult(*outs)
+    else:
+        r = MC.votes_route(Lq, ops[1].shape[1])
+        key = MC.votes_counter(r)
+        before = MC.LAUNCHES[key]
+        got, _ = MC.myers_votes_cuda(got_m, *args, **kw)
+        if MC.LAUNCHES[key] != before + 1:
+            fail(f"K2' {label}: {key} did not count its launch")
+    name = (f"K2' {label} ({'scratch' if r.scratch else 'smem'}, "
+            f"{'weighted' if weighted else 'unweighted'}, min_identity "
+            f"{min_identity})")
+    if int(ref_m[:size_all].sum()) <= 0:
+        fail(f"{name}: the plain version cast no votes")
+    if int(got_m[size_all]) != 0:
+        fail(f"{name}: the kernel wrote the sink slot")
+    return max(eq(f"{name} dist", got.dist, ref.dist),
+               eq(f"{name} tend", got.tend, ref.tend),
+               eq(f"{name} votes", got_m[:size_all], ref_m[:size_all]))
+
+
+def phase_k2v(rng, MC, PU):
+    """K2' against myers_votes: the correction shape at min_identity 0.9
+    (where only float32 gate arithmetic agrees at qlen multiples of 10),
+    W 1, 2, 11 and 24 at min_identity 0.75, then the scratch route."""
+    log("phase 3: K2' myers_votes_cuda vs plain, bit-exact")
+    errs = {"myers_votes_cuda": [], "myers_votes_cuda_scratch": []}
+    ops, nb, lpad = votes_inputs(rng, 4096, 112, 64)
+    label = "correction shape (N 4096, Lq 112, Lt 184)"
+    for weighted in (False, True):
+        errs["myers_votes_cuda"].append(votes_check(
+            label, MC, PU, ops, nb, lpad, 0.9, weighted))
+    errs["myers_votes_cuda_scratch"].append(votes_check(
+        label, MC, PU, ops, nb, lpad, 0.9, False, scratch=True))
+    for n, lq, band in ((4096, 31, 64), (4096, 62, 64), (4096, 320, 64),
+                        (512, 744, 64), (128, 744, 960)):
+        ops, nb, lpad = votes_inputs(rng, n, lq, band)
+        r = MC.votes_route(lq, lq + band + 8)
+        for weighted in (False, True):
+            errs[MC.votes_counter(r)].append(votes_check(
+                f"W {r.W} (N {n}, Lq {lq}, Lt {lq + band + 8})", MC, PU,
+                ops, nb, lpad, 0.75, weighted))
+    if len(errs["myers_votes_cuda_scratch"]) < 3:
+        fail("band 960 did not take K2''s scratch route")
+    return {k: max(v) for k, v in errs.items()}
 
 
 def reversed_prefixes(q, t, qend, tend):
@@ -513,9 +623,12 @@ def phase_pipeline(genome_len: int, MC, workdir: str):
     wall = time.perf_counter() - t0
     launches = dict(MC.LAUNCHES)
     log(f"  launches on the main path: {json.dumps(launches)}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in ("myers_batch_cuda", "myers_votes_cuda"):
+        if launches[name] <= 0:
             fail(f"{name} was never launched on the main path")
+    if launches["myers_batch_planes_cuda"]:
+        fail("K2 (myers_batch_planes_cuda) ran on the main path, where K2' "
+             "replaces it")
     stages = {k: v["seconds"] for k, v in res.stats["stages"].items()}
     ev = evaluate(res.polished, genome)
     out = dict(genome_len=genome_len, n_short=pr_s.n_reads,
@@ -782,45 +895,166 @@ def phase_times(rng, MC, M, PU):
     rows["myers_batch_planes_cuda"].update(
         zip(("registers", "local_bytes"), MC.kernel_attrs(4, planes=True)),
         blocks=-(-4096 // MC.THREADS))
+    rows["myers_votes_cuda"], split = votes_times(rng, MC, PU, CR)
+    # the scratch route where the shape takes it: W 24, band 960
+    big = [votes_inputs(rng, 256, 744, 960) for _ in range(2)]
+    rows["myers_votes_cuda_scratch"], _, _ = votes_row(
+        MC, PU, [to_dev(*ops)[:7] for ops, _, _ in big], big[0][1],
+        big[0][2], judged_cfg().min_identity)
     for name, r in rows.items():
         log(f"  {name}: {json.dumps(r)}")
+    log(f"  correction batch (N 4096, Lq 112, Lt 184): {json.dumps(split)}")
+    return rows, split
 
-    # one correction batch at the judged shape: K2 + gate / traceback split
-    N, Lq, Lt = 4096, 112, 184
-    q, t, ql, tl = to_dev(*planted_pairs(rng, N, Lq, Lt))
-    nb, lpad = 64, 8192
+
+def correction_batches(rng, n_sets=4, N=4096, nb=64, L=8192):
+    """Real correction batches at the judged shape, as _prep's inputs:
+    `nb` random backbones of L bases, 100 bp short reads copied from them
+    with 11% edits (5% substitutions, 3% insertions, 3% deletions: a 1%
+    short read against a long read of the judged model's 10% error), half
+    of them reverse complemented, each read a candidate of its backbone at
+    its true diagonal.  Returns one _prep argument tuple (after band, Lq,
+    Wt) per set of N pairs, and the backbones' pad."""
+    import numpy as np
+    import torch
+
+    from hga_tpu_torch.io.encode import pack_reads
+    from hga_tpu_torch.ops.kmer import words_to_tensor
+
+    acgt = np.array(list("ACGT"))
+    back = rng.integers(0, 4, (nb, L))
+    pr_b = pack_reads(["".join(acgt[r]) for r in back],
+                      names=[f"b{i}" for i in range(nb)], category=[1] * nb,
+                      pad_len=L)
+    n = N * n_sets
+    bi = rng.integers(0, nb, n)
+    p = rng.integers(0, L - 100, n)
+    strand = rng.integers(0, 2, n)
+    src = back[bi[:, None], p[:, None] + np.arange(100)[None, :]]
+    op = rng.random(src.shape)
+    codes = np.empty_like(src)
+    for r in range(n):              # 5% sub, 3% insertion, 3% deletion
+        out = []
+        for c, u in zip(src[r], op[r]):
+            if u < 0.03:
+                continue
+            out.append((c + 1 + int(u * 100) % 3) % 4 if u < 0.08 else c)
+            if u > 0.97:
+                out.append(int(u * 1e4) % 4)
+        out = (out + list(rng.integers(0, 4, 100)))[:100]
+        codes[r] = out if strand[r] == 0 else [3 - c for c in out[::-1]]
+    pr_s = pack_reads(["".join(acgt[r]) for r in codes],
+                      names=[f"r{i}" for i in range(n)], pad_len=112)
+    dev = torch.device("cuda")
+    i32 = lambda x: torch.from_numpy(x.astype(np.int32)).to(dev)
+    i64 = lambda x: torch.from_numpy(x.astype(np.int64)).to(dev)
+    r_dev, b_dev = (words_to_tensor(x.packed, dev) for x in (pr_s, pr_b))
+    rlen, blen = i32(pr_s.length), i32(pr_b.length)
+    # _prep's window offset: -dd forward, dd + lb - la reverse
+    dd = np.where(strand == 1, p - L + 100, -p)
+    sets = []
+    for k in range(n_sets):
+        sl = slice(k * N, (k + 1) * N)
+        sets.append((r_dev, rlen, None, b_dev, blen,
+                     i64(np.arange(n)[sl]), i64(bi[sl]), i64(strand[sl]),
+                     i64(dd[sl]), N))
+    return sets, L
+
+
+def votes_row(MC, PU, sets, nb, lpad, min_identity):
+    """K2' on batches (q, t, qlen, tlen, bb, off, lb), unweighted: the
+    wrapper, the kernel alone and the plain version; the bound counts this
+    run's work — the DP's N Lt W words, each gated pair's walk (its qlen
+    diag/up moves and at most dist left moves) and one 4-byte atomic per
+    vote cast — and the route's registers, shared memory a block and blocks
+    resident an SM."""
+    import torch
+
+    from hga_tpu_torch.utils import benchmarks as B
+
+    N, Lq = sets[0][0].shape
+    Lt = sets[0][1].shape[1]
     size_v = nb * lpad * PU.N_SYM
     size_all = size_v + nb * lpad * 3 * 4
+    kw = dict(min_identity=min_identity, size_v=size_v, lpad=lpad,
+              ins_slots=3, max_steps=Lq + int((1.0 - min_identity) * Lq) + 2)
+    steps = votes = gated = 0
+    for a in sets:
+        m = torch.zeros(size_all + 1, dtype=torch.int32, device="cuda")
+        res, _ = PU.myers_votes(m, *a, **kw)
+        ql = a[2]
+        ok = (res.dist <= PU.gate_max_ed(ql, min_identity)) & (ql > 0) \
+            & (res.tend > 0)
+        gated += int(ok.sum()) / len(sets)
+        steps += int((ql.long() + res.dist)[ok].sum()) / len(sets)
+        votes += int(m[:size_all].sum()) / len(sets)
+    cells, ops, nbytes = myers_cost(N, Lq, Lt, False)
+    ops += steps * B.OPS_PER_WALK_STEP
+    nbytes += 4 * 3 * N + 4 * votes
     merged = torch.zeros(size_all + 1, dtype=torch.int32, device="cuda")
-    bb = torch.from_numpy(rng.integers(0, nb, N).astype("int32")).cuda()
-    off = torch.from_numpy(rng.integers(0, lpad - Lt, N).astype("int32")).cuda()
-    lb = torch.full((N,), lpad, dtype=torch.int32, device="cuda")
+    r = MC.votes_route(Lq, Lt)
+    row = time_row(
+        dict(N=N, Lq=Lq, Lt=Lt, W=r.W, G=r.G, min_identity=min_identity,
+             gated=gated, walk_steps=steps, votes=votes,
+             route="scratch" if r.scratch else "smem"),
+        lambda *a: MC.myers_votes_cuda(merged, *a, **kw), sets,
+        MC.run_votes_kernel, [MC.votes_operands(merged, *a, **kw)
+                              for a in sets],
+        lambda *a: PU.myers_votes(merged.clone(), *a, **kw), cells, ops,
+        nbytes, [MC.LAUNCHES])
+    regs, local, blocks = MC.votes_attrs(r)
+    row.update(registers=regs, local_bytes=local, smem_per_block=r.smem,
+               blocks_per_sm=blocks, pairs_per_block=r.pairs,
+               blocks=-(-N // r.pairs))
+    return row, kw, merged
+
+
+def votes_times(rng, MC, PU, CR):
+    """K2' on real correction batches (the judged shape, _prep's output)
+    with both plane homes, and one batch's split: _prep against K2''s
+    wrapper (CUDA events), and the batch on the host clock."""
+    import torch
+
+    from hga_tpu_torch.utils import benchmarks as B
+
+    band, Lq = 64, 112
+    Wt = Lq + band + 8
+    prep_sets, lpad = correction_batches(rng)
+    nb = 64
+    sets = [CR._prep(band, Lq, Wt, *p)[:7] for p in prep_sets]
+    cfg = judged_cfg()
+    row, kw, merged = votes_row(MC, PU, sets, nb, lpad, cfg.min_identity)
+    rs = MC.votes_route(Lq, Wt, scratch=True)
+    ms = B.cuda_ms(MC.run_votes_kernel,
+                   [MC.votes_operands(merged, *a, scratch=True, **kw)
+                    for a in sets], 20, passes=3)
+    regs, local, blocks = MC.votes_attrs(rs)
+    row["scratch_route"] = dict(
+        kernel_ms=ms, pct_of_bound=100 * row["bound_ms"] / ms,
+        registers=regs, local_bytes=local, smem_per_block=rs.smem,
+        blocks_per_sm=blocks)
     n_before = dict(MC.LAUNCHES)
-    steps = Lq + int(0.25 * Lq) + 2
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-    planes_ms = tb_ms = 0.0
-    reps = 6
+    prep_ms = votes_ms = host_ms = 0.0
+    reps = 8
     for r in range(reps + 1):            # the first pass warms up
+        t0 = time.perf_counter()
         ev[0].record()
-        res, pv, mv = CR._planes_inner(q, t, ql, tl)
-        max_ed = (0.25 * ql.float()).to(torch.int32)
-        qend = torch.where((res.dist <= max_ed) & (res.tend > 0), ql, 0)
+        args = CR._prep(band, Lq, Wt, *prep_sets[r % len(prep_sets)])
         ev[1].record()
-        PU.accumulate_backbone_votes_myers(
-            merged, pv, mv, res.dist, qend, res.tend, q, t, bb, off, lb,
-            size_v=size_v, lpad=lpad, ins_slots=3, max_steps=steps)
+        CR._votes_into(merged, cfg, kw["size_v"], lpad, *args)
         ev[2].record()
         torch.cuda.synchronize()
         if r:
-            planes_ms += ev[0].elapsed_time(ev[1]) / reps
-            tb_ms += ev[1].elapsed_time(ev[2]) / reps
+            host_ms += 1e3 * (time.perf_counter() - t0) / reps
+            prep_ms += ev[0].elapsed_time(ev[1]) / reps
+            votes_ms += ev[1].elapsed_time(ev[2]) / reps
     MC.LAUNCHES.update(n_before)
-    split = dict(planes_gate_ms=round(planes_ms, 3),
-                 traceback_ms=round(tb_ms, 3),
-                 batch_ms=round(planes_ms + tb_ms, 3),
-                 traceback_share=round(tb_ms / (planes_ms + tb_ms), 4))
-    log(f"  correction batch (N 4096, Lq 112, Lt 184): {json.dumps(split)}")
-    return rows, split
+    split = dict(prep_ms=round(prep_ms, 4), votes_ms=round(votes_ms, 4),
+                 batch_ms=round(prep_ms + votes_ms, 4),
+                 prep_share=round(prep_ms / (prep_ms + votes_ms), 4),
+                 host_batch_ms=round(host_ms, 4))
+    return row, split
 
 
 def refine_sets(rng, A, N, Lq, band, n_sets=4):
@@ -1178,17 +1412,20 @@ def main() -> int:
     for mod in (MC, AC, VM, MM, SV):
         mod._lib()
     MC._gate_lib()
+    MC._votes_lib()
     log(f"phase 1: built {len(libs)} libraries (one nvcc each, in parallel) "
         f"in {time.perf_counter() - t0:.1f} s: " + ", ".join(
             f"{os.path.relpath(p, HERE)} {built[n]['seconds']:.1f} s"
             for n, p in libs.items()))
     report = ptxas_report("".join(str(b["ptxas"]) for b in built.values()))
-    expect = ((2 * M.MAX_WORDS - 1) + M.MAX_WORDS + len(AC.DIAG_SLOTS) + 2
+    expect = ((2 * M.MAX_WORDS - 1) + M.MAX_WORDS + 2 * 6
+              + len(AC.DIAG_SLOTS) + 2
               + M.MAX_WORDS + sum(len(k) for k in SV.BUILT.values())
               + len(VM.BUILT))
     log(f"  ptxas report: {len(report)} of {expect} kernel instantiations "
         "parsed")
     for kern, by in (("K1'", "W, lanes a pair"), ("K2", "W"),
+                     ("K2'", "lanes a pair, plane home"),
                      ("K3'", "slots a lane"), ("K3", "buffer"), ("X1", "W"),
                      ("X2", "layout"), ("X3", "C, STEPS")):
         rows = [r for r in report if r[0] == kern]
@@ -1210,13 +1447,14 @@ def main() -> int:
         done("2")
     if "3" in ph:
         err["myers_batch_planes_cuda"] = phase_k2(rng, MC, M, PU)
+        err.update(phase_k2v(rng, MC, PU))
         done("3")
     if "7" in ph:
         err.update(phase_k3(rng, AC, A))
         done("7")
     torch.cuda.synchronize()
 
-    # launches per kernel on each path that ran: K1' and K2 on the hybrid
+    # launches per kernel on each path that ran: K1' and K2' on the hybrid
     # pipeline (phase 4), K1' and K3' on config 3 and K1' and K3 on its
     # 300 bp drive (phase 8), X1-X3 on the harnesses and K1'/K3' on
     # hga-torch bench (phase 9)
@@ -1265,8 +1503,9 @@ def main() -> int:
         e.update(launches=sum(by_path.values()) if by_path else None,
                  launches_by_path=by_path, max_abs_err=err[name],
                  matches_plain=None if err[name] is None else err[name] == 0)
-    log("  no single PyTorch call computes Myers edit distance, banded "
-        "local SW or the add/max chains: library_ms is null")
+    log("  no single PyTorch call computes Myers edit distance, its "
+        "traceback votes, banded local SW or the add/max chains: library_ms "
+        "is null")
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

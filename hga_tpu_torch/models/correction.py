@@ -3,12 +3,15 @@
 PyTorch port of the Myers engine of ``hga_tpu.models.correction``: short
 reads are anchored to each backbone (long read, or contig during polishing)
 through the sorted seed index (models/overlap_long), each batch of (short
-read x backbone window) alignments runs through the Myers planes DP (K2,
-ops/myers_cuda.py, on the card), the plane-based lockstep traceback turns
-the planes into column/insertion votes (ops/pileup.py), and one consensus
-call rewrites every backbone column.  Batch prep (read gather, orientation,
-in-backbone segment clip, target window gather) runs on the device from the
-resident packed reads, so a batch ships four id vectors.
+read x backbone window) alignments runs through the Myers planes DP, the
+plane-based lockstep traceback turns the planes into column/insertion votes,
+and one consensus call rewrites every backbone column.  Batch prep (read
+gather, orientation, in-backbone segment clip, target window gather) runs
+on the device from the resident packed reads, so a batch ships four id
+vectors.  On the card one launch of K2' (ops/myers_cuda.myers_votes_cuda)
+runs a batch's Myers DP with its planes in shared memory, the identity
+gate, the plane traceback and the vote atomics; on the CPU its plain
+version does (ops/pileup).
 
 Consensus covers substitutions, deletions (symbol 4) and up-to-3-base
 insertions per column, restored when a majority of covering reads agrees.
@@ -30,7 +33,7 @@ from hga_tpu_torch.models.overlap import SENT_BASE
 from hga_tpu_torch.models.seeding import drop_unsolid, extract_seed_entries
 from hga_tpu_torch.ops import pileup as PU
 from hga_tpu_torch.ops.kmer import unpack_bases, words_to_tensor
-from hga_tpu_torch.ops.myers_cuda import myers_batch_planes_cuda
+from hga_tpu_torch.ops.myers_cuda import myers_votes_cuda
 from hga_tpu_torch.ops.pairs import candidate_pairs
 from hga_tpu_torch.utils.device import resolve_device
 
@@ -86,12 +89,6 @@ def find_candidates_cross(pr_a: PackedReads, pr_b: PackedReads,
         mode="cross")
     host = lambda x: x.cpu().numpy()
     return host(cp.a), host(cp.b) - na, host(cp.rel), host(cp.diag)
-
-
-def _planes_inner(q, t, ql, tl):
-    """Myers planes DP through K2's wrapper: the kernel for CUDA tensors,
-    its plain version for CPU tensors."""
-    return myers_batch_planes_cuda(q, t, ql, tl)
 
 
 def _pack2(vals: np.ndarray) -> np.ndarray:
@@ -185,19 +182,16 @@ def _prep(band: int, Lq: int, Wt: int, r_packed, r_len, r_qwp, b_packed,
 
 def _votes_into(merged, cfg: AssemblerConfig, size_v: int, lpad: int,
                 q, t, ql, tl, bb, off, lb, qw=None):
-    """One batch: Myers planes DP -> gate -> plane traceback -> votes."""
-    res, pvp, mvp = _planes_inner(q, t, ql, tl)
-    max_ed = (torch.tensor(1.0 - cfg.min_identity, dtype=torch.float32,
-                           device=q.device)
-              * ql.to(torch.float32)).to(torch.int32)
-    ok = (res.dist <= max_ed) & (ql > 0) & (res.tend > 0)
-    qend_m = torch.where(ok, ql, 0)
+    """One batch: Myers planes DP -> gate -> plane traceback -> votes,
+    through K2''s wrapper (the kernel for CUDA tensors, its plain version
+    for CPU tensors)."""
     # path bound: gated rows walk <= qlen + dist <= Lq * (2 - id) steps
     Lq_ = q.shape[1]
     steps = Lq_ + int((1.0 - cfg.min_identity) * Lq_) + 2
-    return PU.accumulate_backbone_votes_myers(
-        merged, pvp, mvp, res.dist, qend_m, res.tend, q, t, bb, off, lb, qw,
+    _, merged = myers_votes_cuda(
+        merged, q, t, ql, tl, bb, off, lb, qw, min_identity=cfg.min_identity,
         size_v=size_v, lpad=lpad, ins_slots=INS_SLOTS, max_steps=steps)
+    return merged
 
 
 def consensus_backbones(
@@ -210,8 +204,9 @@ def consensus_backbones(
     seed_index=None,
     cands=None,
 ) -> List[str]:
-    """Correct every backbone by short-read pileup consensus (device DP +
-    device traceback + device votes); returns corrected sequences.
+    """Correct every backbone by short-read pileup consensus (device DP,
+    traceback and votes in one K2' launch a batch); returns corrected
+    sequences.
 
     cands: optional pre-computed (a, b, rel, diag) candidate arrays with b
     indexing `backbones`.

@@ -4,7 +4,7 @@ Each library is one source compiled by ``nvcc`` (``-gencode
 arch=compute_90a,code=sm_90a``) into ``hga_tpu_torch/_build/`` as a shared
 library with a plain C interface, keyed by a hash of its source and the
 flags, and loaded with ctypes by its wrapper module (ops/myers_cuda.py for
-myers and myers_gate, ops/align_cuda.py, and the harness kernels'
+myers, myers_gate and myers_votes, ops/align_cuda.py, and the harness kernels'
 exp/vpu_micro.py, exp/myers_micro.py, exp/sw_variants.py).  ``build_all``
 starts one ``nvcc`` per library, all at once, and waits for them together.
 The ptxas report (registers, spills) of each build is kept beside the
@@ -30,7 +30,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # library name -> its source in csrc/
-SOURCES = {"myers": "myers.cu", "myers_gate": "myers_gate.cu", "sw": "sw.cu",
+SOURCES = {"myers": "myers.cu", "myers_gate": "myers_gate.cu",
+           "myers_votes": "myers_votes.cu", "sw": "sw.cu",
            "vpu_micro": "vpu_micro.cu", "myers_micro": "myers_micro.cu",
            "sw_variants": "sw_variants.cu"}
 

@@ -1,4 +1,4 @@
-"""L3 — the two hand-written CUDA Myers kernels (K1', K2) and their wrappers.
+"""L3 — the hand-written CUDA Myers kernels (K1', K2, K2') and wrappers.
 
 Counterpart of ``hga_tpu.ops.myers_pallas``:
 
@@ -12,35 +12,45 @@ Counterpart of ``hga_tpu.ops.myers_pallas``:
   each warp stages its pairs' target rows in shared memory.  G comes from
   ``GATE_GROUP`` by W, a fixed table that the chip measurement filled in
   (chip_smoke.py phase 6, PERF.md).
+* ``myers_votes_cuda`` launches K2' (``csrc/myers_votes.cu``
+  ``myers_votes_kernel<G, SMEM>``), which replaces ``_myers_planes_kernel``
+  (hga_tpu/ops/myers_pallas.py:106) on the correction and polish paths:
+  one launch per batch runs K1''s split DP with the Pv/Mv planes kept in
+  shared memory, the float32 identity gate, the plane traceback and the
+  vote atomics into the flat vote buffer.  Its plain version is
+  ``ops/pileup.myers_votes``.  ``votes_route`` picks the planes' home by
+  shape: shared memory where a warp's planes fit a block, else a device
+  scratch (counted apart, ``myers_votes_cuda_scratch``).
 * ``myers_batch_planes_cuda`` launches K2 (``csrc/myers.cu``
-  ``myers_kernel<W>``), which replaces ``_myers_planes_kernel``
-  (hga_tpu/ops/myers_pallas.py:106) — the correction/polish DP whose Pv/Mv
-  planes feed the traceback: one thread per pair from query planes (W, N)
-  and transposed (Lt, N) targets that its wrapper prepares.
+  ``myers_kernel<W>``), the port of the public planes function
+  ``myers_batch_planes_pallas``: one thread per pair from query planes
+  (W, N) and transposed (Lt, N) targets that its wrapper prepares, planes
+  (Lt, N, W) written to device memory.  No main path runs it since K2'.
 
 What bounds them on an H100: about 20 int32 ALU operations per word, column
-and pair (integer issue rate); K2 also writes 2 * 4 * W bytes per pair and
-column (~24 MB per correction batch) to device memory.  See csrc/*.cu and
-PERF.md for what each design does about it.
+and pair (integer throughput), plus about 40 a traceback step in K2'; K2
+also writes 2 * 4 * W bytes per pair and column (~24 MB per correction
+batch) to device memory.  See csrc/*.cu and PERF.md for what each design
+does about it.
 
 Each wrapper checks dtype, shape and contiguity and raises on anything
 else.  On a CUDA tensor it launches its kernel (or raises); on a CPU tensor
-it returns its plain version from ops/myers.py — only because the tensor
-lies on the CPU, which is how the CPU tests run the port.  There is no
-fallback from a CUDA tensor to the plain version.
+it returns its plain version (ops/myers.py, ops/pileup.py) — only because
+the tensor lies on the CPU, which is how the CPU tests run the port.  There
+is no fallback from a CUDA tensor to the plain version.
 
 The kernels are built at first use with nvcc (``-gencode
-arch=compute_90a,code=sm_90a``) from ``csrc/myers_gate.cu`` and
-``csrc/myers.cu`` into ``hga_tpu_torch/_build/`` (ops/cuda_build.py), keyed
-by a hash of the source and flags, and loaded with ctypes.  Each launch
-goes on ``torch.cuda.current_stream()``; the wrapper raises when the launch
-reports an error.
+arch=compute_90a,code=sm_90a``) from ``csrc/myers_gate.cu``,
+``csrc/myers_votes.cu`` and ``csrc/myers.cu`` into ``hga_tpu_torch/_build/``
+(ops/cuda_build.py), keyed by a hash of the source and flags, and loaded
+with ctypes.  Each launch goes on ``torch.cuda.current_stream()``; the
+wrapper raises when the launch reports an error.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -48,12 +58,18 @@ from hga_tpu_torch.ops import cuda_build
 from hga_tpu_torch.ops.myers import (MAX_WORDS, MyersResult, myers_batch,
                                      myers_batch_planes, n_words,
                                      query_planes)
+from hga_tpu_torch.ops.pileup import myers_votes
 
-# launches of each kernel by its wrapper (reset with reset_launches())
+# launches of each kernel by its wrapper (reset with reset_launches()); K2'
+# counts its two plane homes apart
 LAUNCHES: Dict[str, int] = {"myers_batch_cuda": 0,
+                            "myers_votes_cuda": 0,
+                            "myers_votes_cuda_scratch": 0,
                             "myers_batch_planes_cuda": 0}
 
-THREADS = 128              # threads a block, both kernels
+THREADS = 128              # threads a block, K1' and K2
+SMEM_MAX = 232448          # shared memory a block may opt in to (227 KB)
+STAGE_COLUMNS = 128        # K2' target columns a warp stages at a time
 
 
 def group_width(W: int) -> int:
@@ -72,6 +88,7 @@ GATE_GROUP: Dict[int, int] = {W: group_width(W)
 
 _LIB: Optional[ctypes.CDLL] = None        # K2 (csrc/myers.cu)
 _GATE_LIB: Optional[ctypes.CDLL] = None   # K1' (csrc/myers_gate.cu)
+_VOTES_LIB: Optional[ctypes.CDLL] = None  # K2' (csrc/myers_votes.cu)
 
 
 def reset_launches() -> None:
@@ -104,6 +121,24 @@ def _gate_lib() -> ctypes.CDLL:
         lib.hga_myers_gate_attrs.restype = ci
         _GATE_LIB = lib
     return _GATE_LIB
+
+
+def _votes_lib() -> ctypes.CDLL:
+    global _VOTES_LIB
+    if _VOTES_LIB is None:
+        lib = ctypes.CDLL(cuda_build.build("myers_votes"))
+        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.hga_myers_votes_launch.argtypes = (
+            [vp] * 8 + [ci] * 9 + [cl] * 3 + [ctypes.c_float] + [vp] * 5)
+        lib.hga_myers_votes_launch.restype = ci
+        lib.hga_myers_votes_attrs.argtypes = [ci, ci] + \
+            [ctypes.POINTER(ci)] * 2
+        lib.hga_myers_votes_attrs.restype = ci
+        lib.hga_myers_votes_occupancy.argtypes = [ci, ci, ci,
+                                                  ctypes.POINTER(ci)]
+        lib.hga_myers_votes_occupancy.restype = ci
+        _VOTES_LIB = lib
+    return _VOTES_LIB
 
 
 def kernel_attrs(W: int, planes: bool = False,
@@ -237,3 +272,154 @@ def myers_batch_planes_cuda(q: torch.Tensor, t: torch.Tensor,
         run_planes_kernel(qp, tT, qlen, tlen, outs)
         LAUNCHES["myers_batch_planes_cuda"] += 1
     return MyersResult(dist=outs[0], tend=outs[1]), outs[2], outs[3]
+
+
+# ---------------------------------------------------------------- K2'
+
+class VotesRoute(NamedTuple):
+    W: int          # query words
+    G: int          # lanes a pair (group_width(W))
+    pairs: int      # pairs a warp (a block), 32 / G
+    stride: int     # uint32 words of a pair's plane row (even, >= 2 W Lt)
+    smem: int       # dynamic shared memory a block, bytes
+    scratch: bool   # planes in a device scratch instead of shared memory
+
+
+def votes_route(Lq: int, Lt: int, scratch: bool = False) -> VotesRoute:
+    """K2''s geometry for one shape: a pair's plane row holds (Pv, Mv) of
+    each (column, word), rounded up to 32 words plus 2 G (the groups of a
+    warp then store to distinct banks); a block is one warp, its planes and
+    its staged targets (odd words a row) in shared memory, or the staged
+    targets alone with the planes in a device scratch when they do not fit
+    (or when `scratch` asks for it, which timing comparisons do)."""
+    W = n_words(Lq)
+    G = group_width(W)
+    pairs = 32 // G
+    stride = -(-2 * W * Lt // 32) * 32 + 2 * G
+    row = ((STAGE_COLUMNS + W - 1 + 3) // 4 | 1) * 4
+    smem = pairs * stride * 4 + pairs * row
+    if scratch or smem > SMEM_MAX:
+        return VotesRoute(W, G, pairs, stride, pairs * row, True)
+    return VotesRoute(W, G, pairs, stride, smem, False)
+
+
+def votes_counter(r: VotesRoute) -> str:
+    return "myers_votes_cuda_scratch" if r.scratch else "myers_votes_cuda"
+
+
+def votes_attrs(r: VotesRoute) -> Tuple[int, int, int]:
+    """(registers per thread, local bytes per thread, blocks resident an
+    SM) of the route's instantiation at its shared memory."""
+    regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    lib = _votes_lib()
+    err = lib.hga_myers_votes_attrs(r.G, int(r.scratch), ctypes.byref(regs),
+                                    ctypes.byref(local))
+    err = err or lib.hga_myers_votes_occupancy(r.G, int(r.scratch), r.smem,
+                                               ctypes.byref(blocks))
+    if err:
+        raise RuntimeError(f"K2' attributes failed with CUDA error {err}")
+    return regs.value, local.value, blocks.value
+
+
+def _check_votes(merged, q, t, qlen, tlen, bb, off, lb, qw, size_v, lpad,
+                 ins_slots) -> int:
+    """K1's operand checks plus the batch's placement and the vote buffer;
+    returns size_all (the buffer's last slot is the sink)."""
+    N, _, _ = _check(q, t, qlen, tlen)
+    named = [("bb", bb), ("off", off), ("lb", lb), ("merged", merged)]
+    if qw is not None:
+        named.append(("qw", qw))
+    for name, x in named:
+        if x.device != q.device:
+            raise ValueError(f"{name} lies on {x.device}, q on {q.device}")
+        if x.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if bb.shape != (N,) or off.shape != (N,) or lb.shape != (N,):
+        raise ValueError(f"bb, off, lb must be ({N},)")
+    if qw is not None and qw.shape != q.shape:
+        raise ValueError(f"qw {tuple(qw.shape)} must match q "
+                         f"{tuple(q.shape)}")
+    if merged.dim() != 1 or merged.shape[0] < 1:
+        raise ValueError("merged must be a 1-D vote buffer with a sink slot")
+    size_all = merged.shape[0] - 1
+    if not 0 <= size_v <= size_all or lpad < 0 or ins_slots < 1:
+        raise ValueError(f"size_v {size_v}, lpad {lpad}, ins_slots "
+                         f"{ins_slots} do not fit a buffer of {size_all}")
+    return size_all
+
+
+def votes_operands(merged, q, t, qlen, tlen, bb, off, lb, qw=None, *,
+                   min_identity: float, size_v: int, lpad: int,
+                   ins_slots: int = 3, max_steps: Optional[int] = None,
+                   scratch: bool = False):
+    """K2''s launch for one batch: the route (shape alone, or the scratch
+    when `scratch`), the caller's tensors as they are, the walk's step
+    bound min(Lq + Lt, max_steps), the scalars, the device scratch (else
+    None) and fresh dist/tend."""
+    size_all = _check_votes(merged, q, t, qlen, tlen, bb, off, lb, qw,
+                            size_v, lpad, ins_slots)
+    (N, Lq), Lt = q.shape, t.shape[1]
+    r = votes_route(Lq, Lt, scratch)
+    steps = Lq + Lt if max_steps is None else min(Lq + Lt, max_steps)
+    planes = None
+    if r.scratch:
+        planes = torch.empty(-(-N // r.pairs) * r.pairs * r.stride,
+                             dtype=torch.int32, device=q.device)
+    outs = tuple(torch.empty(N, dtype=torch.int32, device=q.device)
+                 for _ in range(2))
+    scalars = (max(steps, 0), ins_slots, lpad, size_v, size_all,
+               1.0 - min_identity)
+    return r, (q, t, qlen, tlen, bb, off, lb, qw), scalars, planes, merged, \
+        outs
+
+
+def run_votes_kernel(r: VotesRoute, ins, scalars, planes, merged,
+                     outs) -> None:
+    """Launch K2' on the current stream (operands as votes_operands
+    returns them).  The float32 gate fraction is the C float nearest to
+    1 - min_identity, as torch.tensor(..., dtype=torch.float32) makes it."""
+    q, t = ins[0], ins[1]
+    (N, Lq), Lt = q.shape, t.shape[1]
+    steps, ins_slots, lpad, size_v, size_all, frac = scalars
+    ptr = lambda x: None if x is None else x.data_ptr()
+    dist, tend = outs
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _votes_lib().hga_myers_votes_launch(
+            *(ptr(x) for x in ins), N, Lq, Lt, r.W, r.G, r.stride, steps,
+            ins_slots, r.smem, lpad, size_v, size_all, frac,
+            dist.data_ptr(), tend.data_ptr(), merged.data_ptr(),
+            ptr(planes), stream)
+    if err:
+        raise RuntimeError(f"myers votes kernel launch failed: CUDA error "
+                           f"{err}")
+
+
+def myers_votes_cuda(merged: torch.Tensor, q: torch.Tensor, t: torch.Tensor,
+                     qlen: torch.Tensor, tlen: torch.Tensor, bb: torch.Tensor,
+                     off: torch.Tensor, lb: torch.Tensor,
+                     qw: Optional[torch.Tensor] = None, *,
+                     min_identity: float, size_v: int, lpad: int,
+                     ins_slots: int = 3, max_steps: Optional[int] = None
+                     ) -> Tuple[MyersResult, torch.Tensor]:
+    """K2': one correction batch — Myers DP, identity gate, plane traceback,
+    votes — updating `merged` (int32 (size_all + 1,), the last slot the
+    sink, which the kernel never writes) in place; returns (MyersResult,
+    merged).  Bit-exact with ops/pileup.myers_votes (CPU tensors: that
+    plain version)."""
+    _check_votes(merged, q, t, qlen, tlen, bb, off, lb, qw, size_v, lpad,
+                 ins_slots)
+    if not q.is_cuda:
+        return myers_votes(merged, q, t, qlen, tlen, bb, off, lb, qw,
+                           min_identity=min_identity, size_v=size_v,
+                           lpad=lpad, ins_slots=ins_slots,
+                           max_steps=max_steps)
+    r, *ops, outs = votes_operands(
+        merged, q, t, qlen, tlen, bb, off, lb, qw, min_identity=min_identity,
+        size_v=size_v, lpad=lpad, ins_slots=ins_slots, max_steps=max_steps)
+    if q.shape[0]:
+        run_votes_kernel(r, *ops, outs)
+        LAUNCHES[votes_counter(r)] += 1
+    return MyersResult(*outs), merged

@@ -11,6 +11,10 @@ drops with ``mode="drop"`` (index == size_all) land in the sink, and callers
 cut it off.
 
 Symbols: 0..3 = A,C,G,T (substitution vote), 4 = deletion, 5 = unused slot.
+
+``myers_votes`` is one correction batch end to end (planes DP, float32
+identity gate, traceback, votes): the plain version of the CUDA kernel K2'
+(ops/myers_cuda.myers_votes_cuda), which does the same in one launch.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from hga_tpu_torch.ops.myers import MyersResult, myers_batch_planes
 
 N_SYM = 6
 
@@ -145,6 +151,39 @@ def accumulate_backbone_votes_myers(
              if qw is None else torch.cat(w_parts).to(merged.dtype))
         merged.index_add_(0, idx, w)
     return merged
+
+
+def gate_max_ed(qlen: torch.Tensor, min_identity: float) -> torch.Tensor:
+    """The correction gate's edit budget per pair: (1 - min_identity) * qlen
+    in float32, truncated (the reference computes it in float32: at
+    min_identity 0.9 and qlen a multiple of 10 it gives qlen / 10, where
+    float64 gives one less)."""
+    frac = torch.tensor(1.0 - min_identity, dtype=torch.float32,
+                        device=qlen.device)
+    return (frac * qlen.to(torch.float32)).to(torch.int32)
+
+
+def myers_votes(merged: torch.Tensor, q: torch.Tensor, t: torch.Tensor,
+                qlen: torch.Tensor, tlen: torch.Tensor, bb: torch.Tensor,
+                off: torch.Tensor, lb: torch.Tensor,
+                qw: Optional[torch.Tensor] = None, *, min_identity: float,
+                size_v: int, lpad: int, ins_slots: int = 3,
+                max_steps: Optional[int] = None
+                ) -> Tuple[MyersResult, torch.Tensor]:
+    """One correction batch: the Myers planes DP, the identity gate
+    (dist <= gate_max_ed, qlen > 0, tend > 0), then the plane traceback's
+    votes into `merged` (updated in place).  The plain version of K2'
+    (ops/myers_cuda.myers_votes_cuda); the reference is ``votes_into`` of
+    hga_tpu.models.correction._consensus_step_fn.  Returns (MyersResult,
+    merged)."""
+    res, pv, mv = myers_batch_planes(q, t, qlen, tlen)
+    ok = (res.dist <= gate_max_ed(qlen, min_identity)) & (qlen > 0) \
+        & (res.tend > 0)
+    accumulate_backbone_votes_myers(
+        merged, pv, mv, res.dist, torch.where(ok, qlen, 0), res.tend, q, t,
+        bb, off, lb, qw, size_v=size_v, lpad=lpad, ins_slots=ins_slots,
+        max_steps=max_steps)
+    return res, merged
 
 
 def consensus_call(votes: torch.Tensor, backbone: torch.Tensor,

@@ -12,6 +12,7 @@ Roofline of one H100 SXM (NVIDIA data sheet), computed for each shape:
   HBM3          3.35e12 bytes/s
   banded SW     12 int32 operations per in-band cell
   Myers         20 int32 operations per word, target column and pair
+  traceback     40 int32 operations per walk step (K2')
 
 ``roofline_gcups`` = cells / max(operations / int32 rate, bytes / HBM
 rate), each input read once and each output written once; ``baseline_gcups``
@@ -42,6 +43,11 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # int32 operations per word, target column and pair in the Myers recurrence
 # after the compiler's 3-input logic fusion (about 37 source-level ops)
 OPS_PER_WORD_COLUMN = 20
+# int32 operations per step of the plane traceback (K2'): the W-word masked
+# prefix popcount of one column (about 4 W), two vertical-delta bits, the
+# substitution test, the three move tests and the state updates (about 25)
+# at the correction width W 4
+OPS_PER_WALK_STEP = 40
 # int32 operations per in-band cell of the SW recurrence (the Pallas
 # kernel's CostEstimate, hga_tpu/ops/align_pallas.py:222)
 SW_OPS_PER_CELL = 12

@@ -2,7 +2,8 @@
 """Chip smoke for the PyTorch/CUDA port (hga_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                     # every phase, 1 Mb genome
-    python3 chip_smoke.py --genome-len 4600000
+    python3 chip_smoke.py --genome-len 4600000 --phases 014a \
+        --phase10 repeats,circular,repeats+circular   # judged quality rows
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   0. card facts: nvidia-smi name/power limit, torch and CUDA versions
@@ -13,7 +14,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      long-overlap shape (N 4096, Lq 414, Lt 478), the config-3 gate shape
      (N 4096, Lq 112, Lt 184, ragged, code-4 padding) and at W 1, 2, 4, 5,
      14, 16, 24 with qlen 0, 1, 31, 32, 62, Lq - 1, ragged tlen and codes
-     -1, 4, 9
+     -1, 4, 9; then K1''s shared-target mode (one target row for every
+     pair, counted as myers_batch_cuda_shared) at segment_identity's shape
+     (segments of 384, W 13, against genome . sentinel . revcomp of a 10 kb
+     genome: Lt 20001) and at W 4 and W 1 with qlen 0, 1, 31, 32 and target
+     codes -1, 4, 9
   3. K2 (myers_batch_planes_cuda) == its plain version (dist, tend, Pv, Mv)
      at the correction shape (N 4096, Lq 112, Lt 184), and the traceback
      votes made from each set of planes are equal; then K2'
@@ -21,15 +26,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      its plain version (dist, tend and the vote buffer less its sink) at
      the correction shape (min_identity 0.9, weighted and unweighted, qlen
      0, 1, 31, 62 and multiples of 10, target codes -1 and 9, ragged tlen),
-     at W 1, 2, 11 (300 bp reads) and 24, and on the device-scratch route
-     (band 960, by shape; and the correction shape on it); each route's
-     counter must move
-  4. the port's main path, run_pipeline(device="cuda"), on a simulated
-     genome with the judged read model; K1' and K2''s launch counters must
-     move and K2's stay 0; per-stage seconds, contigs, N50, k-mer identity
-     (>= 0.99) and genome fraction
+     at W 1, 2, 11 (300 bp reads) and 24, at copy arbitration's shape (Lq
+     400, W 13, Lt 472), and on the device-scratch route (band 960, by
+     shape; and the correction shape on it); each route's counter must move
+  4. the port's main path, run_pipeline(device="cuda") with the judged
+     config (copy arbitration on), on a simulated genome with the judged
+     read model; K1' and K2''s launch counters must move, K2' also during
+     the arbitrate stage, and K2's stay 0; per-stage seconds, the
+     arbitrate split, contigs, N50, k-mer identity (>= 0.99, utils/evalx)
+     and genome fraction
   5. the same pipeline on a ~20 kb genome on cuda and on cpu: artifacts
-     byte-identical / array-equal
+     byte-identical / array-equal (arbitrated.fasta included)
   6. CUDA-event times of each kernel (wrapper and kernel alone) and of its
      plain version, GCUPS, bounds and the share of them, registers: K1' in
      both designs at W 14, 4, 5 and 1, K2, K3' at the refine's shapes
@@ -52,10 +59,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      must move), the SASS add/max count of X3 and the DPX instructions of
      X2, and `hga-torch bench --what sw|myers|count|pipeline --pairs 8192`
      through cli.main (the K1' and K3' counters must move)
+  a. (phase 10) the pipeline on a repeat-bearing genome (sim.repeat_genome)
+     with circular reads, as exp/scale_run.py --repeats --circular runs
+     it: contigs, circular contigs, k-mer identity judged as a circle (>=
+     0.99), genome fraction, then utils/evalx.segment_identity on the card
+     (K1''s shared-target counter must move); --phase10 picks the genomes
+     (repeats, circular, repeats+circular)
 
 Phase 5 also runs config 3 and the short-read-only pipeline (8 kb genome)
 on cuda and on cpu, byte-identical.  Phases run in the order
-0 1 2 3 7 4 8 5 6 9.
+0 1 2 3 7 4 8 a 5 6 9; phase 6 also times K2' at the arbitration shape and
+K1''s shared-target mode at segment_identity's shape.
 
 The last three lines of standard output are the `kernels` JSON line, the
 card's `name, power.limit`, and {"ok": true, "device": {...}}.
@@ -79,6 +93,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 KERNELS = {
     "myers_batch_cuda": ("hga_tpu_torch/csrc/myers_gate.cu",
                          "hga_tpu/ops/myers_pallas.py:47"),
+    "myers_batch_cuda_shared": ("hga_tpu_torch/csrc/myers_gate.cu",
+                                "hga_tpu/ops/myers_pallas.py:47"),
     "myers_votes_cuda": ("hga_tpu_torch/csrc/myers_votes.cu",
                          "hga_tpu/ops/myers_pallas.py:106"),
     "myers_votes_cuda_scratch": ("hga_tpu_torch/csrc/myers_votes.cu",
@@ -239,6 +255,95 @@ def myers_edges(rng, N, Lq, Lt):
     return q, t, ql, tl
 
 
+def segment_inputs(rng, genome_len: int, n_extra: int = 8, seg: int = 384):
+    """segment_identity's operands on a random genome (the row: genome .
+    sentinel . reverse complement): the segments of a copy of the genome
+    with 1% substitutions, its first half forward and its second half
+    reverse complemented, and `n_extra` random segments (no placement);
+    the last segment of each half is short; tlen is the whole row.
+    Returns int32 (q, t (1, Lt), qlen, tlen)."""
+    import numpy as np
+
+    # the shared row, as utils/evalx.segment_identity builds it
+    g = rng.integers(0, 4, genome_len)
+    row = np.full(2 * genome_len + 1, 4, np.int32)
+    row[:genome_len] = g
+    row[genome_len + 1:] = 3 - g[::-1]
+    qs, ql = [], []
+    half = genome_len // 2
+    for copy in (g[:half], 3 - g[half:][::-1]):
+        c = np.where(rng.random(copy.size) < 0.01, (copy + 1) % 4, copy)
+        for o in range(0, c.size, seg):
+            piece = c[o:o + seg]
+            qs.append(np.pad(piece, (0, seg - piece.size),
+                             constant_values=4))
+            ql.append(piece.size)
+    for _ in range(n_extra):
+        qs.append(rng.integers(0, 4, seg))
+        ql.append(seg)
+    q = np.stack(qs).astype(np.int32)
+    ql = np.array(ql, np.int32)
+    tl = np.full(q.shape[0], row.size, np.int32)
+    return q, row[None, :], ql, tl
+
+
+def shared_edges(rng, N, Lq, Lt):
+    """The shared-target mode's edges: queries copied from the row with a
+    few substitutions, and random ones; qlen 0, 1, 31, 32, Lq; code 4 past
+    qlen; a sentinel column and codes -1, 4, 9 in the row; ragged tlen."""
+    import numpy as np
+
+    t = rng.integers(0, 4, (1, Lt)).astype(np.int32)
+    t[0, Lt // 2] = 4
+    t[0, 5:9] = [-1, 4, 9, 9]
+    q = rng.integers(0, 4, (N, Lq)).astype(np.int32)
+    for n in range(0, N, 2):
+        off = int(rng.integers(0, Lt - Lq))
+        q[n] = t[0, off:off + Lq] % 4
+        q[n, rng.integers(0, Lq, 3)] = rng.integers(0, 4, 3)
+    ql = rng.integers(0, Lq + 1, N).astype(np.int32)
+    ql[:5] = [0, 1, min(31, Lq), min(32, Lq), Lq]
+    q[np.arange(Lq)[None, :] >= ql[:, None]] = 4
+    tl = np.full(N, Lt, np.int32)
+    tl[N // 2:] = rng.integers(0, Lt + 1, N - N // 2)
+    return q, t, ql, tl
+
+
+def phase_k1_shared(rng, MC, M):
+    """K1''s shared-target mode through its wrapper (its own counter must
+    move) and, kernel alone, in the other design, against the plain version
+    on the same (1, Lt) row."""
+    import torch
+
+    errs = []
+    cases = [("shared target, segment_identity shape (10 kb genome: "
+              "Lq 384, W 13, Lt 20001)", segment_inputs(rng, 10_000)),
+             ("shared target W 4 (N 1000, Lq 112, Lt 3000)",
+              shared_edges(rng, 1000, 112, 3000)),
+             ("shared target W 1 (N 300, Lq 20, Lt 1000)",
+              shared_edges(rng, 300, 20, 1000))]
+    for label, x in cases:
+        args = to_dev(*x)
+        t0 = time.perf_counter()
+        ref = M.myers_batch(*args)
+        torch.cuda.synchronize()
+        log(f"  plain version ({label}): {time.perf_counter() - t0:.1f} s")
+        W = M.n_words(x[0].shape[1])
+        before = MC.LAUNCHES["myers_batch_cuda_shared"]
+        got = MC.myers_batch_cuda(*args)
+        if MC.LAUNCHES["myers_batch_cuda_shared"] != before + 1:
+            fail(f"K1' {label}: myers_batch_cuda_shared did not count")
+        errs += [eq(f"K1' {label} G {MC.GATE_GROUP[W]} {f}",
+                    getattr(got, f), getattr(ref, f))
+                 for f in ("dist", "tend")]
+        for other in {1, MC.group_width(W)} - {MC.GATE_GROUP[W]}:
+            *ops, outs = MC.kernel_operands(*args, group=other)
+            MC.run_kernel(*ops, outs)
+            errs += [eq(f"K1' {label} G {other} {f}", o, getattr(ref, f))
+                     for f, o in zip(("dist", "tend"), outs)]
+    return max(errs)
+
+
 def phase_k1(rng, MC, M):
     """K1' through its wrapper (GATE_GROUP's lanes a pair) and through the
     other design at each shape, against the plain version."""
@@ -379,7 +484,8 @@ def votes_check(label, MC, PU, ops, nb, lpad, min_identity, weighted,
 def phase_k2v(rng, MC, PU):
     """K2' against myers_votes: the correction shape at min_identity 0.9
     (where only float32 gate arithmetic agrees at qlen multiples of 10),
-    W 1, 2, 11 and 24 at min_identity 0.75, then the scratch route."""
+    W 1, 2, 11, 13 (copy arbitration) and 24 at min_identity 0.75, then the
+    scratch route."""
     log("phase 3: K2' myers_votes_cuda vs plain, bit-exact")
     errs = {"myers_votes_cuda": [], "myers_votes_cuda_scratch": []}
     ops, nb, lpad = votes_inputs(rng, 4096, 112, 64)
@@ -389,8 +495,10 @@ def phase_k2v(rng, MC, PU):
             label, MC, PU, ops, nb, lpad, 0.9, weighted))
     errs["myers_votes_cuda_scratch"].append(votes_check(
         label, MC, PU, ops, nb, lpad, 0.9, False, scratch=True))
+    # W 1, 2, 11 (300 bp reads), copy arbitration's chunks (pad 400 at
+    # k 15: W 13, Lt 472, 2 pairs a warp), W 24, and the scratch route
     for n, lq, band in ((4096, 31, 64), (4096, 62, 64), (4096, 320, 64),
-                        (512, 744, 64), (128, 744, 960)):
+                        (4096, 400, 64), (512, 744, 64), (128, 744, 960)):
         ops, nb, lpad = votes_inputs(rng, n, lq, band)
         r = MC.votes_route(lq, lq + band + 8)
         for weighted in (False, True):
@@ -497,82 +605,40 @@ def phase_k3(rng, AC, A):
     return {k: max(v) for k, v in errs.items()}
 
 
-def kmer_set(seq: str, k: int):
-    """Canonical k-mer values (uint64) of a sequence, numpy only."""
-    import numpy as np
-
-    from hga_tpu_torch.io.encode import encode_bases
-
-    codes, _ = encode_bases(seq)
-    m = len(seq) - k + 1
-    if m <= 0:
-        return np.zeros(0, np.uint64)
-    c = codes.astype(np.uint64)
-    fwd = np.zeros(m, np.uint64)
-    rc = np.zeros(m, np.uint64)
-    for i in range(k):
-        fwd |= c[i:i + m] << np.uint64(2 * (k - 1 - i))
-        rc |= (np.uint64(3) - c[i:i + m]) << np.uint64(2 * i)
-    return np.minimum(fwd, rc)
-
-
-def evaluate(contigs, genome: str, k: int = 21):
-    """k-mer identity (contig k-mers found in the genome) and genome
-    fraction (genome k-mers found in the contigs)."""
-    import numpy as np
-
-    ref = np.unique(kmer_set(genome, k))
-    hit = tot = 0
-    sets = []
-    for _, s in contigs:
-        ck = kmer_set(s, k)
-        tot += ck.size
-        idx = np.clip(np.searchsorted(ref, ck), 0, ref.size - 1)
-        hit += int((ref[idx] == ck).sum())
-        sets.append(np.unique(ck))
-    cset = np.unique(np.concatenate(sets)) if sets else np.zeros(0, np.uint64)
-    idx = np.clip(np.searchsorted(cset, ref), 0, max(cset.size - 1, 0))
-    cov = int((cset[idx] == ref).sum()) if cset.size else 0
-    lens = sorted((len(s) for _, s in contigs), reverse=True)
-    acc, n50 = 0, 0
-    for L in lens:
-        acc += L
-        if 2 * acc >= sum(lens):
-            n50 = L
-            break
-    return dict(n_contigs=len(contigs), n50=n50, total_len=sum(lens),
-                identity=hit / tot if tot else 0.0,
-                genome_fraction=cov / ref.size if ref.size else 0.0)
-
-
 _SIMULATED: dict = {}
 # phase 8's second drive: 300 bp short reads (Illumina MiSeq 2 x 300), whose
 # refine width (pad 320) takes K3's row route, on a 100 kb genome
 MISEQ_GENOME = 100_000
 
 
-def simulate(genome_len: int, seed: int, read_len: int = 100):
+def simulate(genome_len: int, seed: int, read_len: int = 100,
+             repeats: bool = False, circular: bool = False):
     """The judged read model (exp/scale_run.py): short 100 bp at 30x, 1%
     error, pad 112; long reads mean 8 kb, min 1 kb, 10% error, 20x.  Made
-    once per (genome_len, seed, read_len) and shared by the phases;
-    `read_len` 300 (Illumina MiSeq's 2 x 300 reads) pads to 320."""
-    key = (genome_len, seed, read_len)
+    once per argument set and shared by the phases; `read_len` 300
+    (Illumina MiSeq's 2 x 300 reads) pads to 320; `repeats` takes
+    sim.repeat_genome (rRNA-operon, IS-element and tandem families) and
+    `circular` samples reads across the origin, as exp/scale_run.py
+    --repeats --circular does."""
+    key = (genome_len, seed, read_len, repeats, circular)
     if key not in _SIMULATED:
         _SIMULATED[key] = _simulate(*key)
     return _SIMULATED[key]
 
 
-def _simulate(genome_len: int, seed: int, read_len: int):
+def _simulate(genome_len: int, seed: int, read_len: int, repeats: bool,
+              circular: bool):
     from hga_tpu_torch.io.encode import pack_reads
     from hga_tpu_torch.utils import sim
 
-    genome = sim.random_genome(genome_len, seed=seed)
+    genome = (sim.repeat_genome(genome_len, seed=seed) if repeats
+              else sim.random_genome(genome_len, seed=seed))
     ss, sn = sim.simulate_short_reads(genome, coverage=30.0,
                                       read_len=read_len, error_rate=0.01,
-                                      seed=seed + 1)
+                                      seed=seed + 1, circular=circular)
     ls, ln = sim.simulate_long_reads(genome, coverage=20.0, mean_len=8000,
                                      min_len=1000, error_rate=0.10,
-                                     seed=seed + 2)
+                                     seed=seed + 2, circular=circular)
     pad_s = 112 if read_len == 100 else -(-(read_len + 12) // 32) * 32
     pr_s = pack_reads(ss, names=sn, pad_len=pad_s)
     pad_l = ((max(len(s) for s in ls) + 31) // 32) * 32
@@ -586,8 +652,7 @@ def judged_cfg():
     return AssemblerConfig(k=15, w=5, band=64, batch_reads=4096,
                            min_shared_minimizers=2, min_overlap_len=500,
                            min_identity=0.75, polish_passes=2,
-                           corr_batch_pairs=4096, min_contig_len=2000,
-                           arbitrate=False)
+                           corr_batch_pairs=4096, min_contig_len=2000)
 
 
 def config3_cfg():
@@ -599,53 +664,145 @@ def config3_cfg():
 
 def short_only_cfg():
     """The short-read-only pipeline: config 3's overlap settings, short
-    contigs allowed, copy arbitration left at its default (on: the
-    reference arbitrates only with long reads)."""
-    return config3_cfg().replace(min_contig_len=300, arbitrate=True)
+    contigs allowed, copy arbitration on (the reference arbitrates only
+    with long reads)."""
+    return config3_cfg().replace(min_contig_len=300)
 
 
-def phase_pipeline(genome_len: int, MC, workdir: str):
+@contextlib.contextmanager
+def stage_launches(MC, into: dict):
+    """Count the kernel launches made inside the pipeline's arbitrate stage:
+    models/pipeline calls ARB.arbitrate_contigs through the module, so a
+    wrapper there sees the stage's launches (`into` gets the counter
+    deltas).  It changes nothing the stage computes."""
+    from hga_tpu_torch.models import arbitration as ARB
+
+    inner = ARB.arbitrate_contigs
+
+    def counted(*a, **kw):
+        before = dict(MC.LAUNCHES)
+        try:
+            return inner(*a, **kw)
+        finally:
+            for k, v in MC.LAUNCHES.items():
+                into[k] = into.get(k, 0) + v - before[k]
+
+    ARB.arbitrate_contigs = counted
+    try:
+        yield into
+    finally:
+        ARB.arbitrate_contigs = inner
+
+
+def run_judged(label: str, genome_len: int, MC, workdir: str,
+               repeats: bool = False, circular: bool = False):
+    """run_pipeline(device="cuda") on the judged config and read model; the
+    main path's launches (K1' and K2' must move, K2' also inside the
+    arbitrate stage, K2 stays 0), stage seconds and splits, and the
+    quality by utils/evalx (judged as a circle when `circular`)."""
     import torch
 
     from hga_tpu_torch.models.pipeline import run_pipeline
+    from hga_tpu_torch.utils.evalx import evaluate_contigs
 
-    log(f"phase 4: run_pipeline(device='cuda') on a {genome_len} bp genome")
     t0 = time.perf_counter()
-    genome, pr_s, pr_l = simulate(genome_len, seed=42)
+    genome, pr_s, pr_l = simulate(genome_len, 42, repeats=repeats,
+                                  circular=circular)
     log(f"  simulated {pr_s.n_reads} short + {pr_l.n_reads} long reads "
-        f"in {time.perf_counter() - t0:.1f} s (long pad {pr_l.pad_len})")
+        f"in {time.perf_counter() - t0:.1f} s (long pad {pr_l.pad_len}, "
+        f"repeats {repeats}, circular {circular})")
     MC.reset_launches()
     torch.cuda.reset_peak_memory_stats()
+    arb = {}
     t0 = time.perf_counter()
-    res = run_pipeline(pr_s, pr_l, judged_cfg(), os.path.join(workdir, "p4"),
-                       device="cuda")
+    with stage_launches(MC, arb):
+        res = run_pipeline(pr_s, pr_l, judged_cfg(),
+                           os.path.join(workdir, label), device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(MC.LAUNCHES)
-    log(f"  launches on the main path: {json.dumps(launches)}")
+    log(f"  launches on the main path: {json.dumps(launches)}; in the "
+        f"arbitrate stage: {json.dumps(arb)}")
     for name in ("myers_batch_cuda", "myers_votes_cuda"):
         if launches[name] <= 0:
             fail(f"{name} was never launched on the main path")
+    if arb.get("myers_votes_cuda", 0) <= 0:
+        fail("K2' (myers_votes_cuda) was never launched in the arbitrate "
+             "stage")
     if launches["myers_batch_planes_cuda"]:
         fail("K2 (myers_batch_planes_cuda) ran on the main path, where K2' "
              "replaces it")
     stages = {k: v["seconds"] for k, v in res.stats["stages"].items()}
-    ev = evaluate(res.polished, genome)
-    out = dict(genome_len=genome_len, n_short=pr_s.n_reads,
-               n_long=pr_l.n_reads, pipeline_s=round(wall, 3),
-               stage_s=stages, seed_index_s=res.stats.get("seed_index_s"),
+    ev = evaluate_contigs(res.polished, genome, k=21, circular=circular)
+    ev["circular_contigs"] = sum(
+        1 for n, _ in res.polished if n.endswith("_circular"))
+    out = dict(genome_len=genome_len, repeats=repeats, circular=circular,
+               n_short=pr_s.n_reads, n_long=pr_l.n_reads,
+               pipeline_s=round(wall, 3), stage_s=stages,
+               seed_index_s=res.stats.get("seed_index_s"),
                correction_detail=res.stats.get("correction_detail"),
                polish_detail=res.stats.get("polish_detail"),
+               arbitrate_detail=res.stats.get("arbitrate_detail"),
                overlaps=res.stats.get("overlaps"),
                assembly=res.stats.get("assembly"), eval=ev,
                peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3),
-               launches=launches)
+               launches=launches, arbitrate_launches=arb)
     log("  pipeline: " + json.dumps(out))
     if not res.polished:
         fail("the pipeline produced no contig")
+    if "arbitrate" not in stages:
+        fail("the arbitrate stage did not run")
     if ev["identity"] < 0.99:
         fail(f"k-mer identity {ev['identity']:.5f} < 0.99")
+    return launches, out, genome, res.polished
+
+
+def phase_pipeline(genome_len: int, MC, workdir: str):
+    log(f"phase 4: run_pipeline(device='cuda') on a {genome_len} bp genome")
+    launches, out, _, _ = run_judged("p4", genome_len, MC, workdir)
     return launches, out
+
+
+PHASE10_GENOMES = {"repeats": (True, False), "circular": (False, True),
+                   "repeats+circular": (True, True)}
+
+
+def phase_genomes(genome_len: int, kinds, MC, workdir: str):
+    """Phase 10: the judged pipeline on the repeat-bearing and circular
+    genomes of exp/scale_run.py, then segment_identity of the polished
+    contigs on the card (K1''s shared-target mode).  Returns {path: launch
+    counts}."""
+    import torch
+
+    from hga_tpu_torch.utils.evalx import segment_identity
+
+    paths = {}
+    for kind in kinds:
+        repeats, circular = PHASE10_GENOMES[kind]
+        log(f"phase 10: run_pipeline(device='cuda') on a {genome_len} bp "
+            f"genome, {kind}")
+        t0 = time.perf_counter()
+        paths[f"phase 10 {kind} pipeline"], out, genome, polished = \
+            run_judged(f"p10_{kind}", genome_len, MC, workdir,
+                       repeats=repeats, circular=circular)
+        MC.reset_launches()
+        t1 = time.perf_counter()
+        seg = segment_identity(polished, genome, device="cuda")
+        torch.cuda.synchronize()
+        seg["seconds"] = round(time.perf_counter() - t1, 3)
+        launches = dict(MC.LAUNCHES)
+        paths[f"phase 10 {kind} segment_identity"] = launches
+        ev = out["eval"]
+        log(f"  phase 10 {kind}: " + json.dumps(dict(
+            n_contigs=ev["n_contigs"],
+            circular_contigs=ev["circular_contigs"],
+            identity=ev["identity"], judged_as_circle=circular,
+            genome_fraction=ev["genome_fraction"], total_len=ev["total_len"],
+            genome_len=genome_len, **seg, launches=launches)))
+        if launches["myers_batch_cuda_shared"] <= 0:
+            fail("segment_identity did not launch K1''s shared-target mode")
+        log(f"  phase 10 {kind}: {time.perf_counter() - t0:.1f} s")
+    return paths
 
 
 def same_outputs(dirs, text, npz) -> None:
@@ -686,7 +843,8 @@ def phase_cpu_equal(workdir: str):
             f"{time.perf_counter() - t0:.1f} s")
         if not res.polished:
             fail(f"{dev} run produced no contig")
-    same_outputs(dirs, ("contigs.fasta", "assembly.gfa", "polished.fasta"),
+    same_outputs(dirs, ("contigs.fasta", "assembly.gfa", "arbitrated.fasta",
+                        "polished.fasta"),
                  ("spectrum.npz", "corrected.npz", "overlaps.npz"))
 
     log("  config 3 (compute_overlaps_cross, refine sw), 8 kb genome")
@@ -870,7 +1028,47 @@ def gate_row(MC, M, sets):
     return row
 
 
-def phase_times(rng, MC, M, PU):
+def shared_row(rng, MC, M, genome_len: int):
+    """K1''s shared-target mode at segment_identity's shape on a genome of
+    `genome_len` (N segments of 384 against Lt = 2 genome_len + 1): the
+    wrapper and the kernel alone, 3 launches each after a warm-up over 2
+    input sets; the plain version walks its columns in Python and cannot
+    run there, so it is timed, beside the wrapper and kernel, at a cut
+    shape (a 2 kb genome: Lt 4001).  Bounds: N Lt W 20 operations, each
+    code and length read once (the row once), dist and tend written."""
+    from hga_tpu_torch.utils import benchmarks as B
+
+    def cost(sets):
+        N, Lq = sets[0][0].shape
+        Lt, W = sets[0][1].shape[1], M.n_words(Lq)
+        return (dict(N=N, Lq=Lq, Lt=Lt, W=W, G=MC.GATE_GROUP[W]),
+                N * Lt * W * B.OPS_PER_WORD_COLUMN,
+                4 * N * Lq + 4 * Lt + 8 * N + 8 * N)
+
+    cut = [to_dev(*segment_inputs(rng, 2000)) for _ in range(2)]
+    shape, ops, nbytes = cost(cut)
+    cut_row = time_row(shape, MC.myers_batch_cuda, cut, MC.run_kernel,
+                       [MC.kernel_operands(*a) for a in cut], M.myers_batch,
+                       0, ops, nbytes, [MC.LAUNCHES])
+    full = [to_dev(*segment_inputs(rng, genome_len)) for _ in range(2)]
+    shape, ops, nbytes = cost(full)
+    before = dict(MC.LAUNCHES)
+    ms = B.cuda_ms(MC.myers_batch_cuda, full, 3)
+    kern_ms = B.cuda_ms(MC.run_kernel, [MC.kernel_operands(*a) for a in full],
+                        3)
+    MC.LAUNCHES.update(before)
+    bound, by = B.bound_ms(ops, nbytes)
+    regs, local = MC.kernel_attrs(shape["W"])
+    return dict(shape=shape, ms=ms, kernel_ms=kern_ms,
+                plain_ms=cut_row["plain_ms"], plain_shape=cut_row["shape"],
+                bound_ms=bound, bound_by=by,
+                pct_of_bound=100 * bound / kern_ms, registers=regs,
+                local_bytes=local, blocks=MC.gate_blocks(shape["N"],
+                                                         shape["G"]),
+                cut_shape=cut_row)
+
+
+def phase_times(rng, MC, M, PU, genome_len: int):
     import torch
 
     from hga_tpu_torch.models import correction as CR
@@ -896,6 +1094,13 @@ def phase_times(rng, MC, M, PU):
         zip(("registers", "local_bytes"), MC.kernel_attrs(4, planes=True)),
         blocks=-(-4096 // MC.THREADS))
     rows["myers_votes_cuda"], split = votes_times(rng, MC, PU, CR)
+    # copy arbitration's chunk batches: Lq 400 (W 13, 2 pairs a warp), Lt
+    # 472, planted pairs at ~10% edits, unweighted (chunks carry no quality)
+    arb = [votes_inputs(rng, 4096, 400, 64) for _ in range(2)]
+    rows["myers_votes_cuda"]["arbitration_shape"], _, _ = votes_row(
+        MC, PU, [to_dev(*ops)[:7] for ops, _, _ in arb], arb[0][1],
+        arb[0][2], judged_cfg().min_identity)
+    rows["myers_batch_cuda_shared"] = shared_row(rng, MC, M, genome_len)
     # the scratch route where the shape takes it: W 24, band 960
     big = [votes_inputs(rng, 256, 744, 960) for _ in range(2)]
     rows["myers_votes_cuda_scratch"], _, _ = votes_row(
@@ -1372,10 +1577,17 @@ def phase_measurement(rng, VM, MM, SV, M, A, MC, AC, cuda_build):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--genome-len", type=int, default=1_000_000,
-                    help="phase-4 genome length (default 1,000,000 bp)")
-    ap.add_argument("--phases", default="0123456789",
-                    help="phases to run (default all)")
+                    help="genome length of phases 4, 8 and 10 (default "
+                         "1,000,000 bp)")
+    ap.add_argument("--phases", default="0123456789a",
+                    help="phases to run, 'a' for phase 10 (default all)")
+    ap.add_argument("--phase10", default="repeats+circular",
+                    help="phase 10's genomes, comma-separated among "
+                         + ", ".join(PHASE10_GENOMES))
     args = ap.parse_args()
+    kinds = args.phase10.split(",")
+    if not set(kinds) <= set(PHASE10_GENOMES):
+        ap.error(f"--phase10 takes {', '.join(PHASE10_GENOMES)}")
 
     import numpy as np
     import torch
@@ -1444,6 +1656,7 @@ def main() -> int:
     err = dict.fromkeys(KERNELS)     # None: the kernel's check did not run
     if "2" in ph:
         err["myers_batch_cuda"] = phase_k1(rng, MC, M)
+        err["myers_batch_cuda_shared"] = phase_k1_shared(rng, MC, M)
         done("2")
     if "3" in ph:
         err["myers_batch_planes_cuda"] = phase_k2(rng, MC, M, PU)
@@ -1455,8 +1668,9 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # launches per kernel on each path that ran: K1' and K2' on the hybrid
-    # pipeline (phase 4), K1' and K3' on config 3 and K1' and K3 on its
-    # 300 bp drive (phase 8), X1-X3 on the harnesses and K1'/K3' on
+    # pipeline (phases 4 and 10), K1' and K3' on config 3 and K1' and K3 on
+    # its 300 bp drive (phase 8), K1''s shared-target mode on
+    # segment_identity (phase 10), X1-X3 on the harnesses and K1'/K3' on
     # hga-torch bench (phase 9)
     workdir = tempfile.mkdtemp(prefix="hga_smoke_")
     paths = {}
@@ -1471,6 +1685,9 @@ def main() -> int:
             paths["phase 8 config 3, 300 bp reads"], _ = phase_config3(
                 MISEQ_GENOME, MC, AC, read_len=300, seed=44)
             done("8")
+        if "a" in ph:
+            paths.update(phase_genomes(args.genome_len, kinds, MC, workdir))
+            done("10")
         if "5" in ph:
             phase_cpu_equal(workdir)
             done("5")
@@ -1485,7 +1702,7 @@ def main() -> int:
         library_ms=None, gcups=None, shape=None, registers=None,
         local_bytes=None) for name, (src, rep) in KERNELS.items()}
     if "6" in ph:
-        rows, split = phase_times(rng, MC, M, PU)
+        rows, split = phase_times(rng, MC, M, PU, args.genome_len)
         rows.update(phase_times_k3(rng, AC, A))
         for name, r in rows.items():
             entries[name].update(r)
@@ -1503,9 +1720,9 @@ def main() -> int:
         e.update(launches=sum(by_path.values()) if by_path else None,
                  launches_by_path=by_path, max_abs_err=err[name],
                  matches_plain=None if err[name] is None else err[name] == 0)
-    log("  no single PyTorch call computes Myers edit distance, its "
-        "traceback votes, banded local SW or the add/max chains: library_ms "
-        "is null")
+    log("  no single PyTorch call computes Myers edit distance (per pair or "
+        "against a shared row), its traceback votes, banded local SW or the "
+        "add/max chains: library_ms is null")
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,9 @@ versions):
   assemble  — config 4: with --overlaps only the graph + unitig stage,
               otherwise the full pipeline
   pipeline  — config 5: the full hybrid pipeline
+  correct   — config 5a alone: hybrid long-read correction
+  eval      — contig identity / N50 vs a reference genome (utils/evalx)
+  simulate  — synthetic genome + hybrid read set generator
   bench     — one JSON line of GCUPS (``--what sw`` K3, ``myers`` K1) or
               reads/s (``count``, ``pipeline``) on the device, with the
               H100's roofline (utils/benchmarks.py)
@@ -200,6 +203,76 @@ def cmd_assemble(args) -> int:
     return 0
 
 
+def cmd_correct(args) -> int:
+    from hga_tpu_torch.io.encode import unpack_read
+    from hga_tpu_torch.io.fastq import write_fasta
+    from hga_tpu_torch.models.correction import correct_long_reads
+
+    cfg = _build_cfg(args)
+    pr_s, pr_l = _load(args)
+    if pr_s is None or pr_l is None:
+        print("need both --short and --long", file=sys.stderr)
+        return 2
+    corr = correct_long_reads(pr_s, pr_l, cfg, device=args.device)
+    os.makedirs(args.outdir, exist_ok=True)
+    corr.save(os.path.join(args.outdir, "corrected.npz"))
+    write_fasta(os.path.join(args.outdir, "corrected.fasta"),
+                [(corr.names[i], unpack_read(corr, i))
+                 for i in range(corr.n_reads)])
+    print(json.dumps({"corrected": corr.n_reads}))
+    return 0
+
+
+def cmd_eval(args) -> int:
+    from hga_tpu_torch.io.fastq import iter_records
+    from hga_tpu_torch.utils.evalx import (alignment_identity,
+                                           evaluate_contigs,
+                                           exact_contig_match,
+                                           segment_identity)
+
+    contigs = [(r.name, r.seq) for r in iter_records(args.contigs)]
+    out = {}
+    if args.reference:
+        ref = "".join(r.seq for r in iter_records(args.reference))
+        out.update(evaluate_contigs(contigs, ref, k=args.k or 21))
+        if args.align:
+            out.update(alignment_identity(contigs, ref, device=args.device))
+        if args.segs:
+            out.update(segment_identity(contigs, ref, device=args.device))
+    if args.exact:
+        # byte-for-byte contig-set diff against another assembler's output
+        ref_contigs = [(r.name, r.seq) for r in iter_records(args.exact)]
+        out.update(exact_contig_match(contigs, ref_contigs))
+    print(json.dumps(out))
+    return 0
+
+
+def cmd_simulate(args) -> int:
+    from hga_tpu_torch.io.fastq import write_fasta, write_fastq
+    from hga_tpu_torch.utils import sim
+
+    ds = sim.make_dataset(genome_len=args.genome_len,
+                          short_cov=args.short_cov, long_cov=args.long_cov,
+                          seed=args.seed, short_err=args.short_err,
+                          long_err=args.long_err, return_quals=args.fastq)
+    os.makedirs(args.outdir, exist_ok=True)
+    write_fasta(os.path.join(args.outdir, "genome.fasta"),
+                [("genome", ds.genome)])
+    if args.fastq:
+        write_fastq(os.path.join(args.outdir, "short.fastq"),
+                    list(zip(ds.short_names, ds.short_seqs, ds.short_quals)))
+    else:
+        write_fasta(os.path.join(args.outdir, "short.fasta"),
+                    list(zip(ds.short_names, ds.short_seqs)))
+    if ds.long_seqs:
+        write_fasta(os.path.join(args.outdir, "long.fasta"),
+                    list(zip(ds.long_names, ds.long_seqs)))
+    print(json.dumps({"genome_len": len(ds.genome),
+                      "short_reads": len(ds.short_seqs),
+                      "long_reads": len(ds.long_seqs)}))
+    return 0
+
+
 def cmd_bench(args) -> int:
     from hga_tpu_torch.utils.benchmarks import run_benchmark
 
@@ -216,7 +289,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     for name, fn in [("count", cmd_count), ("seeds", cmd_seeds),
                      ("overlap", cmd_overlap), ("assemble", cmd_assemble),
-                     ("pipeline", cmd_assemble)]:
+                     ("pipeline", cmd_assemble), ("correct", cmd_correct)]:
         p = sub.add_parser(name)
         _add_common(p)
         p.add_argument("--short", nargs="*", default=[],
@@ -231,6 +304,37 @@ def main(argv: Optional[List[str]] = None) -> int:
                            help="saved PackedReads artifact the overlaps "
                                 "index (e.g. corrected.npz)")
         p.set_defaults(fn=fn)
+    p = sub.add_parser("eval")
+    p.add_argument("--contigs", required=True)
+    p.add_argument("--reference", help="reference genome FASTA")
+    p.add_argument("--exact", metavar="FASTA",
+                   help="another assembler's contigs: byte-for-byte set diff")
+    p.add_argument("--align", action="store_true",
+                   help="alignment-based identity via the long-read engine")
+    p.add_argument("--segs", action="store_true",
+                   help="placement-free segment identity: every contig "
+                        "segment swept against the whole genome (K1''s "
+                        "shared-target mode)")
+    p.add_argument("-k", type=int, default=21)
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default) or cpu")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.set_defaults(fn=cmd_eval)
+
+    p = sub.add_parser("simulate")
+    p.add_argument("-o", "--outdir", default="hga_sim")
+    p.add_argument("--genome-len", type=int, default=50_000)
+    p.add_argument("--short-cov", type=float, default=30.0)
+    p.add_argument("--long-cov", type=float, default=20.0)
+    p.add_argument("--short-err", type=float, default=0.01)
+    p.add_argument("--long-err", type=float, default=0.10)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--fastq", action="store_true",
+                   help="write short reads as FASTQ with per-base "
+                        "qualities (enables --use-quality downstream)")
+    p.add_argument("-v", "--verbose", action="store_true")
+    p.set_defaults(fn=cmd_simulate)
+
     p = sub.add_parser("bench")
     p.add_argument("--what", default="myers",
                    choices=["myers", "sw", "count", "correction",

@@ -31,6 +31,14 @@
 //     number of words apart so the groups read distinct banks.  The query
 //     codes and each chunk's target codes are loaded with many loads in
 //     flight: at a few warps an SM nothing else hides their latency.
+//   - Shared target (segment_identity: every pair against one row of
+//     2 x genome + 1 columns): the caller passes a single target row and
+//     `shared` = 1; every pair reads row 0.  All pairs of a block then want
+//     the same columns at each step, so the block stages them once,
+//     kSharedChunk columns at a time (a __syncthreads on each side), and
+//     every group reads the staged byte at the same address (a broadcast).
+//     Each pair still walks all Lt columns one after another: at a few
+//     warps an SM the step chain's latency, not the issue rate, bounds it.
 //   - Score: only the lane whose word holds the end bit moves the score;
 //     it keeps best and bj over columns j < tlen (strict <) and writes dist
 //     and tend (lane 0 when no word holds it: qlen <= 0 or qlen > 31 W).
@@ -57,6 +65,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPayload = 31;
 constexpr int kChunk = 128;             // target columns staged at a time
+constexpr int kSharedChunk = 1024;      // ... a block at a time, shared row
 constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int group_of(int W) {         // the smallest power of two >= W
@@ -77,14 +86,15 @@ struct Geo {
 template <int W, int G>
 __global__ void __launch_bounds__(kThreads)
 myers_gate_kernel(const int32_t* __restrict__ q,      // (N, Lq)
-                  const int32_t* __restrict__ t,      // (N, Lt)
+                  const int32_t* __restrict__ t,      // (N, Lt) or (1, Lt)
                   const int32_t* __restrict__ qlen,
                   const int32_t* __restrict__ tlen,   // (N,)
-                  int N, int Lq, int Lt,
+                  int N, int Lq, int Lt, int shared,
                   int32_t* __restrict__ dist, int32_t* __restrict__ tend) {
   using Gm = Geo<W, G>;
   constexpr int WL = Gm::WL, A = Gm::A;
   __shared__ int8_t stage[kWarps][Gm::P * Gm::ROW];
+  __shared__ int8_t srow[kSharedChunk + A - 1];      // the shared row
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane / G;                 // the warp's pair of this lane
@@ -128,27 +138,48 @@ myers_gate_kernel(const int32_t* __restrict__ q,      // (N, Lq)
   uint32_t out = 0u;           // carries out of this lane's last word
   const int steps = Lt + A - 1;
   int8_t* rows = stage[warp];
-  const int8_t* mine = rows + g * Gm::ROW + (A - 1 - w);
-  for (int s0 = 0; s0 < steps; s0 += kChunk) {
-    // stage columns s0 - (A - 1) .. s0 + kChunk - 1 of the warp's pairs,
-    // 32 neighbouring columns of one row a round, 16 rounds of loads in
-    // flight (one warp an SM scheduler hides no load latency)
-    __syncwarp();
+  const int chunk = shared ? kSharedChunk : kChunk;
+  for (int s0 = 0; s0 < steps; s0 += chunk) {
     const int c0 = s0 - (A - 1);
-    constexpr int PER = (Gm::SPAN + 31) / 32;   // rounds a row
-#pragma unroll 16
-    for (int it = 0; it < Gm::P * PER; ++it) {
-      const int pp = it / PER, c = (it % PER) * 32 + lane;
-      const int m = pair0 + pp, col = c0 + c;
-      int code = 4;
-      if (c < Gm::SPAN && m < N && col >= 0 && col < Lt) {
-        code = t[static_cast<size_t>(m) * Lt + col];
-        code = (code >= 0 && code < 4) ? code : 4;
+    const int8_t* mine;
+    if (shared) {
+      // columns s0 - (A - 1) .. s0 + kSharedChunk - 1 of the one row, once
+      // a block: 128 neighbouring columns a round, every round in flight
+      constexpr int SPAN = kSharedChunk + A - 1;
+      __syncthreads();
+#pragma unroll
+      for (int it = 0; it < (SPAN + kThreads - 1) / kThreads; ++it) {
+        const int c = it * kThreads + threadIdx.x, col = c0 + c;
+        int code = 4;
+        if (c < SPAN && col >= 0 && col < Lt) {
+          code = t[col];
+          code = (code >= 0 && code < 4) ? code : 4;
+        }
+        if (c < SPAN) srow[c] = static_cast<int8_t>(code);
       }
-      if (c < Gm::SPAN) rows[pp * Gm::ROW + c] = static_cast<int8_t>(code);
+      __syncthreads();
+      mine = srow + (A - 1 - w);
+    } else {
+      // columns s0 - (A - 1) .. s0 + kChunk - 1 of the warp's pairs, 32
+      // neighbouring columns of one row a round, 16 rounds of loads in
+      // flight (one warp an SM scheduler hides no load latency)
+      __syncwarp();
+      constexpr int PER = (Gm::SPAN + 31) / 32;   // rounds a row
+#pragma unroll 16
+      for (int it = 0; it < Gm::P * PER; ++it) {
+        const int pp = it / PER, c = (it % PER) * 32 + lane;
+        const int m = pair0 + pp, col = c0 + c;
+        int code = 4;
+        if (c < Gm::SPAN && m < N && col >= 0 && col < Lt) {
+          code = t[static_cast<size_t>(m) * Lt + col];
+          code = (code >= 0 && code < 4) ? code : 4;
+        }
+        if (c < Gm::SPAN) rows[pp * Gm::ROW + c] = static_cast<int8_t>(code);
+      }
+      __syncwarp();
+      mine = rows + g * Gm::ROW + (A - 1 - w);
     }
-    __syncwarp();
-    const int send = min(kChunk, steps - s0);
+    const int send = min(chunk, steps - s0);
     for (int s = 0; s < send; ++s) {
       uint32_t in = 0u;
       if constexpr (G > 1) in = __shfl_up_sync(kFull, out, 1, G);
@@ -203,11 +234,11 @@ myers_gate_kernel(const int32_t* __restrict__ q,      // (N, Lq)
 
 template <int W, int G>
 cudaError_t launch_g(const int32_t* q, const int32_t* t, const int32_t* ql,
-                     const int32_t* tl, int N, int Lq, int Lt, int32_t* dist,
-                     int32_t* tend, cudaStream_t s) {
+                     const int32_t* tl, int N, int Lq, int Lt, int shared,
+                     int32_t* dist, int32_t* tend, cudaStream_t s) {
   constexpr int per_block = kWarps * Geo<W, G>::P;
   myers_gate_kernel<W, G><<<(N + per_block - 1) / per_block, kThreads, 0, s>>>(
-      q, t, ql, tl, N, Lq, Lt, dist, tend);
+      q, t, ql, tl, N, Lq, Lt, shared, dist, tend);
   return cudaGetLastError();
 }
 
@@ -219,14 +250,17 @@ cudaError_t launch_g(const int32_t* q, const int32_t* t, const int32_t* ql,
 
 extern "C" {
 
-// Launches K1' on `stream`: q, t int32 (N, Lq), (N, Lt) row-major,
+// Launches K1' on `stream`: q, t int32 (N, Lq), (N, Lt) row-major — or,
+// with shared = 1, t one row (1, Lt) that every pair runs against —
 // W = ceil(Lq / 31) words (1..24), G = 1 or the smallest power of two >= W
 // lanes a pair.  Returns the launch's cudaGetLastError() (0 = cudaSuccess),
 // or cudaErrorInvalidValue without launching.
 int hga_myers_gate_launch(const void* q, const void* t, const void* qlen,
                           const void* tlen, int N, int Lq, int Lt, int W,
-                          int G, void* dist, void* tend, void* stream) {
-  if (N <= 0 || Lq < 0 || Lt < 0 || Lq > W * kPayload) {
+                          int G, int shared, void* dist, void* tend,
+                          void* stream) {
+  if (N <= 0 || Lq < 0 || Lt < 0 || Lq > W * kPayload ||
+      (shared != 0 && shared != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto* s = static_cast<cudaStream_t>(stream);
@@ -237,11 +271,13 @@ int hga_myers_gate_launch(const void* q, const void* t, const void* qlen,
   case w:                                                                    \
     if (G == 1) {                                                            \
       return static_cast<int>(launch_g<w, 1>(c(q), c(t), c(qlen), c(tlen),   \
-                                             N, Lq, Lt, m(dist), m(tend), s)); \
+                                             N, Lq, Lt, shared, m(dist),     \
+                                             m(tend), s));                   \
     }                                                                        \
     if (G == group_of(w)) {                                                  \
       return static_cast<int>(launch_g<w, group_of(w)>(                      \
-          c(q), c(t), c(qlen), c(tlen), N, Lq, Lt, m(dist), m(tend), s));    \
+          c(q), c(t), c(qlen), c(tlen), N, Lq, Lt, shared, m(dist), m(tend), \
+          s));                                                               \
     }                                                                        \
     break;
     HGA_WORD_CASES(HGA_CASE)

@@ -214,7 +214,7 @@ def consensus_backbones(
     if cfg.corr_engine != "myers":
         raise NotImplementedError(
             "corr_engine='sw' (the scored dirs DP) is not ported yet "
-            "(ROADMAP A9)")
+            "(ROADMAP Queue 1 item 7)")
     dev = resolve_device(device)
     if batch_pairs is None:
         batch_pairs = cfg.corr_batch_pairs

@@ -9,15 +9,15 @@
      (config 2, -> candidates.npz), then the Myers gate (K1) and the
      refine (K3 when overlap_refine="sw")
   4. string graph -> contigs (config 4)             -> contigs.fasta / .gfa
-  5. short-read polish of contigs (config 5b)       -> polished.fasta
+  5. copy arbitration of contigs by the raw long    -> arbitrated.fasta
+     reads (cfg.arbitrate, with long reads; K2')
+  6. short-read polish of contigs (config 5b)       -> polished.fasta
 
 Every stage writes the reference's artifact under the reference's
 config+input digest, so ``resume=True`` skips stages whose artifact matches —
 including artifacts the JAX package wrote (loaded through convert.py).
 
-One process, one device.  Not ported yet: copy arbitration, which the
-reference runs when ``cfg.arbitrate`` is set, long reads are given and the
-assembly made contigs; the port raises there.
+One process, one device.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from hga_tpu_torch import convert
 from hga_tpu_torch.config import AssemblerConfig
 from hga_tpu_torch.io.encode import PackedReads, pack_reads
 from hga_tpu_torch.io.fastq import iter_records, read_sequence_files, write_fasta
+from hga_tpu_torch.models import arbitration as ARB
 from hga_tpu_torch.models.assembly import assemble
 from hga_tpu_torch.models.correction import (LAST_TIMINGS as CT,
                                              correct_long_reads,
@@ -307,12 +308,22 @@ def run_pipeline(
             "identity_floor": res.identity_floor,
         }
 
-    # --- stage: arbitration (repeat resolution): not ported yet ---
+    # --- stage: arbitration (repeat resolution, models/arbitration.py) ---
+    # raw long reads, placed by their unique flanking anchors, vote on the
+    # contigs to snap family-averaged repeat loci to the true copy BEFORE
+    # short-read polish re-anchors and locks them
     if cfg.arbitrate and pr_long is not None and contigs:
-        raise NotImplementedError(
-            "copy arbitration (cfg.arbitrate=True with long reads) is not "
-            "ported yet (ROADMAP Queue 1: models/arbitration.py); pass "
-            "cfg.replace(arbitrate=False)")
+        if st.fresh("arbitrate", inputs) and os.path.exists(
+                path("arbitrated.fasta")):
+            contigs = [(r.name, r.seq)
+                       for r in iter_records(path("arbitrated.fasta"))]
+        else:
+            t0 = time.perf_counter()
+            contigs = ARB.arbitrate_contigs(contigs, pr_long, cfg,
+                                            device=dev)
+            write_fasta(path("arbitrated.fasta"), contigs)
+            st.done("arbitrate", t0, inputs)
+            st.stats["arbitrate_detail"] = dict(ARB.LAST_TIMINGS)
 
     # --- stage: polish (config 5b) ---
     polished = contigs

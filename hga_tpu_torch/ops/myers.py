@@ -147,7 +147,9 @@ def myers_batch(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
                 tlen: torch.Tensor, W: int = 0) -> MyersResult:
     """Batched bit-parallel semi-global edit distance (plain PyTorch).
 
-    q, t: base codes (N, Lq), (N, Lt); codes outside 0..3 never match.
+    q, t: base codes (N, Lq), and (N, Lt) or one row (1, Lt) that every
+    pair runs against (each column broadcasts); codes outside 0..3 never
+    match.
     """
     W = W or n_words(q.shape[1])
     res, _, _ = _columns(query_planes(q, qlen, W), t, qlen, tlen, False)

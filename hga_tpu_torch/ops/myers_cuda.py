@@ -11,7 +11,10 @@ Counterpart of ``hga_tpu.ops.myers_pallas``:
   are built in the kernel from the caller's row-major (N, Lq) codes, and
   each warp stages its pairs' target rows in shared memory.  G comes from
   ``GATE_GROUP`` by W, a fixed table that the chip measurement filled in
-  (chip_smoke.py phase 6, PERF.md).
+  (chip_smoke.py phase 6, PERF.md).  A one-row target (1, Lt) for N > 1
+  pairs is the shared-target mode (utils/evalx.segment_identity): every
+  pair runs against that row, which each block stages once; it counts
+  apart (``myers_batch_cuda_shared``).
 * ``myers_votes_cuda`` launches K2' (``csrc/myers_votes.cu``
   ``myers_votes_kernel<G, SMEM>``), which replaces ``_myers_planes_kernel``
   (hga_tpu/ops/myers_pallas.py:106) on the correction and polish paths:
@@ -63,6 +66,7 @@ from hga_tpu_torch.ops.pileup import myers_votes
 # launches of each kernel by its wrapper (reset with reset_launches()); K2'
 # counts its two plane homes apart
 LAUNCHES: Dict[str, int] = {"myers_batch_cuda": 0,
+                            "myers_batch_cuda_shared": 0,
                             "myers_votes_cuda": 0,
                             "myers_votes_cuda_scratch": 0,
                             "myers_batch_planes_cuda": 0}
@@ -114,7 +118,7 @@ def _gate_lib() -> ctypes.CDLL:
     if _GATE_LIB is None:
         lib = ctypes.CDLL(cuda_build.build("myers_gate"))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.hga_myers_gate_launch.argtypes = [vp] * 4 + [ci] * 5 + [vp] * 3
+        lib.hga_myers_gate_launch.argtypes = [vp] * 4 + [ci] * 6 + [vp] * 3
         lib.hga_myers_gate_launch.restype = ci
         lib.hga_myers_gate_attrs.argtypes = [ci, ci] + \
             [ctypes.POINTER(ci)] * 2
@@ -164,7 +168,10 @@ def gate_blocks(N: int, G: int) -> int:
     return -(-N // (THREADS // G))
 
 
-def _check(q, t, qlen, tlen) -> Tuple[int, int, int]:
+def _check(q, t, qlen, tlen, shared_ok: bool = False
+           ) -> Tuple[int, int, int]:
+    """Operand checks; `shared_ok` admits a one-row target (1, Lt) for any
+    N (K1''s shared-target mode)."""
     for name, x in (("q", q), ("t", t), ("qlen", qlen), ("tlen", tlen)):
         if x.device != q.device or x.device.type not in ("cuda", "cpu"):
             raise ValueError(f"{name} lies on {x.device}; all operands must "
@@ -176,7 +183,8 @@ def _check(q, t, qlen, tlen) -> Tuple[int, int, int]:
     if q.dim() != 2 or t.dim() != 2:
         raise ValueError("q and t must be 2-D (N, L)")
     N, Lq = q.shape
-    if t.shape[0] != N or qlen.shape != (N,) or tlen.shape != (N,):
+    rows_ok = t.shape[0] == N or (shared_ok and t.shape[0] == 1)
+    if not rows_ok or qlen.shape != (N,) or tlen.shape != (N,):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, t "
                          f"{tuple(t.shape)}, qlen {tuple(qlen.shape)}, "
                          f"tlen {tuple(tlen.shape)}")
@@ -186,22 +194,27 @@ def _check(q, t, qlen, tlen) -> Tuple[int, int, int]:
     return N, W, t.shape[1]
 
 
+def is_shared(q, t) -> bool:
+    """K1''s shared-target mode: one target row for N > 1 pairs."""
+    return t.shape[0] == 1 and q.shape[0] > 1
+
+
 def kernel_operands(q, t, qlen, tlen, group: Optional[int] = None):
     """K1' device operands for one batch: the caller's codes and lengths
     as they are, W, the lanes a pair (GATE_GROUP's choice unless `group`
-    names 1 or group_width(W), which timing comparisons do), and fresh
-    outputs."""
-    N, W, _ = _check(q, t, qlen, tlen)
+    names 1 or group_width(W), which timing comparisons do), the
+    shared-target flag and fresh outputs."""
+    N, W, _ = _check(q, t, qlen, tlen, shared_ok=True)
     G = GATE_GROUP[W] if group is None else group
     if G not in (1, group_width(W)):
         raise ValueError(f"group={G}: K1' runs 1 or {group_width(W)} lanes "
                          f"a pair at W={W}")
     outs = tuple(torch.empty(N, dtype=torch.int32, device=q.device)
                  for _ in range(2))
-    return q, t, qlen, tlen, W, G, outs
+    return q, t, qlen, tlen, W, G, is_shared(q, t), outs
 
 
-def run_kernel(q, t, qlen, tlen, W, G, outs) -> None:
+def run_kernel(q, t, qlen, tlen, W, G, shared, outs) -> None:
     """Launch K1' on the current stream."""
     (N, Lq), Lt = q.shape, t.shape[1]
     dist, tend = outs
@@ -209,7 +222,8 @@ def run_kernel(q, t, qlen, tlen, W, G, outs) -> None:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _gate_lib().hga_myers_gate_launch(
             q.data_ptr(), t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(), N,
-            Lq, Lt, W, G, dist.data_ptr(), tend.data_ptr(), stream)
+            Lq, Lt, W, G, int(shared), dist.data_ptr(), tend.data_ptr(),
+            stream)
     if err:
         raise RuntimeError(f"myers gate kernel launch failed: CUDA error "
                            f"{err}")
@@ -247,15 +261,17 @@ def run_planes_kernel(qp, tT, qlen, tlen, outs) -> None:
 def myers_batch_cuda(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
                      tlen: torch.Tensor) -> MyersResult:
     """K1': batched semi-global edit distance; bit-exact with
-    ops.myers.myers_batch.  q, t int32 (N, Lq), (N, Lt) on one CUDA device
-    (CPU tensors: the plain version)."""
-    _check(q, t, qlen, tlen)
+    ops.myers.myers_batch.  q, t int32 (N, Lq), (N, Lt) on one CUDA device,
+    or t (1, Lt): every pair against that one row (the shared-target mode,
+    counted apart).  CPU tensors: the plain version."""
+    _check(q, t, qlen, tlen, shared_ok=True)
     if not q.is_cuda:
         return myers_batch(q, t, qlen, tlen)
     *ops, outs = kernel_operands(q, t, qlen, tlen)
     if q.shape[0]:
         run_kernel(*ops, outs)
-        LAUNCHES["myers_batch_cuda"] += 1
+        LAUNCHES["myers_batch_cuda_shared" if ops[-1]
+                 else "myers_batch_cuda"] += 1
     return MyersResult(*outs)
 
 

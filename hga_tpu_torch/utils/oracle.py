@@ -1,8 +1,9 @@
 """Host numpy helpers copied from ``hga_tpu.utils.oracle``.
 
-Only what the port's main path and its tests need: the spectrum valley
-threshold, the unitig walk, and the scalar semi-global edit distance that
-spot-checks the Myers engine.
+Only what the port's main path and its tests need: the canonical k-mer
+values of a read (evaluation), the spectrum valley threshold, the unitig
+walk, and the scalar semi-global edit distance that spot-checks the Myers
+engine.
 """
 
 from __future__ import annotations
@@ -10,6 +11,34 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import numpy as np
+
+U64 = np.uint64
+
+
+def kmer_values(codes: np.ndarray, bad: np.ndarray, length: int, k: int):
+    """Canonical k-mers of one read.
+
+    Returns (canon uint64[m], strand uint8[m], valid bool[m]) with
+    m = max(0, length - k + 1); valid[i] is False if any base in the window is
+    flagged bad.  k-mer value: first base most significant, 2 bits a base;
+    canonical = min(value, reverse-complement value), strand 1 where the
+    reverse complement is smaller.
+    """
+    codes = np.asarray(codes, dtype=np.uint64)
+    bad = np.asarray(bad, dtype=np.uint8)
+    m = max(0, int(length) - k + 1)
+    if m == 0:
+        return (np.zeros(0, U64), np.zeros(0, np.uint8), np.zeros(0, bool))
+    fwd = np.zeros(m, dtype=U64)
+    rc = np.zeros(m, dtype=U64)
+    for t in range(k):
+        fwd |= codes[t : t + m] << U64(2 * (k - 1 - t))
+        rc |= (U64(3) - codes[k - 1 - t : k - 1 - t + m]) << U64(2 * (k - 1 - t))
+    canon = np.minimum(fwd, rc)
+    strand = (fwd > rc).astype(np.uint8)
+    badc = np.concatenate([[0], np.cumsum(bad[: int(length)], dtype=np.int64)])
+    valid = (badc[k:] - badc[:-k]) == 0
+    return canon, strand, valid
 
 
 def solid_threshold_from_hist(hist: np.ndarray, min_threshold: int = 2) -> int:

@@ -96,3 +96,62 @@ def test_cuda_device_without_gpu_raises(reads, tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         tmain(["seeds", "--short", str(reads / "short.fasta"), *FLAGS,
                "-o", str(tmp_path / "x")])
+
+
+def test_simulate_matches_hga(tmp_path, capsys):
+    """`simulate` (FASTA and --fastq): the same files and summary line."""
+    for extra in ([], ["--fastq"]):
+        lines, outs = [], {}
+        for tag, main in (("jax", jmain), ("torch", tmain)):
+            out = outs[tag] = str(tmp_path / f"{tag}{len(extra)}")
+            assert main(["simulate", "-o", out, "--genome-len", "2000",
+                         "--short-cov", "6", "--long-cov", "3", "--seed",
+                         "3", *extra]) == 0
+            lines.append(capsys.readouterr().out.strip().splitlines()[-1])
+        assert lines[0] == lines[1]
+        names = sorted(os.listdir(outs["jax"]))
+        assert names == sorted(os.listdir(outs["torch"]))
+        assert ("short.fastq" in names) == bool(extra)
+        for f in names:
+            a = open(os.path.join(outs["torch"], f), "rb").read()
+            assert a == open(os.path.join(outs["jax"], f), "rb").read(), f
+
+
+def test_eval_matches_hga(tmp_path, capsys):
+    """`eval` with every metric (k-mer, --align, --segs, --exact) on the
+    same contigs: the same JSON line."""
+    genome = sim.random_genome(3000, seed=91)
+    contigs = [("a", genome[200:2600]), ("b", genome[:900] + "ACGTA"),
+               ("c", sim.random_genome(400, seed=5))]
+    write_fasta(str(tmp_path / "contigs.fasta"), contigs)
+    write_fasta(str(tmp_path / "genome.fasta"), [("g", genome)])
+    write_fasta(str(tmp_path / "other.fasta"), contigs[:2])
+    args = ["eval", "--contigs", str(tmp_path / "contigs.fasta"),
+            "--reference", str(tmp_path / "genome.fasta"), "--align",
+            "--segs", "--exact", str(tmp_path / "other.fasta"), "-k", "17"]
+    outs = []
+    for main, extra in ((jmain, []), (tmain, ["--device", "cpu"])):
+        assert main(args + extra) == 0
+        outs.append(json.loads(capsys.readouterr().out.strip()
+                               .splitlines()[-1]))
+    assert outs[0] == outs[1]
+    assert {"identity", "alignment_identity", "segment_identity",
+            "exact_match"} <= set(outs[1])
+
+
+def test_correct_matches_hga(reads, tmp_path, monkeypatch, capsys):
+    """`correct` (config 5a alone): corrected.npz and corrected.fasta."""
+    outs = _both(tmp_path, monkeypatch, "correct",
+                 ["--short", str(reads / "short.fasta"),
+                  "--long", str(reads / "long.fasta"), *FLAGS])
+    lines = [x for x in capsys.readouterr().out.splitlines()
+             if x.startswith("{")]
+    assert lines[-2] == lines[-1]
+    a = open(os.path.join(outs["torch"], "corrected.fasta"), "rb").read()
+    assert a == open(os.path.join(outs["jax"], "corrected.fasta"),
+                     "rb").read()
+    za = np.load(os.path.join(outs["torch"], "corrected.npz"))
+    zb = np.load(os.path.join(outs["jax"], "corrected.npz"))
+    assert za.files == zb.files
+    for f in zb.files:
+        np.testing.assert_array_equal(za[f], zb[f], err_msg=f)

@@ -31,7 +31,9 @@ def test_importing_the_port_loads_no_jax():
               "hga_tpu_torch.ops.pairs", "hga_tpu_torch.models.overlap",
               "hga_tpu_torch.models.seeding", "hga_tpu_torch.exp.myers_micro",
               "hga_tpu_torch.exp.sw_variants", "hga_tpu_torch.exp.vpu_micro",
-              "hga_tpu_torch.utils.benchmarks"):
+              "hga_tpu_torch.utils.benchmarks",
+              "hga_tpu_torch.models.arbitration",
+              "hga_tpu_torch.utils.evalx"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

@@ -1,8 +1,9 @@
 """The port's whole pipeline against the JAX package's on the same simulated
 reads and config: every artifact equal (FASTA/GFA byte for byte), resume,
-and resume from the JAX package's own output directory — the hybrid path,
-and the short-read-only path (candidates + overlaps with both refine modes,
-under the default copy-arbitration setting)."""
+and resume from the JAX package's own output directory — the hybrid path
+with copy arbitration off and under the default config (arbitration on,
+arbitrated.fasta), and the short-read-only path (candidates + overlaps with
+both refine modes, under the default copy-arbitration setting)."""
 
 import json
 import os
@@ -21,10 +22,13 @@ from hga_tpu_torch.io.encode import pack_reads as tpack
 from hga_tpu_torch.models.pipeline import run_pipeline as trun
 from hga_tpu_torch.utils import sim
 
-# tests/test_pipeline_cli.CFG, with copy arbitration off (not ported yet)
-KW = dict(k=15, w=5, band=24, max_seed_freq=64, min_shared_minimizers=2,
-          batch_reads=256, min_overlap_len=30, min_overlap_score=40,
-          min_contig_len=300, arbitrate=False)
+# tests/test_pipeline_cli.CFG, with copy arbitration off; DEFAULT_KW leaves
+# it at the default (on)
+DEFAULT_KW = dict(k=15, w=5, band=24, max_seed_freq=64,
+                  min_shared_minimizers=2, batch_reads=256,
+                  min_overlap_len=30, min_overlap_score=40,
+                  min_contig_len=300)
+KW = dict(DEFAULT_KW, arbitrate=False)
 TEXT = ("contigs.fasta", "assembly.gfa", "polished.fasta")
 NPZ = ("spectrum.npz", "corrected.npz", "overlaps.npz")
 
@@ -132,16 +136,73 @@ def test_convert_loaders_read_jax_artifacts(runs):
 
 
 def test_unported_modes_and_missing_gpu_raise(runs, tmp_path):
-    # the reference arbitrates only with long reads and contigs: the port
-    # raises there, after the assembly stage
+    # the scored-SW correction engine is not ported: the port raises in the
+    # correction stage, after the spectrum
     s, l = _reads(tpack, runs["ds"])
     d = str(tmp_path / "a")
-    with pytest.raises(NotImplementedError, match="arbitrat"):
-        trun(s, l, TCfg(**dict(KW, arbitrate=True)), d, device="cpu")
-    assert os.path.exists(os.path.join(d, "contigs.fasta"))
+    with pytest.raises(NotImplementedError, match="corr_engine"):
+        trun(s, l, TCfg(**dict(KW, corr_engine="sw")), d, device="cpu")
+    assert os.path.exists(os.path.join(d, "spectrum.npz"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             trun(s, l, TCfg(**KW), str(tmp_path / "c"))
+
+
+@pytest.fixture(scope="module")
+def default_runs(runs):
+    """The hybrid pipeline under the default config (copy arbitration on)
+    on the same reads, both packages."""
+    ds, root = runs["ds"], runs["root"]
+    jdir, tdir = str(root / "jax_default"), str(root / "torch_default")
+    assert JCfg(**DEFAULT_KW).arbitrate and TCfg(**DEFAULT_KW).arbitrate
+    jres = jrun(*_reads(jpack, ds), JCfg(**DEFAULT_KW), jdir, mesh=None)
+    tres = trun(*_reads(tpack, ds), TCfg(**DEFAULT_KW), tdir, device="cpu")
+    return dict(ds=ds, root=root, jdir=jdir, tdir=tdir, jres=jres,
+                tres=tres)
+
+
+def test_default_config_arbitrates_like_jax(default_runs):
+    r = default_runs
+    assert r["tres"].polished and r["tres"].polished == r["jres"].polished
+    assert r["tres"].contigs == r["jres"].contigs
+    for f in TEXT + ("arbitrated.fasta",):
+        a = open(os.path.join(r["tdir"], f), "rb").read()
+        b = open(os.path.join(r["jdir"], f), "rb").read()
+        assert a == b, f
+    for f in NPZ:
+        za = np.load(os.path.join(r["tdir"], f))
+        zb = np.load(os.path.join(r["jdir"], f))
+        for k in zb.files:
+            np.testing.assert_array_equal(za[k], zb[k], err_msg=f"{f}:{k}")
+    mj = json.load(open(os.path.join(r["jdir"], "run_metrics.json")))
+    mt = json.load(open(os.path.join(r["tdir"], "run_metrics.json")))
+    assert set(mt) == set(mj) and set(mt["stages"]) == set(mj["stages"])
+    assert "arbitrate" in mt["stages"] and mt["config"] == mj["config"]
+    for key in ("n_chunks", "rare_cap"):
+        assert mt["arbitrate_detail"][key] == mj["arbitrate_detail"][key]
+    meta = lambda d: json.load(open(os.path.join(d, "arbitrate.meta.json")))
+    assert {k: v for k, v in meta(r["tdir"]).items() if k != "seconds"} \
+        == {k: v for k, v in meta(r["jdir"]).items() if k != "seconds"}
+
+
+def test_default_config_resumes_past_arbitration(default_runs):
+    """Resume skips every stage up to polish, arbitrate included, in the
+    port's own directory and in a copy of the JAX package's."""
+    r = default_runs
+    d = str(r["root"] / "from_jax_default")
+    shutil.copytree(r["jdir"], d)
+    os.remove(os.path.join(d, "polished.fasta"))
+    for out in (r["tdir"], d):
+        res = trun(*_reads(tpack, r["ds"]), TCfg(**DEFAULT_KW), out,
+                   resume=True, device="cpu")
+        for s in ("spectrum", "corrected", "overlaps", "assembly",
+                  "arbitrate"):
+            assert s not in res.stats["stages"], (out, s)
+        assert res.contigs == r["jres"].contigs
+        assert res.polished == r["jres"].polished
+    a = open(os.path.join(d, "polished.fasta"), "rb").read()
+    b = open(os.path.join(r["jdir"], "polished.fasta"), "rb").read()
+    assert a == b
 
 
 # the short-read-only route under the default config (arbitrate=True: the

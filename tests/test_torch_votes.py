@@ -460,6 +460,10 @@ def test_votes_routes_and_banks():
         smem=8 * 132, scratch=True)
     # 300 bp reads (pad 320): W 11 on 16 lanes, 2 pairs a warp
     assert TMC.votes_route(320, 392)[:3] == (11, 16, 2)
+    # copy arbitration's chunks (pad 400 at k 15): W 13 on 16 lanes, 2
+    # pairs a warp, 98,840 B a block (2 blocks an SM)
+    assert TMC.votes_route(400, 472) == TMC.VotesRoute(
+        13, 16, 2, 12320, 2 * 12320 * 4 + 2 * 140, False)
     # W 24: band 64 fits one pair's planes (157 KB), band 960 (329 KB) does
     # not and takes the device scratch
     assert TMC.votes_route(744, 816).scratch is False
@@ -471,7 +475,8 @@ def test_votes_routes_and_banks():
             r = TMC.votes_route(Lq, Lt)
             assert r.stride % 2 == 0 and r.stride >= 2 * r.W * Lt
             assert r.smem <= TMC.SMEM_MAX and r.pairs * r.G == 32
-    assert set(TMC.LAUNCHES) == {"myers_batch_cuda", "myers_votes_cuda",
+    assert set(TMC.LAUNCHES) == {"myers_batch_cuda",
+                                 "myers_batch_cuda_shared", "myers_votes_cuda",
                                  "myers_votes_cuda_scratch",
                                  "myers_batch_planes_cuda"}
     # at W 1, 2 and 4 the DP's 64-bit plane stores of a half-warp (the

@@ -40,19 +40,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   6. CUDA-event times of each kernel (wrapper and kernel alone) and of its
      plain version, GCUPS, bounds and the share of them, registers: K1' in
      both designs at W 14, 4, 5 and 1, K2, K3' at the refine's shapes
-     beside K3's kernel on the same inputs, K3 at Lq 320; K2' on real
-     correction batches (_prep's output) on both plane homes, its shared
-     memory and blocks an SM; and the correction batch split (_prep / K2')
+     beside K3'' and K3's kernels on the same inputs, K3'' at the 300 bp
+     refine's shapes (Lq 320, forward band 64 and reverse band 128) with
+     its in-band share, K and shared memory, beside K3's kernel on the same
+     inputs (K3's row, forced there); K2' on real correction batches
+     (_prep's output) on both plane homes, its shared memory and blocks an
+     SM; and the correction batch split (_prep / K2')
   7. banded_sw_batch_cuda == its plain version, bit-exact, every case
      through the wrapper, whose route counter must move: K3' at the
      refine's forward (N 4096, Lq 112, Lt 184, band 64) and reverse (band
-     128, ragged) shapes and at Lq 1, 31, 32, 33, 112, 128, 129, 256 at
-     bands 0, 64, 128, >= Lq; K3 (rows) at Lq 257, 1024, 1100 and band 960
-     (device scratch); tie rows, -1 and 4 codes, qlen/tlen 0 everywhere
+     128, ragged) shapes (and K3'' forced on both) and at Lq 1, 31, 32, 33,
+     112, 128, 129, 256 at bands 0, 64, 128, >= Lq; K3'' at the 300 bp
+     refine's forward (N 4096, Lq 320, Lt 392, band 64) and reverse (band
+     128, ragged) shapes, at Lq 257, 320, 1024 at bands 0, 1, 64, 127, 128,
+     at bands 31, 32, 63, 64, 255 (K's edges) and at Lq 1024 and 1100; K3
+     (rows) at band >= Lq above Lq 256 and band 960 (device scratch); tie
+     rows, -1 and 4 codes, qlen/tlen 0 everywhere
   8. judged config 3, compute_overlaps_cross(device="cuda") with the SW
-     refine, on the phase-4 reads: K1' and K3' counters must move, K3's
-     stay 0, truth precision >= 0.95; then 300 bp reads on a 100 kb genome,
-     whose refine width takes K3's row route (K3' stays 0)
+     refine, on the phase-4 reads: K1' and K3' counters must move, K3''
+     and K3 stay 0, truth precision >= 0.95; then 300 bp reads on a 100
+     kb genome, whose refine width takes K3'' (K3' and K3 stay 0)
   9. the measurement path: X1 (exp/myers_micro run_b), X2 (exp/sw_variants
      v1, v2, v3) and X3 (exp/vpu_micro) == their plain versions, bit-exact;
      then the three harnesses' main() as a user runs them (their counters
@@ -66,10 +73,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (K1''s shared-target counter must move); --phase10 picks the genomes
      (repeats, circular, repeats+circular)
 
-Phase 5 also runs config 3 and the short-read-only pipeline (8 kb genome)
-on cuda and on cpu, byte-identical.  Phases run in the order
-0 1 2 3 7 4 8 a 5 6 9; phase 6 also times K2' at the arbitration shape and
-K1''s shared-target mode at segment_identity's shape.
+Phase 5 also runs config 3 (100 bp and 300 bp reads) and the
+short-read-only pipeline (8 kb genome) on cuda and on cpu, byte-identical.
+Phases run in the order 0 1 2 3 7 4 8 a 5 6 9; phase 6 also times K2' at
+the arbitration shape and K1''s shared-target mode at segment_identity's
+shape.
 
 The last three lines of standard output are the `kernels` JSON line, the
 card's `name, power.limit`, and {"ok": true, "device": {...}}.
@@ -103,6 +111,8 @@ KERNELS = {
                                 "hga_tpu/ops/myers_pallas.py:106"),
     "banded_sw_batch_cuda": ("hga_tpu_torch/csrc/sw.cu",
                              "hga_tpu/ops/align_pallas.py:66"),
+    "banded_sw_batch_cuda_band": ("hga_tpu_torch/csrc/sw.cu",
+                                  "hga_tpu/ops/align_pallas.py:66"),
     "banded_sw_batch_cuda_rows": ("hga_tpu_torch/csrc/sw.cu",
                                   "hga_tpu/ops/align_pallas.py:66"),
     "run_b_cuda": ("hga_tpu_torch/csrc/myers_micro.cu",
@@ -134,6 +144,7 @@ _PTXAS_ENTRY = (
     ("K2'", r"myers_votes_kernelILi(\d+)ELb([01])E",
      lambda g: f"G{g[0]}{'smem' if g[1] == '1' else 'scratch'}"),
     ("K3'", r"sw_diag_kernelILi(\d+)E", lambda g: f"K{g[0]}"),
+    ("K3''", r"sw_band_kernelILi(\d+)E", lambda g: f"K{g[0]}"),
     ("K3", r"sw_kernelILb([01])E",
      lambda g: "smem" if g[0] == "1" else "scratch"),
     ("X1", r"myers_slab_kernelILi(\d+)E", lambda g: int(g[0])),
@@ -147,9 +158,9 @@ _PTXAS_ENTRY = (
 def ptxas_report(text: str):
     """(kernel, instantiation, registers, (spill store bytes, spill load
     bytes)) per instantiation, from nvcc's -Xptxas -v report: K1' by W and
-    lanes a pair, K2 by W, K2' by lanes a pair and plane home, K3' by slots
-    a lane, K3 by buffer kind, X1 by W, X2 by layout, K, G and ablation
-    flags, X3 by C and STEPS."""
+    lanes a pair, K2 by W, K2' by lanes a pair and plane home, K3' and K3''
+    by slots a lane, K3 by buffer kind, X1 by W, X2 by layout, K, G and
+    ablation flags, X3 by C and STEPS."""
     import re
 
     rows, cur = [], None
@@ -542,13 +553,12 @@ def sw_edges(rng, n, lq, lt, band):
     return q, t, ql, tl
 
 
-def sw_cases(rng, A):
-    """K3' and K3 checks: the refine's forward and reverse shapes, band >=
-    Lq, the row route's shapes (Lq 1024 and 1100, band 960 with the device
-    scratch), then K3' at every slot count's edges (Lq 1 .. 256, and 257,
-    which takes the row route) at bands 0, 64, 128 and >= Lq.  Each case:
-    (label, q, t, qlen, tlen, band)."""
-    N, Lq, band = 4096, 112, 64
+def refine_cases(rng, A, N, Lq, band):
+    """The refine's forward operands at one short-read width (planted,
+    ragged qlen and tlen, a sentinel row, -1 codes, homopolymer and ACAC
+    tie rows) and its reverse pass made from the forward results (reversed
+    prefixes, twice the band).  Each case: (label, q, t, qlen, tlen,
+    band)."""
     Lt = Lq + band + 8
     q, t, ql, tl = planted_pairs(rng, N, Lq, Lt, lead=band // 2)
     ql[:4] = [0, 1, 31, Lq - 1]
@@ -560,54 +570,86 @@ def sw_cases(rng, A):
     t[10:16, :] = 0
     q[16:24, ::2], q[16:24, 1::2] = 0, 1          # ACAC... repeats
     t[16:24, ::2], t[16:24, 1::2] = 1, 0
-    cases = [(f"forward (N {N}, Lq {Lq}, Lt {Lt}) band {band}",
-              q, t, ql, tl, band)]
     fwd = A.banded_sw_batch(*to_dev(q, t, ql, tl), band=band)
     rq, rt, rql, rtl = reversed_prefixes(q, t, fwd.qend.cpu().numpy(),
                                          fwd.tend.cpu().numpy())
-    cases.append((f"reverse (N {N}, Lq {Lq}, Lt {Lt}) band {2 * band}, "
-                  "ragged qend/tend", rq, rt, rql, rtl, 2 * band))
-    for n, lq, lt, b, label in ((512, 40, 60, 200, "band >= Lq"),
-                                (256, 1024, 1100, 64, "Lq 1024"),
-                                (256, 1100, 1200, 64, "Lq 1100"),
-                                (64, 1000, 1000, 960,
-                                 "band 960 (device scratch)")):
+    return [(f"forward (N {N}, Lq {Lq}, Lt {Lt}) band {band}",
+             q, t, ql, tl, band),
+            (f"reverse (N {N}, Lq {Lq}, Lt {Lt}) band {2 * band}, ragged "
+             "qend/tend", rq, rt, rql, rtl, 2 * band)]
+
+
+def sw_cases(rng, A):
+    """K3', K3'' and K3 checks: the refine's forward and reverse shapes at
+    100 bp reads (Lq 112: K3', and K3'' forced on the same inputs) and at
+    300 bp reads (Lq 320: K3''), band >= Lq, Lq 1024 and 1100, band 960
+    (K3 with the device scratch), K3' at every slot count's edges (Lq 1 ..
+    256, and 257) at bands 0, 64, 128 and >= Lq, then K3'' at Lq 257, 320
+    and 1024 at the CPU emulator's bands and at K's edges (band + 1 = 32,
+    33, 64, 65, 256).  Each case: (label, q, t, qlen, tlen, band, and
+    whether K3'' also runs forced)."""
+    cases = [(*c, True) for c in refine_cases(rng, A, 4096, 112, 64)]
+    cases += [(*c, False) for c in refine_cases(rng, A, 4096, 320, 64)]
+    sized = [(512, 40, 60, 200, "band >= Lq"),
+             (256, 1024, 1100, 64, "Lq 1024"),
+             (256, 1100, 1200, 64, "Lq 1100"),
+             (64, 1000, 1000, 960, "band 960 (device scratch)")]
+    sized += [(512, lq, lq + 72, b, f"Lq {lq}")
+              for lq in (1, 31, 32, 33, 112, 128, 129, 256, 257)
+              for b in (0, 64, 128, lq + 7)]
+    sized += [(512, lq, lq + 72, b, f"Lq {lq}")
+              for lq, bands in ((257, (1, 127)),
+                                (320, (0, 1, 31, 32, 63, 127, 128, 255,
+                                       327)),
+                                (1024, (0, 1, 127, 128, 1031)))
+              for b in bands]
+    for n, lq, lt, b, label in sized:
         cases.append((f"{label} (N {n}, Lq {lq}, Lt {lt}) band {b}",
-                      *sw_edges(rng, n, lq, lt, b), b))
-    for lq in (1, 31, 32, 33, 112, 128, 129, 256, 257):
-        lt = lq + 72
-        for b in (0, 64, 128, lq + 7):
-            cases.append((f"Lq {lq} (N 512, Lt {lt}) band {b}",
-                          *sw_edges(rng, 512, lq, lt, b), b))
+                      *sw_edges(rng, n, lq, lt, b), b, False))
     return cases
+
+
+SW_KERNEL_NAME = {"diag": "K3'", "band": "K3''", "rows": "K3 (rows)"}
 
 
 def phase_k3(rng, AC, A):
     """Every case through the wrapper, which picks the route by shape: the
-    route's counter must move; K3' and K3 are reported apart."""
-    log("phase 7: K3' and K3 banded_sw_batch_cuda vs plain, bit-exact")
-    errs = {"banded_sw_batch_cuda": [], "banded_sw_batch_cuda_rows": []}
-    for label, q, t, ql, tl, band in sw_cases(rng, A):
+    route's counter must move; K3', K3'' and K3 are reported apart, and each
+    must have run."""
+    log("phase 7: K3', K3'' and K3 banded_sw_batch_cuda vs plain, bit-exact")
+    errs = {key: [] for key in AC.ROUTE_COUNTER.values()}
+    for label, q, t, ql, tl, band, force_band in sw_cases(rng, A):
         args = to_dev(q, t, ql, tl)
-        r = AC.route(q.shape[1], t.shape[1], band)
+        Lq, Lt = q.shape[1], t.shape[1]
+        r = AC.route(Lq, Lt, band)
         key = AC.ROUTE_COUNTER[r.kind]
         before = AC.LAUNCHES[key]
         got = AC.banded_sw_batch_cuda(*args, band=band)
         if AC.LAUNCHES[key] != before + 1:
             fail(f"K3 {label}: the {r.kind} route was not launched")
         ref = A.banded_sw_batch(*args, band=band)
-        name = "K3'" if r.kind == "diag" else "K3 (rows)"
-        for f in ("score", "qend", "tend"):
-            errs[key].append(eq(f"{name} {label} {f}", getattr(got, f),
-                                getattr(ref, f)))
+        runs = [(r.kind, tuple(got))]
+        if force_band:
+            br, *ops, outs = AC.kernel_operands(*args, band=band,
+                                                kind="band")
+            AC.run_kernel(br, *ops, outs)
+            runs.append(("band", outs))
+        for kind, res in runs:
+            for f, x in zip(("score", "qend", "tend"), res):
+                errs[AC.ROUTE_COUNTER[kind]].append(
+                    eq(f"{SW_KERNEL_NAME[kind]} {label} {f}", x,
+                       getattr(ref, f)))
         if int(ref.score.max()) <= 0:
             fail(f"K3 {label}: no positive score")
+    for key, e in errs.items():
+        if not e:
+            fail(f"phase 7 ran no case on {key}")
     return {k: max(v) for k, v in errs.items()}
 
 
 _SIMULATED: dict = {}
 # phase 8's second drive: 300 bp short reads (Illumina MiSeq 2 x 300), whose
-# refine width (pad 320) takes K3's row route, on a 100 kb genome
+# refine width (pad 320) takes K3'' (the band route), on a 100 kb genome
 MISEQ_GENOME = 100_000
 
 
@@ -827,8 +869,38 @@ def same_outputs(dirs, text, npz) -> None:
         log(f"  ok: {f} arrays equal ({len(za.files)} arrays)")
 
 
-def phase_cpu_equal(workdir: str):
+def config3_equal(label, pr_s, pr_l, workdir: str, AC):
+    """Config 3 (compute_overlaps_cross, refine sw) on cuda and on cpu:
+    overlaps.npz and overlaps.paf byte-identical; on cuda the refine must
+    go through the route its width takes, and no other."""
     from hga_tpu_torch.models.overlap import compute_overlaps_cross
+
+    cfg = config3_cfg()
+    route = AC.route(pr_s.pad_len, pr_s.pad_len + cfg.band + 8,
+                     cfg.band).kind
+    dirs = {}
+    for dev in ("cuda", "cpu"):
+        AC.reset_launches()
+        t0 = time.perf_counter()
+        ov = compute_overlaps_cross(pr_s, pr_l, cfg, device=dev)
+        d = dirs[dev] = os.path.join(workdir, f"{label}_{dev}")
+        os.makedirs(d)
+        ov.save(os.path.join(d, "overlaps.npz"))
+        with open(os.path.join(d, "overlaps.paf"), "w") as fh:
+            fh.write(ov.to_paf(pr_s.names, pr_l.names))
+        log(f"  {dev}: {ov.n} overlaps in {time.perf_counter() - t0:.1f} s"
+            f"; SW launches {json.dumps(AC.LAUNCHES)}")
+        if ov.n == 0:
+            fail(f"config 3 on {dev} found no overlap")
+        moved = {k for k, n in AC.LAUNCHES.items() if n}
+        want = {AC.ROUTE_COUNTER[route]} if dev == "cuda" else set()
+        if moved != want:
+            fail(f"config 3 on {dev} (pad {pr_s.pad_len}) launched {moved}, "
+                 f"not {want}")
+    same_outputs(dirs, ("overlaps.paf",), ("overlaps.npz",))
+
+
+def phase_cpu_equal(workdir: str, AC):
     from hga_tpu_torch.models.pipeline import run_pipeline
 
     log("phase 5: the same work on cuda and on cpu, byte-identical")
@@ -849,19 +921,12 @@ def phase_cpu_equal(workdir: str):
 
     log("  config 3 (compute_overlaps_cross, refine sw), 8 kb genome")
     _, pr_s, pr_l = simulate(8_000, seed=8)
-    dirs = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        ov = compute_overlaps_cross(pr_s, pr_l, config3_cfg(), device=dev)
-        d = dirs[dev] = os.path.join(workdir, f"p5c3_{dev}")
-        os.makedirs(d)
-        ov.save(os.path.join(d, "overlaps.npz"))
-        with open(os.path.join(d, "overlaps.paf"), "w") as fh:
-            fh.write(ov.to_paf(pr_s.names, pr_l.names))
-        log(f"  {dev}: {ov.n} overlaps in {time.perf_counter() - t0:.1f} s")
-        if ov.n == 0:
-            fail(f"config 3 on {dev} found no overlap")
-    same_outputs(dirs, ("overlaps.paf",), ("overlaps.npz",))
+    config3_equal("p5c3", pr_s, pr_l, workdir, AC)
+    log("  config 3 with 300 bp reads (pad 320: the refine on K3''), 8 kb")
+    t0 = time.perf_counter()
+    config3_equal("p5c3_300", *simulate(8_000, seed=9, read_len=300)[1:],
+                  workdir, AC)
+    log(f"  config 3 with 300 bp reads: {time.perf_counter() - t0:.1f} s")
 
     log("  the short-read-only pipeline (refine sw, arbitrate on), 8 kb")
     dirs = {}
@@ -895,8 +960,9 @@ def phase_config3(genome_len: int, MC, AC, read_len: int = 100,
     """Judged config 3 on the card: short reads of the judged read model
     against its long reads, refine sw; precision against the truth loci.
     The refine's width (the short reads' pad) picks the SW route: K3' at
-    100 bp reads (pad 112), K3 at 300 bp reads (pad 320); the other route's
-    counter must stay at 0.  The 100 bp drive counts a record right when
+    100 bp reads (pad 112), K3'' at 300 bp reads (pad 320, forward band 64
+    and reverse band 128 both on it); the other routes' counters must stay
+    at 0.  The 100 bp drive counts a record right when
     the short read lies inside its long read's locus; at 300 bp about 5%
     of true overlaps hang off a long read's end (a read-length share of the
     ~8 kb long reads), so that drive counts a record right when the two
@@ -1277,62 +1343,88 @@ def refine_sets(rng, A, N, Lq, band, n_sets=4):
     return (("forward", fwd, band), ("reverse", rev, 2 * band)), Lt
 
 
-def sw_row(AC, A, sets, band, rows_route):
-    """One SW timing row: the wrapper and the kernel alone of the route the
-    shape takes (K3 when `rows_route`), GCUPS on in-band cells, bound."""
+def swept_slot_steps(r, sets, Lq, Lt, band):
+    """Slot-steps a K3' or K3'' launch sweeps, a set on average: 32 K per
+    anti-diagonal up to each pair's last in-band one (K3' from d = 2, K3''
+    in pairs of steps from d = 2 - (band & 1))."""
     import numpy as np
 
+    band = min(band, max(Lq, Lt))
+    ql = np.clip(np.concatenate([x[2] for x in sets]), 0, Lq).astype(
+        np.int64)
+    tl = np.minimum(np.concatenate([x[3] for x in sets]), Lt)
+    dend = np.where(ql >= 1, ql + np.minimum(tl, ql + band), 1)
+    if r.kind == "diag":
+        steps = (dend - 1).clip(min=0)
+    else:
+        d0 = 2 - (band & 1)
+        steps = np.where(dend >= d0, 2 * ((dend - d0) // 2 + 1), 0)
+    return 32 * r.K * steps.sum() / len(sets)
+
+
+def sw_row(AC, A, sets, band, kind=None):
+    """One SW timing row: the wrapper and the kernel alone of the route the
+    shape takes, GCUPS on in-band cells, the bound; for K3' and K3'' the
+    share of the swept slot-steps in band; beside it the kernels of the
+    other routes on the same inputs (K3 always, K3'' beside K3').  With
+    `kind` ("rows"), the row is that route's, forced: "ms" then times its
+    operand prep and launch, the work the wrapper would do there."""
     from hga_tpu_torch.utils import benchmarks as B
 
     N, Lq = sets[0][0].shape
     Lt = sets[0][1].shape[1]
     dev_sets = [to_dev(*x) for x in sets]
     cells = sum(A.sw_cells(x[2], x[3], band) for x in sets) / len(sets)
-    r = AC.rows_route(Lq, Lt, band) if rows_route else AC.route(Lq, Lt,
-                                                                  band)
+    kernel_sets = [AC.kernel_operands(*x, band=band, kind=kind)
+                   for x in dev_sets]
+    r = kernel_sets[0][0]
+    if kind is None:
+        wrapper = lambda *x: AC.banded_sw_batch_cuda(*x, band=band)
+    else:
+        wrapper = lambda *x: AC.run_kernel(
+            *AC.kernel_operands(*x, band=band, kind=kind))
     row = time_row(
-        dict(N=N, Lq=Lq, Lt=Lt, band=band, route=r.kind),
-        lambda *x: AC.banded_sw_batch_cuda(*x, band=band), dev_sets,
-        AC.run_kernel,
-        [AC.kernel_operands(*x, band=band, rows=rows_route)
-         for x in dev_sets],
+        dict(N=N, Lq=Lq, Lt=Lt, band=band, route=r.kind,
+             forced=kind is not None),
+        wrapper, dev_sets, AC.run_kernel, kernel_sets,
         lambda *x: A.banded_sw_batch(*x, band=band), cells,
         cells * B.SW_OPS_PER_CELL, 4 * N * (Lq + Lt) + 8 * N + 12 * N,
         [AC.LAUNCHES])
     row.update(zip(("registers", "local_bytes"), AC.kernel_attrs(r)),
                K=r.K, warps=r.warps, smem=r.smem)
-    row["blocks"] = -(-N // r.warps) if r.kind == "diag" else \
+    row["blocks"] = -(-N // r.warps) if r.kind != "rows" else \
         -(-N // AC.THREADS)
-    if r.kind == "diag":
-        # slot-steps the warps sweep (32 K per anti-diagonal up to each
-        # pair's last in-band one) and the share of them in band
-        ql = np.clip(np.concatenate([x[2] for x in sets]), 0, Lq)
-        tl = np.minimum(np.concatenate([x[3] for x in sets]), Lt)
-        dend = np.where(ql >= 1, ql + np.minimum(tl, ql + band), 1)
-        swept = 32 * r.K * (dend - 1).clip(min=0).sum() / len(sets)
-        row["in_band_share"] = cells / swept
-    if not rows_route and r.kind == "diag":
-        # the wrapper's own route only: kernel alone of K3 at this shape
-        row["rows_kernel_ms"] = B.cuda_ms(
-            AC.run_kernel, [AC.kernel_operands(*x, band=band, rows=True)
-                            for x in dev_sets], 20, passes=3)
+    if r.kind != "rows":
+        row["in_band_share"] = cells / swept_slot_steps(r, sets, Lq, Lt,
+                                                        band)
+        beside = ("band", "rows") if r.kind == "diag" else ("rows",)
+        for other in beside:
+            # kernel alone of another route on the same inputs
+            row[f"{other}_kernel_ms"] = B.cuda_ms(
+                AC.run_kernel, [AC.kernel_operands(*x, band=band, kind=other)
+                                for x in dev_sets], 20, passes=3)
     return row
 
 
 def phase_times_k3(rng, AC, A):
-    """K3' at the refine's shapes (Lq 112: forward band 64, reverse band
-    128) beside K3's kernel at the same inputs, and K3 at the shapes that
-    take its route (300 bp reads: Lq 320)."""
-    log("phase 6: K3' and K3 times (CUDA events, distinct inputs, warm)")
+    """K3' at the 100 bp refine's shapes (Lq 112: forward band 64, reverse
+    band 128) beside the K3'' and K3 kernels on the same inputs; K3'' at
+    the 300 bp refine's shapes (Lq 320) beside K3's kernel; K3's row,
+    forced at Lq 320 (no main path takes the row route now)."""
+    log("phase 6: K3', K3'' and K3 times (CUDA events, distinct inputs, "
+        "warm)")
     rows = {}
     for key, Lq in (("banded_sw_batch_cuda", 112),
-                    ("banded_sw_batch_cuda_rows", 320)):
+                    ("banded_sw_batch_cuda_band", 320)):
         passes, Lt = refine_sets(rng, A, 4096, Lq, 64)
-        r = {shape: sw_row(AC, A, sets, b, key.endswith("rows"))
-             for shape, sets, b in passes}
+        r = {shape: sw_row(AC, A, sets, b) for shape, sets, b in passes}
         rows[key] = dict(r["forward"], reverse=r["reverse"])
-        for shape, row in r.items():
-            log(f"  {key} {shape}: {json.dumps(row)}")
+    r = {shape: sw_row(AC, A, sets, b, kind="rows")
+         for shape, sets, b in passes}
+    rows["banded_sw_batch_cuda_rows"] = dict(r["forward"],
+                                             reverse=r["reverse"])
+    for key, row in rows.items():
+        log(f"  {key}: {json.dumps(row)}")
     return rows
 
 
@@ -1384,7 +1476,10 @@ def x_checks(rng, VM, MM, SV, M, A):
     # X2 at check()'s shape and at K3's refine shapes (forward band 64 and
     # reverse band 128, ragged, homopolymer and ACAC tie rows; band >= Lq)
     cases = [("check() shape (N 256, Lq 128, Lt 256) band 64",
-              *SV.planted_inputs(256, 128, 256), 64)] + sw_cases(rng, A)[:3]
+              *SV.planted_inputs(256, 128, 256), 64),
+             *refine_cases(rng, A, 4096, 112, 64),
+             ("band >= Lq (N 512, Lq 40, Lt 60) band 200",
+              *sw_edges(rng, 512, 40, 60, 200), 200)]
     errs = {v: [] for v in ("v1", "v2", "v3")}
     for label, q, t, ql, tl, band in cases:
         args = to_dev(q, t, ql, tl)
@@ -1631,14 +1726,15 @@ def main() -> int:
             for n, p in libs.items()))
     report = ptxas_report("".join(str(b["ptxas"]) for b in built.values()))
     expect = ((2 * M.MAX_WORDS - 1) + M.MAX_WORDS + 2 * 6
-              + len(AC.DIAG_SLOTS) + 2
+              + len(AC.DIAG_SLOTS) + len(AC.BAND_SLOTS) + 2
               + M.MAX_WORDS + sum(len(k) for k in SV.BUILT.values())
               + len(VM.BUILT))
     log(f"  ptxas report: {len(report)} of {expect} kernel instantiations "
         "parsed")
     for kern, by in (("K1'", "W, lanes a pair"), ("K2", "W"),
                      ("K2'", "lanes a pair, plane home"),
-                     ("K3'", "slots a lane"), ("K3", "buffer"), ("X1", "W"),
+                     ("K3'", "slots a lane"), ("K3''", "slots a lane"),
+                     ("K3", "buffer"), ("X1", "W"),
                      ("X2", "layout"), ("X3", "C, STEPS")):
         rows = [r for r in report if r[0] == kern]
         log(f"  ptxas {kern} registers by {by}: "
@@ -1668,7 +1764,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # launches per kernel on each path that ran: K1' and K2' on the hybrid
-    # pipeline (phases 4 and 10), K1' and K3' on config 3 and K1' and K3 on
+    # pipeline (phases 4 and 10), K1' and K3' on config 3 and K1' and K3'' on
     # its 300 bp drive (phase 8), K1''s shared-target mode on
     # segment_identity (phase 10), X1-X3 on the harnesses and K1'/K3' on
     # hga-torch bench (phase 9)
@@ -1689,7 +1785,7 @@ def main() -> int:
             paths.update(phase_genomes(args.genome_len, kinds, MC, workdir))
             done("10")
         if "5" in ph:
-            phase_cpu_equal(workdir)
+            phase_cpu_equal(workdir, AC)
             done("5")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -1717,7 +1813,7 @@ def main() -> int:
         done("9")
     for name, e in entries.items():
         by_path = {p: n[name] for p, n in paths.items() if n.get(name)}
-        e.update(launches=sum(by_path.values()) if by_path else None,
+        e.update(launches=sum(by_path.values()) if paths else None,
                  launches_by_path=by_path, max_abs_err=err[name],
                  matches_plain=None if err[name] is None else err[name] == 0)
     log("  no single PyTorch call computes Myers edit distance (per pair or "

@@ -1,7 +1,7 @@
 // Banded local Smith-Waterman (linear gap), score and end cell, for Hopper
 // (sm_90a).
 //
-// Both kernels replace the Pallas kernel `_sw_kernel`
+// The three kernels replace the Pallas kernel `_sw_kernel`
 // (hga_tpu/ops/align_pallas.py:66): per pair, the best cell of the local DP
 // over cells (i, j), 1 <= i <= min(qlen, Lq), 1 <= j <= min(tlen, Lt),
 // |j - i| <= band, with
@@ -15,7 +15,7 @@
 // is the scored refine of the short-read overlap route (config 3 and
 // compute_overlaps), forward at band 64 and reverse at band 128.
 //
-// Two routes, chosen by the wrapper (ops/align_cuda.py) from the shape
+// Three routes, chosen by the wrapper (ops/align_cuda.py) from the shape
 // alone:
 //
 // K3' sw_diag_kernel<K> (Lq <= 256 and the windows fit 227 KB a block): a
@@ -41,27 +41,65 @@
 // operands are the caller's row-major (N, L) codes: a warp loads its own
 // pair's rows.  4 warps a block (fewer when the windows need it).
 //
-// K3 sw_kernel<SMEM> (Lq > 256, or a target too long for the windows): one
-// thread per pair, rows i swept in order, the row's band of 2 * band + 1
-// cells held in one buffer indexed k = j - i + band and updated in place;
-// ties compare (H, -d, -i) since a row sweep meets cells in another order.
-// The buffer lives in shared memory laid out [slot][thread], 32 threads a
-// block; above 227 KB a block (band > 907) in a device-memory scratch laid
-// out [slot][pair].  Codes are read from transposed (L, N) copies.
+// K3'' sw_band_kernel<K> (the other shapes whose clamped band + 1 <= 256
+// and whose staged codes fit 227 KB a block; the 300 bp refine at Lq 320
+// among them): a warp per pair along the anti-diagonals, over a window of
+// band + 1 slots that moves with the band instead of the whole query axis.
+// On anti-diagonal d the in-band rows are i0(d) .. i0(d) + band with
+// i0(d) = ceil((d - band) / 2); slot s holds row i = i0(d) + s and column
+// j = d - i.  Lane l holds slots l * K .. l * K + K - 1, K = 1 .. 8 the
+// smallest with 32 K >= band + 1, so the slot count does not depend on Lq.
+// i0 advances on every other d: delta = i0(d) - i0(d - 1) = (d - band) & 1.
+//   - diagonal (i - 1, j - 1): the same slot two steps back, in a register;
+//   - delta 0: up (i - 1, j) is slot s - 1 and left (i, j - 1) slot s on
+//     d - 1 (one __shfl_up_sync, lane 0 takes 0);
+//   - delta 1: up is slot s and left slot s + 1 (one __shfl_down_sync,
+//     lane 31 takes 0).
+// The loop runs the two parities as two unrolled steps, so a step has one
+// shuffle and no select on delta, and the two register arrays trade roles
+// without a move.  The query and the reversed target are staged in shared
+// memory, -1 outside the codes, with margins so that every slot of every
+// step from d = 1 to the pair's last reads inside them; a step reads
+// q[i - 1] and t[j - 1] at consecutive addresses in slot order, and only
+// masked cells read a margin.  Cells store 0 outside 1 <= i <= qlen and
+// 1 <= j <= tlen (per-slot bounds on d: i >= 1 iff d >= band - 2 s + 1,
+// j >= 1 iff d >= 2 s + 2 - band, i <= qlen iff d <= 2 (qlen - s) + band,
+// j <= tlen iff d <= 2 (tlen + s) + 1 - band) and outside the band: slots
+// past band never hold a cell, and slot band overshoots it by one on
+// delta-1 steps.  The 0 is exact for the reason given for K3'.  Each slot
+// keeps (H, d) with a strict >; a slot's row follows from d, so the
+// butterfly takes max H, min d, min slot (on one d the smallest slot is
+// the smallest i) and qend = i0(d) + s.  The loop stops at the pair's last
+// in-band anti-diagonal, qlen + min(tlen, qlen + band).  4 warps a block
+// (fewer when the windows need it).
 //
-// What bounds K3': about 12 int32 operations per in-band cell (the Pallas
-// CostEstimate counts 12), but a warp does 32 K slot-steps per
-// anti-diagonal whatever the band, so out-of-band slots cost too (at the
-// refine's forward shape, Lq 112, Lt 184, band 64, a third of the swept
-// slot-steps of a full-length pair are in band); bytes are small (codes
-// read once, 12 bytes written per pair).  What the design does about it: K is the smallest that
-// holds the query, the loop stops at the pair's own last in-band
-// anti-diagonal (ragged reverse-pass pairs stop early), the cell is one DPX
-// instruction and the neighbour exchange one shuffle; 1024 warps at
-// N = 4096 fill the 132 SMs.  A band-window layout (band + 1 slots per
-// anti-diagonal) would drop the out-of-band slots and is later work.
+// K3 sw_kernel<SMEM> (a clamped band above 255, or a query too long for
+// the K3'' windows): one thread per pair, rows i swept in order, the row's
+// band of 2 * band + 1 cells held in one buffer indexed k = j - i + band
+// and updated in place; ties compare (H, -d, -i) since a row sweep meets
+// cells in another order.  The buffer lives in shared memory laid out
+// [slot][thread], 32 threads a block; above 227 KB a block (band > 907) in
+// a device-memory scratch laid out [slot][pair].  Codes are read from
+// transposed (L, N) copies.
+//
+// What bounds K3' and K3'': about 12 int32 operations per in-band cell
+// (the Pallas CostEstimate counts 12); bytes are small (codes read once,
+// 12 bytes written per pair).  K3' does 32 K slot-steps per anti-diagonal
+// whatever the band, so out-of-band slots cost too (at the refine's
+// forward shape, Lq 112, Lt 184, band 64, a third of the swept slot-steps
+// of a full-length pair are in band).  What the design does about it: K is
+// the smallest that holds the query, the loop stops at the pair's own last
+// in-band anti-diagonal (ragged reverse-pass pairs stop early), the cell
+// is one DPX instruction and the neighbour exchange one shuffle; 1024
+// warps at N = 4096 fill the 132 SMs.  K3'' sweeps 32 K >= band + 1 slots
+// an anti-diagonal, so at Lq 320 over half of its slot-steps are in band,
+// and 4096 warps (one a pair) fill the card where K3's 128 blocks of one
+// warp left one warp an SM, each cell a serial chain through shared
+// memory.  It pays one more shared-memory read a cell (the query code,
+// which moves with the window) and one more compare on delta-1 steps.
 // K3 is bound by the per-cell chain along a row, serial within a pair.
 
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -232,6 +270,163 @@ cudaError_t launch_diag(const int32_t* q, const int32_t* t, const int32_t* ql,
   return cudaGetLastError();
 }
 
+// K3'' geometry: ceil(x / 2) for either sign.  i0(d) = ceil((d - band) / 2)
+// is the row of slot 0 on anti-diagonal d and f(d) = d - i0(d) its column;
+// slot s holds (i0(d) + s, f(d) - s).
+__host__ __device__ __forceinline__ int ceil_half(int x) {
+  return x >= 0 ? (x + 1) / 2 : -((-x) / 2);
+}
+
+// The staged windows of one pair: qs[x] = q[qlo + x] for x < qwin and
+// ts[y] = t[thi - y] for y < twin (-1 outside the codes), wide enough for
+// every slot of every anti-diagonal 1 .. dmax + 1, where dmax =
+// Lq + min(Lt, Lq + band) is the last one any pair can reach (the loop
+// runs its steps in pairs, so it may take one step past a pair's last).
+struct BandGeom {
+  int qlo, qwin, thi, twin;
+};
+
+BandGeom band_geom(int Lq, int Lt, int band, int K) {
+  const int S = 32 * K;
+  const int dmax = std::max(Lq + std::min(Lt, Lq + band), 2);
+  const int i1 = ceil_half(1 - band), ie = ceil_half(dmax + 1 - band);
+  BandGeom g;
+  g.qlo = i1 - 1;                          // row i0(1) - 1, slot 0
+  g.qwin = ie + S - 2 - g.qlo + 1;         // up to row i0(dmax + 1) + S - 1
+  g.thi = (dmax + 1 - ie) - 1;             // column f(dmax + 1), slot 0
+  g.twin = g.thi - ((1 - i1) - S) + 1;     // down to column f(1) - S + 1
+  return g;
+}
+
+// One anti-diagonal d of K3'' at parity DELTA: X holds the slots' H on
+// d - 2 and takes d's, Y holds d - 1.  qp[k] and tp[k] are the codes of
+// slot p0 + k; eb is this lane's k of slot band (any value if none).
+template <int K, int DELTA>
+__device__ __forceinline__ void band_step(
+    int d, int lane, int eb, const int32_t* qp, const int32_t* tp, int match,
+    int mismatch, int gap, const int (&dlo)[K], const int (&dhi)[K],
+    int (&X)[K], const int (&Y)[K], int (&bv)[K], int (&bd)[K]) {
+  int nb[K];  // the neighbour on d - 1 besides slot s: s - 1 or s + 1
+  if (DELTA == 0) {
+    const int up = __shfl_up_sync(kFull, Y[K - 1], 1);
+    nb[0] = lane == 0 ? 0 : up;
+#pragma unroll
+    for (int k = 1; k < K; ++k) nb[k] = Y[k - 1];
+  } else {
+    const int dn = __shfl_down_sync(kFull, Y[0], 1);
+#pragma unroll
+    for (int k = 0; k < K - 1; ++k) nb[k] = Y[k + 1];
+    nb[K - 1] = lane == 31 ? 0 : dn;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int sub = qp[k] == tp[k] ? match : mismatch;
+    const int mg = max(Y[k], nb[k]) + gap;
+    int v = __viaddmax_s32_relu(X[k], sub, mg);
+    bool in = d >= dlo[k] && d <= dhi[k];
+    if (DELTA == 1) in = in && k != eb;  // slot band is out of the band
+    v = in ? v : 0;
+    if (v > bv[k]) {
+      bv[k] = v;
+      bd[k] = d;
+    }
+    X[k] = v;
+  }
+}
+
+template <int K>
+__global__ void __launch_bounds__(kDiagWarps * 32)
+sw_band_kernel(const int32_t* __restrict__ q,     // (N, Lq)
+               const int32_t* __restrict__ t,     // (N, Lt)
+               const int32_t* __restrict__ qlen,
+               const int32_t* __restrict__ tlen,  // (N,)
+               int N, int Lq, int Lt, int band, int match, int mismatch,
+               int gap, BandGeom g, int32_t* __restrict__ score,
+               int32_t* __restrict__ qend, int32_t* __restrict__ tend) {
+  extern __shared__ __align__(16) int32_t band_smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (n >= N) return;                          // the whole warp leaves
+  const int p0 = lane * K;                     // this lane's first slot
+  int32_t* qs = band_smem + warp * (g.qwin + g.twin);
+  int32_t* ts = qs + g.qwin;
+  const int ql = min(max(qlen[n], 0), Lq);
+  const int tl = min(tlen[n], Lt);
+  for (int x = lane; x < g.qwin; x += 32) {
+    const int u = g.qlo + x;
+    qs[x] = (u >= 0 && u < Lq) ? q[static_cast<size_t>(n) * Lq + u] : -1;
+  }
+  for (int y = lane; y < g.twin; y += 32) {
+    const int u = g.thi - y;
+    ts[y] = (u >= 0 && u < Lt) ? t[static_cast<size_t>(n) * Lt + u] : -1;
+  }
+  __syncwarp();
+  int dlo[K], dhi[K], A[K], B[K], bv[K], bd[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int s = p0 + k;
+    dlo[k] = max(band - 2 * s + 1, 2 * s + 2 - band);
+    dhi[k] = s <= band ? min(2 * (ql - s) + band, 2 * (tl + s) + 1 - band)
+                       : -1;
+    A[k] = B[k] = bv[k] = bd[k] = 0;
+  }
+  const int eb = band - p0;
+  const int dend = ql >= 1 ? ql + min(tl, ql + band) : 1;
+  // start on the first anti-diagonal of parity 0 (d = 1 holds no cell);
+  // the pointers hold d0 - 1's window: i0(d0 - 1) = i0(d0), f one less
+  const int d0 = 2 - (band & 1);
+  const int i0 = (d0 - band) / 2;              // exact: d0 - band is even
+  const int32_t* qp = qs + (i0 - 1 - g.qlo) + p0;
+  const int32_t* tp = ts + (g.thi - (d0 - i0 - 1) + 1) + p0;
+  for (int d = d0; d <= dend; d += 2) {
+    --tp;                                      // delta 0: f(d) = f(d-1) + 1
+    band_step<K, 0>(d, lane, eb, qp, tp, match, mismatch, gap, dlo, dhi, A,
+                    B, bv, bd);
+    ++qp;                                      // delta 1: i0(d) = i0(d-1) + 1
+    band_step<K, 1>(d + 1, lane, eb, qp, tp, match, mismatch, gap, dlo, dhi,
+                    B, A, bv, bd);
+  }
+  Best b{-1, INT_MAX, INT_MAX};
+#pragma unroll
+  for (int k = 0; k < K; ++k) take(b, bv[k], bd[k], p0 + k);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {           // every lane gets the best
+    const int v = __shfl_xor_sync(kFull, b.v, o);
+    const int d = __shfl_xor_sync(kFull, b.d, o);
+    const int p = __shfl_xor_sync(kFull, b.p, o);
+    take(b, v, d, p);
+  }
+  if (lane == 0) {
+    const bool has = b.v > 0;
+    const int qe = has ? ceil_half(b.d - band) + b.p : 0;
+    score[n] = b.v;
+    qend[n] = qe;
+    tend[n] = has ? b.d - qe : 0;
+  }
+}
+
+template <int K>
+cudaError_t launch_band(const int32_t* q, const int32_t* t, const int32_t* ql,
+                        const int32_t* tl, int N, int Lq, int Lt, int band,
+                        int match, int mismatch, int gap, int warps,
+                        int32_t* score, int32_t* qend, int32_t* tend,
+                        cudaStream_t s) {
+  const BandGeom g = band_geom(Lq, Lt, band, K);
+  const size_t smem = static_cast<size_t>(warps) * (g.qwin + g.twin) * 4;
+  if (band + 1 > 32 * K || smem > static_cast<size_t>(kSmemMax)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t e = cudaFuncSetAttribute(
+      sw_band_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  sw_band_kernel<K><<<(N + warps - 1) / warps, warps * 32, smem, s>>>(
+      q, t, ql, tl, N, Lq, Lt, band, match, mismatch, gap, g, score, qend,
+      tend);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -259,6 +454,37 @@ int hga_sw_diag_launch(const void* q, const void* t, const void* qlen,
         c(q), c(t), c(qlen), c(tlen), N, Lq, Lt, band, match, mismatch,    \
         gap, warps, m(score), m(qend), m(tend), s));
     HGA_CASE(1) HGA_CASE(2) HGA_CASE(4) HGA_CASE(8)
+#undef HGA_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Launches K3'' on `stream`: q, t int32 (N, Lq), (N, Lt) row-major, K slots
+// a lane (1 .. 8; 32 K >= band + 1, the band already clamped to
+// max(Lq, Lt) by the caller), `warps` pairs a block (1..4), whose staged
+// windows (band_geom) must fit kSmemMax.  Returns the launch's
+// cudaGetLastError() (0 = cudaSuccess), or cudaErrorInvalidValue without
+// launching.
+int hga_sw_band_launch(const void* q, const void* t, const void* qlen,
+                       const void* tlen, int N, int Lq, int Lt, int band,
+                       int match, int mismatch, int gap, int K, int warps,
+                       void* score, void* qend, void* tend, void* stream) {
+  if (N <= 0 || Lq < 0 || Lt < 0 || band < 0 || gap > 0 || warps < 1 ||
+      warps > kDiagWarps) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto* s = static_cast<cudaStream_t>(stream);
+  auto c = [](const void* p) { return static_cast<const int32_t*>(p); };
+  auto m = [](void* p) { return static_cast<int32_t*>(p); };
+  switch (K) {
+#define HGA_CASE(k)                                                        \
+  case k:                                                                  \
+    return static_cast<int>(launch_band<k>(                                \
+        c(q), c(t), c(qlen), c(tlen), N, Lq, Lt, band, match, mismatch,    \
+        gap, warps, m(score), m(qend), m(tend), s));
+    HGA_CASE(1) HGA_CASE(2) HGA_CASE(3) HGA_CASE(4) HGA_CASE(5) HGA_CASE(6)
+    HGA_CASE(7) HGA_CASE(8)
 #undef HGA_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -303,7 +529,7 @@ int hga_sw_rows_launch(const void* qT, const void* tT, const void* qlen,
 
 // Registers per thread and local (spill) bytes per thread of one
 // instantiation: K3' at K (route 0), K3 with shared memory (route 1) or
-// with the device scratch (route 2).
+// with the device scratch (route 2), K3'' at K (route 3).
 int hga_sw_attrs(int route, int K, int* regs, int* local_bytes) {
   cudaFuncAttributes a{};
   cudaError_t e = cudaErrorInvalidValue;
@@ -317,6 +543,18 @@ int hga_sw_attrs(int route, int K, int* regs, int* local_bytes) {
       case 2: e = cudaFuncGetAttributes(&a, sw_diag_kernel<2>); break;
       case 4: e = cudaFuncGetAttributes(&a, sw_diag_kernel<4>); break;
       case 8: e = cudaFuncGetAttributes(&a, sw_diag_kernel<8>); break;
+      default: break;
+    }
+  } else if (route == 3) {
+    switch (K) {
+      case 1: e = cudaFuncGetAttributes(&a, sw_band_kernel<1>); break;
+      case 2: e = cudaFuncGetAttributes(&a, sw_band_kernel<2>); break;
+      case 3: e = cudaFuncGetAttributes(&a, sw_band_kernel<3>); break;
+      case 4: e = cudaFuncGetAttributes(&a, sw_band_kernel<4>); break;
+      case 5: e = cudaFuncGetAttributes(&a, sw_band_kernel<5>); break;
+      case 6: e = cudaFuncGetAttributes(&a, sw_band_kernel<6>); break;
+      case 7: e = cudaFuncGetAttributes(&a, sw_band_kernel<7>); break;
+      case 8: e = cudaFuncGetAttributes(&a, sw_band_kernel<8>); break;
       default: break;
     }
   }

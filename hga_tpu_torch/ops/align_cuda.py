@@ -1,36 +1,43 @@
-"""L3 — the hand-written CUDA banded Smith-Waterman kernels (K3', K3) and
-their wrapper.
+"""L3 — the hand-written CUDA banded Smith-Waterman kernels (K3', K3'',
+K3) and their wrapper.
 
-``banded_sw_batch_cuda`` launches one of two kernels of ``csrc/sw.cu``,
-both replacing the Pallas kernel ``_sw_kernel``
+``banded_sw_batch_cuda`` launches one of three kernels of ``csrc/sw.cu``,
+each replacing the Pallas kernel ``_sw_kernel``
 (hga_tpu/ops/align_pallas.py:66) — the scored refine of the short-read
 overlap route (compute_overlaps and compute_overlaps_cross with
-``overlap_refine="sw"``).  Both are bit-exact with the plain version
+``overlap_refine="sw"``).  All three are bit-exact with the plain version
 ``ops.align.banded_sw_batch``.  The route follows from the shape alone
-(``route``):
+(``route``), with the band clamped to max(Lq, Lt) first (the same cell
+set):
 
 * ``"diag"``, K3' ``sw_diag_kernel<K>``: a warp per pair along the
   anti-diagonals, lane l holding query slots l*K .. l*K + K - 1, for
   Lq <= 256 (K = 1, 2, 4, 8, the smallest with 32 K >= Lq) when the warps'
   reversed target windows (Lt + 64 K int32 each) fit 227 KB of shared
-  memory: 4 warps a block, 2 or 1 when 4 windows do not fit.  It reads the
-  caller's row-major (N, L) codes.  Counted under ``banded_sw_batch_cuda``.
+  memory: 4 warps a block, 2 or 1 when 4 windows do not fit.  Counted
+  under ``banded_sw_batch_cuda``.
+* ``"band"``, K3'' ``sw_band_kernel<K>``: a warp per pair along the
+  anti-diagonals over a window of band + 1 slots that moves with the band
+  (K = 1 .. 8, the smallest with 32 K >= band + 1), for the other shapes
+  whose band + 1 <= 256 and whose staged query and reversed target
+  (``band_geometry``) fit: 4 warps a block, 2 or 1 when 4 do not.  It
+  serves any Lq, the 300 bp refine's Lq 320 among them.  Counted under
+  ``banded_sw_batch_cuda_band``.
 * ``"rows"``, K3 ``sw_kernel<SMEM>``: a thread per pair sweeping rows, for
-  every other shape (any Lq; the row's 2 * band + 2 cells in shared memory,
-  or in a device scratch above band 907).  It reads transposed (L, N)
-  copies.  Counted under ``banded_sw_batch_cuda_rows``.
+  the rest (a band above 255, or a query too long for the band route's
+  windows); the row's 2 * band + 2 cells in shared memory, or in a device
+  scratch above band 907.  It reads transposed (L, N) copies.  Counted
+  under ``banded_sw_batch_cuda_rows``.
 
-The band is clamped to max(Lq, Lt) first (the same cell set); for K3' it
-only sets the per-slot bounds, for K3 it also sizes the row buffer.
-
-What bounds K3' on an H100: about 12 int32 operations per in-band cell, but
-32 K slot-steps per anti-diagonal whatever the band (see csrc/sw.cu and
-PERF.md).
+K3' and K3'' read the caller's row-major (N, L) codes.  What bounds them
+on an H100: about 12 int32 operations per in-band cell, but K3' sweeps
+32 K >= Lq slot-steps per anti-diagonal whatever the band, and K3''
+32 K >= band + 1 (see csrc/sw.cu and PERF.md).
 
 The wrapper checks dtype, shape and contiguity and raises on anything else.
-On a CUDA tensor it launches the route's kernel (or raises: neither route
-falls back on the other); on a CPU tensor it returns the plain version —
-only because the tensor lies on the CPU, which is how the CPU tests run the
+On a CUDA tensor it launches the route's kernel (or raises: no route falls
+back on another); on a CPU tensor it returns the plain version — only
+because the tensor lies on the CPU, which is how the CPU tests run the
 port.  The library is built at first use from ``csrc/sw.cu``
 (ops/cuda_build.py) and loaded with ctypes; each launch goes on
 ``torch.cuda.current_stream()``.
@@ -48,24 +55,37 @@ from hga_tpu_torch.ops.align import SWResult, banded_sw_batch, check_scores
 
 # launches of each route's kernel by the wrapper (reset with reset_launches())
 LAUNCHES: Dict[str, int] = {"banded_sw_batch_cuda": 0,
+                            "banded_sw_batch_cuda_band": 0,
                             "banded_sw_batch_cuda_rows": 0}
 ROUTE_COUNTER = {"diag": "banded_sw_batch_cuda",
+                 "band": "banded_sw_batch_cuda_band",
                  "rows": "banded_sw_batch_cuda_rows"}
 
 THREADS = 32               # K3 pairs a block (csrc/sw.cu kThreads)
-DIAG_WARPS = (4, 2, 1)     # K3' pairs (warps) a block, in order of choice
+DIAG_WARPS = (4, 2, 1)     # K3' and K3'' pairs (warps) a block, by choice
 DIAG_SLOTS = (1, 2, 4, 8)  # K3' query slots a lane
+BAND_SLOTS = tuple(range(1, 9))  # K3'' window slots a lane: bands <= 255
 SMEM_MAX = 232448          # shared memory a block may opt in to (227 KB)
 
 _LIB: Optional[ctypes.CDLL] = None
 
 
 class Route(NamedTuple):
-    kind: str       # "diag" (K3') or "rows" (K3)
-    K: int          # K3' slots a lane (0 for rows)
-    warps: int      # K3' warps a block (0 for rows)
+    kind: str       # "diag" (K3'), "band" (K3'') or "rows" (K3)
+    K: int          # K3' / K3'' slots a lane (0 for rows)
+    warps: int      # K3' / K3'' warps a block (0 for rows)
     smem: int       # dynamic shared memory a block, bytes (0: device scratch)
     scratch: bool   # K3 with the device-memory scratch
+
+
+class BandGeometry(NamedTuple):
+    """The staged windows of one K3'' pair (csrc/sw.cu band_geom): qs[x] =
+    q[qlo + x] for x < qwin, ts[y] = t[thi - y] for y < twin, -1 outside
+    the codes."""
+    qlo: int
+    qwin: int
+    thi: int
+    twin: int
 
 
 def reset_launches() -> None:
@@ -78,8 +98,9 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(cuda_build.build("sw"))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.hga_sw_diag_launch.argtypes = [vp] * 4 + [ci] * 9 + [vp] * 4
-        lib.hga_sw_diag_launch.restype = ci
+        for fn in (lib.hga_sw_diag_launch, lib.hga_sw_band_launch):
+            fn.argtypes = [vp] * 4 + [ci] * 9 + [vp] * 4
+            fn.restype = ci
         lib.hga_sw_rows_launch.argtypes = [vp] * 4 + [ci] * 7 + [vp] * 5
         lib.hga_sw_rows_launch.restype = ci
         lib.hga_sw_attrs.argtypes = [ci, ci, ctypes.POINTER(ci),
@@ -94,23 +115,66 @@ def slots_per_lane(Lq: int) -> Optional[int]:
     return next((K for K in DIAG_SLOTS if 32 * K >= Lq), None)
 
 
+def band_slots(band: int) -> Optional[int]:
+    """K3'' slots a lane: the smallest K with 32 K >= band + 1, None above
+    band 255."""
+    return next((K for K in BAND_SLOTS if 32 * K >= band + 1), None)
+
+
 def diag_smem_bytes(Lt: int, K: int, warps: int) -> int:
     """Shared memory of a K3' block: a reversed, padded target window of
     Lt + 64 K int32 per warp."""
     return warps * (Lt + 64 * K) * 4
 
 
-def route(Lq: int, Lt: int, band: int) -> Route:
-    """The kernel a shape takes: K3' where its slots hold the query and one
-    warp's window fits shared memory, else K3 (with the device scratch
-    when the clamped band's row buffer does not fit)."""
+def _ceil_half(x: int) -> int:
+    return -((-x) // 2)
+
+
+def band_geometry(Lq: int, Lt: int, band: int, K: int) -> BandGeometry:
+    """The K3'' windows: every slot s < 32 K of every anti-diagonal d from 1
+    to dmax + 1 (dmax = Lq + min(Lt, Lq + band), the last any pair can
+    reach; the kernel steps in pairs) reads query code i0(d) + s - 1 and
+    target code f(d) - s - 1, i0(d) = ceil((d - band) / 2), f(d) =
+    d - i0(d), inside them."""
+    S = 32 * K
+    dmax = max(Lq + min(Lt, Lq + band), 2)
+    i1, ie = _ceil_half(1 - band), _ceil_half(dmax + 1 - band)
+    qlo = i1 - 1
+    thi = (dmax + 1 - ie) - 1
+    return BandGeometry(qlo, ie + S - 2 - qlo + 1, thi,
+                        thi - ((1 - i1) - S) + 1)
+
+
+def band_smem_bytes(Lq: int, Lt: int, band: int, K: int, warps: int) -> int:
+    """Shared memory of a K3'' block: each warp's staged query and reversed
+    target windows, int32."""
+    g = band_geometry(Lq, Lt, band, K)
+    return warps * (g.qwin + g.twin) * 4
+
+
+def diag_route(Lq: int, Lt: int, band: int) -> Optional[Route]:
+    """K3' where its slots hold the query and a warp's window fits."""
     K = slots_per_lane(Lq)
     if K is not None:
         for warps in DIAG_WARPS:
             smem = diag_smem_bytes(Lt, K, warps)
             if smem <= SMEM_MAX:
                 return Route("diag", K, warps, smem, False)
-    return rows_route(Lq, Lt, band)
+    return None
+
+
+def band_route(Lq: int, Lt: int, band: int) -> Optional[Route]:
+    """K3'' where the clamped band's window has at most 256 slots and a
+    warp's staged codes fit."""
+    band = min(band, max(Lq, Lt))
+    K = band_slots(band)
+    if K is not None:
+        for warps in DIAG_WARPS:
+            smem = band_smem_bytes(Lq, Lt, band, K, warps)
+            if smem <= SMEM_MAX:
+                return Route("band", K, warps, smem, False)
+    return None
 
 
 def rows_route(Lq: int, Lt: int, band: int) -> Route:
@@ -122,11 +186,20 @@ def rows_route(Lq: int, Lt: int, band: int) -> Route:
     return Route("rows", 0, 0, 0, True)
 
 
+_ROUTES = {"diag": diag_route, "band": band_route, "rows": rows_route}
+
+
+def route(Lq: int, Lt: int, band: int) -> Route:
+    """The kernel a shape takes: K3', else K3'', else K3."""
+    return (diag_route(Lq, Lt, band) or band_route(Lq, Lt, band)
+            or rows_route(Lq, Lt, band))
+
+
 def kernel_attrs(r: Route) -> Tuple[int, int]:
     """(registers per thread, local bytes per thread) of the route's
     instantiation."""
     regs, local = ctypes.c_int(), ctypes.c_int()
-    kind = 0 if r.kind == "diag" else (2 if r.scratch else 1)
+    kind = {"diag": 0, "band": 3}.get(r.kind, 2 if r.scratch else 1)
     err = _lib().hga_sw_attrs(kind, r.K, ctypes.byref(regs),
                               ctypes.byref(local))
     if err:
@@ -152,18 +225,22 @@ def check_operands(q, t, qlen, tlen) -> None:
                          f"tlen {tuple(tlen.shape)}")
 
 
-def kernel_operands(q, t, qlen, tlen, band: int, rows: bool = False):
-    """The kernel's device operands for one batch: the route (K3 when
-    `rows`, which only timing comparisons ask for), the codes (as given for
-    K3', transposed (L, N) for K3), lengths, the band clamped to
-    max(Lq, Lt), K3's device scratch (else None) and fresh outputs."""
+def kernel_operands(q, t, qlen, tlen, band: int, kind: Optional[str] = None):
+    """The kernel's device operands for one batch: the route (the shape's
+    own, or the kernel `kind` names, which only timing comparisons ask
+    for), the codes (as given for K3' and K3'', transposed (L, N) for K3),
+    lengths, the band clamped to max(Lq, Lt), K3's device scratch (else
+    None) and fresh outputs."""
     N, Lq = q.shape
     Lt = t.shape[1]
     band = min(band, max(Lq, Lt))
-    r = rows_route(Lq, Lt, band) if rows else route(Lq, Lt, band)
+    r = route(Lq, Lt, band) if kind is None else _ROUTES[kind](Lq, Lt, band)
+    if r is None:
+        raise ValueError(f"the {kind} route does not take Lq {Lq}, Lt {Lt}, "
+                         f"band {band}")
     outs = tuple(torch.empty(N, dtype=torch.int32, device=q.device)
                  for _ in range(3))
-    if r.kind == "diag":
+    if r.kind != "rows":
         return r, q, t, qlen, tlen, band, None, outs
     scratch = None
     if r.scratch:
@@ -177,15 +254,17 @@ def run_kernel(r: Route, q, t, qlen, tlen, band, scratch, outs, match=2,
                mismatch=-4, gap=-3) -> None:
     """Launch the route's kernel on the current stream (operands as
     kernel_operands returns them)."""
-    if r.kind == "diag":
+    if r.kind != "rows":
         (N, Lq), Lt = q.shape, t.shape[1]
     else:
         (Lq, N), Lt = q.shape, t.shape[0]
     score, qend, tend = outs
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if r.kind == "diag":
-            err = _lib().hga_sw_diag_launch(
+        if r.kind != "rows":
+            launch = (_lib().hga_sw_diag_launch if r.kind == "diag"
+                      else _lib().hga_sw_band_launch)
+            err = launch(
                 q.data_ptr(), t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
                 N, Lq, Lt, band, match, mismatch, gap, r.K, r.warps,
                 score.data_ptr(), qend.data_ptr(), tend.data_ptr(), stream)
@@ -203,7 +282,7 @@ def run_kernel(r: Route, q, t, qlen, tlen, band, scratch, outs, match=2,
 def banded_sw_batch_cuda(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
                          tlen: torch.Tensor, band: int = 64, match: int = 2,
                          mismatch: int = -4, gap: int = -3) -> SWResult:
-    """K3' or K3 by shape: batched banded local SW, score + end cell;
+    """K3', K3'' or K3 by shape: batched banded local SW, score + end cell;
     bit-exact with ops.align.banded_sw_batch.  q, t int32 (N, Lq), (N, Lt),
     lengths int32 (N,), on one CUDA device (CPU tensors: the plain
     version)."""

@@ -332,8 +332,10 @@ def test_sw_plain_matches_jax_at_slot_boundaries(Lq, band):
     for f in SW_FIELDS:
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(ref, f)), err_msg=f)
-    # the route the card takes at this shape
-    assert TAC.route(Lq, Lt, band).kind == ("diag" if Lq <= 256 else "rows")
+    # the route the card takes at this shape: K3'' above Lq 256 while the
+    # clamped band + 1 <= 256, K3 past that (Lq 257, band >= Lq)
+    wide = "band" if min(band, max(Lq, Lt)) < 256 else "rows"
+    assert TAC.route(Lq, Lt, band).kind == ("diag" if Lq <= 256 else wide)
 
 
 def test_sw_routes_and_geometry():
@@ -345,14 +347,18 @@ def test_sw_routes_and_geometry():
         r = TAC.route(112, 184, band)
         assert r == TAC.Route("diag", 4, 4, 4 * (184 + 256) * 4, False)
     assert TAC.diag_smem_bytes(184, 4, 4) == 7040
-    # long targets: fewer warps a block, then the row route
+    # long targets: fewer warps a block, then the band route (K3''), whose
+    # windows do not grow with the target
     assert TAC.route(100, 28000, 64)[:3] == ("diag", 4, 2)
     assert TAC.route(100, 57000, 64)[:3] == ("diag", 4, 1)
-    assert TAC.route(100, 58000, 64).kind == "rows"
-    # Lq above 256 takes the row route, its buffer in shared memory up to
-    # band 907, then the device scratch
-    assert TAC.route(257, 300, 64) == TAC.Route("rows", 0, 0,
-                                                (2 * 64 + 2) * 32 * 4, False)
+    assert TAC.route(100, 58000, 64)[:2] == ("band", 3)
+    # Lq above 256 takes the band route up to a clamped band of 255, then
+    # the row route, its buffer in shared memory up to band 907, then the
+    # device scratch
+    assert TAC.route(257, 300, 64)[:2] == ("band", 3)
+    assert TAC.route(257, 300, 256) == TAC.Route("rows", 0, 0,
+                                                 (2 * 256 + 2) * 32 * 4,
+                                                 False)
     assert TAC.route(1000, 1000, 907).scratch is False
     assert TAC.route(1000, 1000, 908).scratch is True
     assert TAC.route(300, 200, 5000).smem == (2 * 300 + 2) * 32 * 4
@@ -361,9 +367,10 @@ def test_sw_routes_and_geometry():
     n = torch.ones(4, dtype=torch.int32)
     r, qa, ta, *_, band, scratch, outs = TAC.kernel_operands(q, t, n, n, 500)
     assert r.kind == "diag" and qa is q and ta is t and band == 184
-    r, qa, ta, *_ = TAC.kernel_operands(q, t, n, n, 64, rows=True)
+    r, qa, ta, *_ = TAC.kernel_operands(q, t, n, n, 64, kind="rows")
     assert r.kind == "rows" and qa.shape == (112, 4) and ta.shape == (184, 4)
     assert TAC.ROUTE_COUNTER == {"diag": "banded_sw_batch_cuda",
+                                 "band": "banded_sw_batch_cuda_band",
                                  "rows": "banded_sw_batch_cuda_rows"}
     assert set(TAC.LAUNCHES) == set(TAC.ROUTE_COUNTER.values())
 

@@ -73,9 +73,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (K1''s shared-target counter must move); --phase10 picks the genomes
      (repeats, circular, repeats+circular)
 
+  b. the native FASTQ reader: phase 4's reads written as FASTQ (the long
+     reads also as .fastq.gz), load_reads on the native route against its
+     Python reader (array-equal; seconds and reads/s); the scored-SW
+     correction engine (corr_engine="sw", plain torch): correct_long_reads
+     on an 8 kb genome and the 20 kb hybrid pipeline on cuda and on cpu,
+     byte-identical (K1' must move, K2' must not); `hga-torch bench --what
+     correction --pairs 4096` (both engines; K2' must move); `hga-torch
+     correct --profile DIR` (the trace must hold K2''s kernel events; the
+     device busy share of the traced window); `count` and its spectrum.png
+
 Phase 5 also runs config 3 (100 bp and 300 bp reads) and the
 short-read-only pipeline (8 kb genome) on cuda and on cpu, byte-identical.
-Phases run in the order 0 1 2 3 7 4 8 a 5 6 9; phase 6 also times K2' at
+Phases run in the order 0 1 2 3 7 4 8 a 5 b 6 9; phase 6 also times K2' at
 the arbitration shape and K1''s shared-target mode at segment_identity's
 shape.
 
@@ -943,6 +953,273 @@ def phase_cpu_equal(workdir: str, AC):
                  ("spectrum.npz", "candidates.npz", "overlaps.npz"))
 
 
+def write_reads(path: str, pr) -> int:
+    """Write a PackedReads set as FASTQ (quality 'I'), its bases decoded
+    from the packed codes; returns the file's bytes."""
+    import numpy as np
+
+    from hga_tpu_torch.io.encode import unpack_codes
+    from hga_tpu_torch.io.fastq import write_fastq
+
+    bases = np.frombuffer(b"ACGT", np.uint8)[unpack_codes(pr.packed)]
+    lens = pr.length.tolist()
+    write_fastq(path, ((pr.names[i], bases[i, :n].tobytes().decode(),
+                        "I" * n) for i, n in enumerate(lens)))
+    return os.path.getsize(path)
+
+
+def same_reads(label: str, a, b) -> None:
+    """Fail unless two PackedReads hold equal arrays, names and pad."""
+    import numpy as np
+
+    for f in ("packed", "bad", "length", "category"):
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            fail(f"{label}: {f} differs")
+    if a.names != b.names or a.pad_len != b.pad_len:
+        fail(f"{label}: names or pad_len differ")
+
+
+def phase_native(genome_len: int, workdir: str):
+    """Phase b, the native reader: phase 4's reads (simulated with its
+    seed) written as FASTQ, the long reads once more as .fastq.gz, loaded
+    by load_reads on the native route and by its Python reader; the routes
+    array-equal (and equal to the simulated reads); seconds and reads/s."""
+    import gzip
+
+    from hga_tpu_torch.io import native as NV
+    from hga_tpu_torch.models import pipeline as PL
+
+    log("phase b: the native FASTQ reader against the Python reader, "
+        f"phase 4's reads ({genome_len} bp genome)")
+    _, pr_s, pr_l = simulate(genome_len, 42)
+    t0 = time.perf_counter()
+    if not NV.available():
+        fail(f"the native reader did not build: {NV.UNAVAILABLE}")
+    build_s = time.perf_counter() - t0
+    files = {k: os.path.join(workdir, f"pb_{k}") for k in
+             ("short.fastq", "long.fastq", "long.fastq.gz")}
+    t0 = time.perf_counter()
+    nbytes = write_reads(files["short.fastq"], pr_s) \
+        + write_reads(files["long.fastq"], pr_l)
+    with open(files["long.fastq"], "rb") as src, \
+            gzip.open(files["long.fastq.gz"], "wb", compresslevel=6) as dst:
+        shutil.copyfileobj(src, dst)
+    write_s = time.perf_counter() - t0
+    pads = (pr_s.pad_len, pr_l.pad_len)
+    n = pr_s.n_reads + pr_l.n_reads
+    out = dict(short_reads=pr_s.n_reads, long_reads=pr_l.n_reads,
+               fastq_mb=round(nbytes / 1e6, 3),
+               gz_mb=round(os.path.getsize(files["long.fastq.gz"]) / 1e6, 3),
+               build_s=round(build_s, 3), write_s=round(write_s, 3))
+    t0 = time.perf_counter()
+    nat = PL.load_reads([files["short.fastq"]], [files["long.fastq"]], *pads)
+    out["native_s"] = time.perf_counter() - t0
+    if PL.LAST_LOAD.get("route") != "native":
+        fail(f"load_reads took {PL.LAST_LOAD}, not the native route")
+    t0 = time.perf_counter()
+    py = PL._load_python([files["short.fastq"]], [files["long.fastq"]],
+                         *pads, False)
+    out["python_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, gz = PL.load_reads([], [files["long.fastq.gz"]], *pads)
+    out["native_gz_long_s"] = time.perf_counter() - t0
+    for label, a, b in (("short, native vs python", nat[0], py[0]),
+                        ("long, native vs python", nat[1], py[1]),
+                        ("long, gzip vs plain", gz, nat[1]),
+                        ("short, native vs simulated", nat[0], pr_s),
+                        ("long, native vs simulated", nat[1], pr_l)):
+        same_reads(label, a, b)
+    out.update(native_reads_per_s=n / out["native_s"],
+               python_reads_per_s=n / out["python_s"],
+               native_gz_long_reads_per_s=pr_l.n_reads
+               / out["native_gz_long_s"])
+    log("  ingest: " + json.dumps(out))
+    return out
+
+
+def phase_sw_engine(workdir: str, MC, AC):
+    """Phase b, the scored-SW correction engine (corr_engine="sw", plain
+    torch): correct_long_reads on an 8 kb genome, then phase 5's 20 kb
+    hybrid pipeline, each on cuda and on cpu, byte-identical; K1' (long
+    overlaps) must move on the card and K2' must not.  Returns the
+    pipeline's launches on the card."""
+    import torch
+
+    from hga_tpu_torch.models import correction as CR
+    from hga_tpu_torch.models.pipeline import run_pipeline
+
+    cfg = judged_cfg().replace(corr_engine="sw")
+    k2v = ("myers_votes_cuda", "myers_votes_cuda_scratch",
+           "myers_batch_planes_cuda")
+    log("phase b: corr_engine='sw', correct_long_reads on an 8 kb genome, "
+        "cuda and cpu")
+    _, pr_s, pr_l = simulate(8_000, seed=8)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        MC.reset_launches()
+        t0 = time.perf_counter()
+        outs[dev] = CR.correct_long_reads(pr_s, pr_l, cfg, device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        log(f"  {dev}: {outs[dev].n_reads} reads in "
+            f"{time.perf_counter() - t0:.1f} s, "
+            f"{CR.LAST_TIMINGS.get('n_batches')} batches, loop "
+            f"{CR.LAST_TIMINGS.get('loop_s')} s")
+        if any(MC.LAUNCHES[k] for k in k2v):
+            fail(f"the sw engine launched a Myers planes kernel on {dev}: "
+                 f"{json.dumps(MC.LAUNCHES)}")
+    same_reads("correct_long_reads(corr_engine='sw'), cuda vs cpu",
+               outs["cuda"], outs["cpu"])
+    log("  ok: corrected reads equal on cuda and cpu")
+
+    log("phase b: corr_engine='sw', the hybrid pipeline, 20 kb genome")
+    _, pr_s, pr_l = simulate(20_000, seed=7)
+    dirs, launches = {}, {}
+    for dev in ("cuda", "cpu"):
+        MC.reset_launches()
+        AC.reset_launches()
+        t0 = time.perf_counter()
+        d = dirs[dev] = os.path.join(workdir, f"pb_sw_{dev}")
+        res = run_pipeline(pr_s, pr_l, cfg, d, device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(MC.LAUNCHES, **AC.LAUNCHES)
+        stages = {k: v["seconds"] for k, v in res.stats["stages"].items()}
+        log(f"  {dev}: {len(res.polished)} contigs in "
+            f"{time.perf_counter() - t0:.1f} s; stages {json.dumps(stages)}"
+            f"; correction {json.dumps(res.stats.get('correction_detail'))}")
+        if not res.polished:
+            fail(f"the sw-engine pipeline on {dev} produced no contig")
+    log(f"  launches on the card: {json.dumps(launches)}")
+    if launches["myers_batch_cuda"] <= 0:
+        fail("K1' (myers_batch_cuda) was never launched by the sw-engine "
+             "pipeline's long overlaps")
+    if any(launches[k] for k in k2v):
+        fail("the sw-engine pipeline launched K2'/K2")
+    same_outputs(dirs, ("contigs.fasta", "assembly.gfa", "arbitrated.fasta",
+                        "polished.fasta"),
+                 ("spectrum.npz", "corrected.npz", "overlaps.npz"))
+    return launches
+
+
+def bench_correction_path(cli, MC):
+    """`hga-torch bench --what correction --pairs 4096` through cli.main:
+    both engines (K2' for myers, whose counter must move)."""
+    buf = io.StringIO()
+    MC.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench", "--what", "correction", "--pairs", "4096"])
+    res = json.loads(buf.getvalue().strip().splitlines()[-1])
+    launches = dict(MC.LAUNCHES)
+    log(f"  bench correction ({time.perf_counter() - t0:.1f} s): "
+        f"{json.dumps(res)}")
+    if rc != 0 or set(res) != {"myers", "sw"}:
+        fail(f"bench --what correction: rc {rc}, engines {sorted(res)}")
+    if res["myers"]["impl"] != "cuda_k2v" or launches["myers_votes_cuda"] <= 0:
+        fail("bench --what correction did not run K2' for the myers engine")
+    gap = res["sw"]["seconds"] / res["myers"]["seconds"]
+    log(f"  the sw engine takes {gap:.1f}x K2''s time a batch")
+    return res, launches
+
+
+def trace_summary(path: str):
+    """Kernel events of a torch.profiler Chrome trace: their names, the
+    union of their intervals over the traced window (the device busy
+    share), and the window."""
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    kern = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                   e.get("name", "")) for e in events
+                  if e.get("cat") == "kernel")
+    lo = min(float(e["ts"]) for e in events)
+    hi = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    busy, end = 0.0, lo
+    for a, b, _ in kern:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict = {}
+    for a, b, name in kern:
+        by_name[name] = by_name.get(name, 0.0) + b - a
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(window_ms=(hi - lo) / 1e3, kernel_events=len(kern),
+                k2v_events=sum(1 for *_, n in kern
+                               if "myers_votes_kernel" in n),
+                busy_ms=busy / 1e3, busy_share=busy / (hi - lo) if hi > lo
+                else 0.0, top_kernels_ms={n[:80]: v / 1e3 for n, v in top},
+                categories=sorted({str(e.get("cat")) for e in events}))
+
+
+def phase_profile(cli, workdir: str, MC):
+    """Phase b: `hga-torch correct --profile DIR` on an 8 kb genome's
+    reads (FASTQ): the trace must hold K2''s kernel events
+    (myers_votes_kernel, launched from its ctypes library); the device
+    busy share of the traced window.  Then `count` and its spectrum.png."""
+    _, pr_s, pr_l = simulate(8_000, seed=8)
+    s = os.path.join(workdir, "pb_prof_short.fastq")
+    lr = os.path.join(workdir, "pb_prof_long.fastq")
+    write_reads(s, pr_s)
+    write_reads(lr, pr_l)
+    prof = os.path.join(workdir, "pb_prof")
+    MC.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["correct", "--short", s, "--long", lr, "-k", "15",
+                       "-w", "5", "--band", "64", "-o",
+                       os.path.join(workdir, "pb_corr"), "--profile", prof])
+    launches = dict(MC.LAUNCHES)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"hga-torch correct --profile: rc {rc}")
+    summ = trace_summary(os.path.join(prof, "trace.json"))
+    log(f"  correct --profile ({wall:.1f} s, K2' launches "
+        f"{launches['myers_votes_cuda']}): " + json.dumps(summ))
+    if not summ["k2v_events"]:
+        fail("the profiler trace holds no kernel event of K2' "
+             "(myers_votes_kernel)")
+    log(f"  device busy share of the traced window: "
+        f"{summ['busy_share']:.4f}")
+    cnt = os.path.join(workdir, "pb_count")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["count", "--short", s, "-k", "15", "-o", cnt])
+    try:
+        import matplotlib  # noqa: F401
+        mpl = True
+    except ImportError:
+        mpl = False
+    png = os.path.exists(os.path.join(cnt, "spectrum.png"))
+    log(f"  count: rc {rc}, matplotlib importable {mpl}, spectrum.png "
+        f"written {png}")
+    if rc != 0 or png != mpl:
+        fail("count did not write spectrum.png as matplotlib allows")
+    return summ, launches
+
+
+def phase_b(genome_len: int, workdir: str, MC, AC):
+    """Phase b: the native reader, the sw correction engine, bench
+    --what correction, --profile and spectrum.png.  Returns {path:
+    launches}."""
+    from hga_tpu_torch import cli
+
+    tb = time.perf_counter()
+    phase_native(genome_len, workdir)
+    log(f"  native reader: {time.perf_counter() - tb:.1f} s")
+    t0 = time.perf_counter()
+    paths = {"phase b sw-engine pipeline": phase_sw_engine(workdir, MC, AC)}
+    log(f"  sw engine: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _, paths["phase b bench correction"] = bench_correction_path(cli, MC)
+    log(f"  bench: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _, paths["phase b correct --profile"] = phase_profile(cli, workdir, MC)
+    log(f"  profile and count: {time.perf_counter() - t0:.1f} s")
+    log(f"  phase b: {time.perf_counter() - tb:.1f} s")
+    return paths
+
+
 def read_loci(names):
     """Truth loci from simulated read names (utils/sim.py):
     sr_{i}_{start}_{strand} and lr_{i}_{start}_{strand}_{len}."""
@@ -1674,8 +1951,9 @@ def main() -> int:
     ap.add_argument("--genome-len", type=int, default=1_000_000,
                     help="genome length of phases 4, 8 and 10 (default "
                          "1,000,000 bp)")
-    ap.add_argument("--phases", default="0123456789a",
-                    help="phases to run, 'a' for phase 10 (default all)")
+    ap.add_argument("--phases", default="0123456789ab",
+                    help="phases to run, 'a' for phase 10 and 'b' for "
+                         "phase b (default all)")
     ap.add_argument("--phase10", default="repeats+circular",
                     help="phase 10's genomes, comma-separated among "
                          + ", ".join(PHASE10_GENOMES))
@@ -1787,6 +2065,9 @@ def main() -> int:
         if "5" in ph:
             phase_cpu_equal(workdir, AC)
             done("5")
+        if "b" in ph:
+            paths.update(phase_b(args.genome_len, workdir, MC, AC))
+            done("b")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -16,10 +16,13 @@ versions):
   simulate  — synthetic genome + hybrid read set generator
   bench     — one JSON line of GCUPS (``--what sw`` K3, ``myers`` K1) or
               reads/s (``count``, ``pipeline``) on the device, with the
-              H100's roofline (utils/benchmarks.py)
+              H100's roofline, or both correction engines' aln/s
+              (``correction``) (utils/benchmarks.py)
 
 ``overlap_refine="sw"`` (the scored Smith-Waterman refine) is set through
-``--config``, as in the reference.
+``--config``, as in the reference.  ``--profile DIR`` on any subcommand
+writes a torch.profiler Chrome trace of the command to ``DIR/trace.json``
+(CPU activity, and the card's kernels when ``--device`` is ``cuda``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,13 @@ import sys
 from typing import List, Optional
 
 from hga_tpu_torch.config import AssemblerConfig
+
+log = logging.getLogger(__name__)
+
+
+def _add_profile(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--profile", metavar="DIR",
+                   help="write a torch.profiler trace to DIR/trace.json")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -66,6 +76,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
+    _add_profile(p)
     p.add_argument("-v", "--verbose", action="store_true")
 
 
@@ -114,10 +125,35 @@ def cmd_count(args) -> int:
     with open(os.path.join(args.outdir, "spectrum_hist.tsv"), "w") as fh:
         for c, n in enumerate(res.hist):
             fh.write(f"{c}\t{int(n)}\n")
+    _plot_spectrum(res, os.path.join(args.outdir, "spectrum.png"))
     print(json.dumps({"distinct_kmers": res.n_distinct, "k": res.k,
                       "solid_threshold": res.threshold,
                       "solid_kmers": int((res.count >= res.threshold).sum())}))
     return 0
+
+
+def _plot_spectrum(res, path: str) -> None:
+    """The spectrum as a log-y bar plot with the solid threshold marked
+    (the reference's plot); best-effort: skipped without matplotlib."""
+    try:
+        import matplotlib
+    except ImportError:
+        log.warning("matplotlib is not installed: no %s", path)
+        return
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(7, 4))
+    ax.bar(range(1, len(res.hist)), res.hist[1:], width=1.0)
+    ax.axvline(res.threshold, color="red", ls="--",
+               label=f"solid threshold {res.threshold}")
+    ax.set_xlabel(f"{res.k}-mer count")
+    ax.set_ylabel("# distinct k-mers")
+    ax.set_yscale("log")
+    ax.legend()
+    fig.tight_layout()
+    fig.savefig(path, dpi=120)
+    plt.close(fig)
 
 
 def cmd_seeds(args) -> int:
@@ -318,6 +354,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("-k", type=int, default=21)
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
+    _add_profile(p)
     p.add_argument("-v", "--verbose", action="store_true")
     p.set_defaults(fn=cmd_eval)
 
@@ -332,6 +369,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--fastq", action="store_true",
                    help="write short reads as FASTQ with per-base "
                         "qualities (enables --use-quality downstream)")
+    _add_profile(p)
     p.add_argument("-v", "--verbose", action="store_true")
     p.set_defaults(fn=cmd_simulate)
 
@@ -342,13 +380,37 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--pairs", type=int, default=4096)
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
+    _add_profile(p)
     p.add_argument("-v", "--verbose", action="store_true")
     p.set_defaults(fn=cmd_bench)
     args = ap.parse_args(argv)
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    if args.profile:
+        return _profiled(args)
     return args.fn(args)
+
+
+def _profiled(args) -> int:
+    """Run the command under torch.profiler and write its Chrome trace to
+    DIR/trace.json, also when the command raises (the reference writes a
+    jax.profiler trace to DIR)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.device(getattr(args, "device", "cpu")).type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(args.profile, exist_ok=True)
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        return args.fn(args)
+    finally:
+        if cuda and torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
 
 
 if __name__ == "__main__":

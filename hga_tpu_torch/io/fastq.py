@@ -7,8 +7,9 @@ tags each read with the index of its source file (category: by convention
 streaming fashion so arbitrarily large files never need to fit in memory as
 python strings.
 
-A copy of ``hga_tpu.io.fastq``; the native C++ packer of the JAX package is
-not part of the PyTorch port yet, so this pure-Python reader is the only one.
+A copy of ``hga_tpu.io.fastq``.  It defines the semantics that the native
+C++ packer (io/native.py) reproduces bit for bit; models/pipeline.load_reads
+takes the native route when the pads are known up front.
 
 Quality-score policy: FASTQ quality strings are parsed (SeqRecord.quality)
 and by DEFAULT not propagated into PackedReads — consensus voting and

@@ -1,17 +1,21 @@
 """Stage 5 (judged config 5) — hybrid correction + consensus polishing.
 
-PyTorch port of the Myers engine of ``hga_tpu.models.correction``: short
-reads are anchored to each backbone (long read, or contig during polishing)
-through the sorted seed index (models/overlap_long), each batch of (short
-read x backbone window) alignments runs through the Myers planes DP, the
-plane-based lockstep traceback turns the planes into column/insertion votes,
-and one consensus call rewrites every backbone column.  Batch prep (read
-gather, orientation, in-backbone segment clip, target window gather) runs
-on the device from the resident packed reads, so a batch ships four id
-vectors.  On the card one launch of K2' (ops/myers_cuda.myers_votes_cuda)
-runs a batch's Myers DP with its planes in shared memory, the identity
-gate, the plane traceback and the vote atomics; on the CPU its plain
-version does (ops/pileup).
+PyTorch port of ``hga_tpu.models.correction``: short reads are anchored to
+each backbone (long read, or contig during polishing) through the sorted
+seed index (models/overlap_long), each batch of (short read x backbone
+window) alignments runs through the engine's DP and traceback, whose
+column/insertion votes land in one flat buffer, and one consensus call
+rewrites every backbone column.  Batch prep (read gather, orientation,
+in-backbone segment clip, target window gather) runs on the device from the
+resident packed reads, so a batch ships four id vectors.
+
+Engines (cfg.corr_engine): "myers", the production engine: on the card one
+launch of K2' (ops/myers_cuda.myers_votes_cuda) runs a batch's Myers DP
+with its planes in shared memory, the identity gate, the plane traceback
+and the vote atomics; on the CPU its plain version does (ops/pileup).
+"sw": the scored dirs wavefront DP (ops/align.banded_sw_batch_dirs), the
+gate score >= min_score and the dirs traceback (ops/pileup), plain torch
+on either device, as the reference's engine is plain XLA.
 
 Consensus covers substitutions, deletions (symbol 4) and up-to-3-base
 insertions per column, restored when a majority of covering reads agrees.
@@ -32,6 +36,7 @@ from hga_tpu_torch.io.encode import (PackedReads, decode_bases, pack_reads,
 from hga_tpu_torch.models.overlap import SENT_BASE
 from hga_tpu_torch.models.seeding import drop_unsolid, extract_seed_entries
 from hga_tpu_torch.ops import pileup as PU
+from hga_tpu_torch.ops.align import banded_sw_batch_dirs
 from hga_tpu_torch.ops.kmer import unpack_bases, words_to_tensor
 from hga_tpu_torch.ops.myers_cuda import myers_votes_cuda
 from hga_tpu_torch.ops.pairs import candidate_pairs
@@ -181,10 +186,28 @@ def _prep(band: int, Lq: int, Wt: int, r_packed, r_len, r_qwp, b_packed,
 
 
 def _votes_into(merged, cfg: AssemblerConfig, size_v: int, lpad: int,
-                q, t, ql, tl, bb, off, lb, qw=None):
-    """One batch: Myers planes DP -> gate -> plane traceback -> votes,
-    through K2''s wrapper (the kernel for CUDA tensors, its plain version
-    for CPU tensors)."""
+                q, t, ql, tl, bb, off, lb, qw=None, *,
+                min_score: Optional[int] = None):
+    """One batch's votes into `merged`, by cfg.corr_engine.  "myers": the
+    Myers planes DP -> identity gate -> plane traceback -> votes, through
+    K2''s wrapper (the kernel for CUDA tensors, its plain version for CPU
+    tensors).  "sw": the scored dirs DP (ops/align.banded_sw_batch_dirs)
+    -> gate score >= min_score (default cfg.min_overlap_score) -> dirs
+    traceback -> votes (ops/pileup), plain torch on either device."""
+    if cfg.corr_engine == "sw":
+        if qw is not None:
+            raise ValueError(
+                "use_quality requires corr_engine='myers' (the production "
+                "engine); the scored-dirs engine is unweighted")
+        if min_score is None:
+            min_score = cfg.min_overlap_score
+        res, dirs = banded_sw_batch_dirs(q, t, ql, tl, band=cfg.band,
+                                         match=cfg.match,
+                                         mismatch=cfg.mismatch, gap=cfg.gap)
+        qend = torch.where(res.score >= min_score, res.qend, 0)
+        return PU.accumulate_backbone_votes_merged(
+            merged, dirs, qend, res.tend, q, bb, off, lb, size_v=size_v,
+            lpad=lpad, band=cfg.band, Lt=t.shape[1], ins_slots=INS_SLOTS)
     # path bound: gated rows walk <= qlen + dist <= Lq * (2 - id) steps
     Lq_ = q.shape[1]
     steps = Lq_ + int((1.0 - cfg.min_identity) * Lq_) + 2
@@ -199,27 +222,27 @@ def consensus_backbones(
     reads: PackedReads,
     cfg: AssemblerConfig,
     batch_pairs: Optional[int] = None,
+    min_score: Optional[int] = None,
     device="cuda",
     solid=None,
     seed_index=None,
     cands=None,
 ) -> List[str]:
     """Correct every backbone by short-read pileup consensus (device DP,
-    traceback and votes in one K2' launch a batch); returns corrected
-    sequences.
+    traceback and votes: one K2' launch a batch on the Myers engine);
+    returns corrected sequences.
 
-    cands: optional pre-computed (a, b, rel, diag) candidate arrays with b
-    indexing `backbones`.
+    min_score: the sw engine's alignment score gate (default
+    cfg.min_overlap_score).  cands: optional pre-computed (a, b, rel, diag)
+    candidate arrays with b indexing `backbones`.
     """
-    if cfg.corr_engine != "myers":
-        raise NotImplementedError(
-            "corr_engine='sw' (the scored dirs DP) is not ported yet "
-            "(ROADMAP Queue 1 item 7)")
     dev = resolve_device(device)
     if batch_pairs is None:
         batch_pairs = cfg.corr_batch_pairs
     nb = backbones.n_reads
     Lpad = backbones.pad_len
+    if min_score is None:
+        min_score = cfg.min_overlap_score
 
     t_cand0 = time.perf_counter()
     if cands is not None:
@@ -282,7 +305,7 @@ def consensus_backbones(
             dd = np.pad(dd, (0, padn))
         args = _prep(cfg.band, Lq, Wt, r_dev, rlen_dev, rqw_dev, b_dev,
                      blen_dev, i64(aa), i64(bb), i64(rr), i64(dd), nbatch)
-        _votes_into(merged, cfg, size_v, Lpad, *args)
+        _votes_into(merged, cfg, size_v, Lpad, *args, min_score=min_score)
         bytes_up += 4 * 4 * P
         t_prep += time.perf_counter() - t_b0
 
@@ -364,8 +387,8 @@ def correct_long_reads(pr_short: PackedReads, pr_long: PackedReads,
     cfg.corr_passes > 1 re-runs the whole consensus over the once-corrected
     reads.  Backbones are LENGTH-BUCKETED into groups whose (count x
     group_pad) vote footprint stays under max_cols, each corrected at its
-    own pad.  Accepts consensus_backbones kwargs (device=..., solid=...,
-    seed_index=...).
+    own pad.  Accepts consensus_backbones kwargs (device=..., min_score=...,
+    solid=..., seed_index=...).
     """
     out = pr_long
     totals: dict = {}

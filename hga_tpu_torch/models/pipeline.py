@@ -58,16 +58,37 @@ def _round16(n: int) -> int:
     return max(16, ((n + 15) // 16) * 16)
 
 
-def load_reads(
-    short_paths: Sequence[str] = (),
-    long_paths: Sequence[str] = (),
-    short_pad: Optional[int] = None,
-    long_pad: Optional[int] = None,
-    keep_quality: bool = False,
-) -> Tuple[Optional[PackedReads], Optional[PackedReads]]:
-    """Stream FASTQ/FASTA files into packed short/long read batches (the
-    pure-Python reader; two passes over lengths).  keep_quality=True keeps
-    the FASTQ quality plane (PackedReads.qual)."""
+# which route the last load_reads took: route "native" or "python", and
+# why the Python reader ran
+LAST_LOAD: dict = {}
+
+
+def _load_native(paths: Sequence[str], pad: int, category: int
+                 ) -> Optional[PackedReads]:
+    """Stream files through the C++ parser/packer (io/native)."""
+    from hga_tpu_torch.io import native as NV
+
+    packed, bad, lengths, names = [], [], [], []
+    for p in paths:
+        for pk, bd, ln, nm in NV.read_packed_batches(p, pad):
+            packed.append(pk)
+            bad.append(bd)
+            lengths.append(ln)
+            names.extend(nm)
+    if not packed:
+        return None
+    n = sum(x.shape[0] for x in packed)
+    return PackedReads(
+        packed=np.concatenate(packed), bad=np.concatenate(bad),
+        length=np.concatenate(lengths), names=names,
+        category=np.full(n, category, np.int32), pad_len=pad)
+
+
+def _load_python(short_paths: Sequence[str], long_paths: Sequence[str],
+                 short_pad: Optional[int], long_pad: Optional[int],
+                 keep_quality: bool
+                 ) -> Tuple[Optional[PackedReads], Optional[PackedReads]]:
+    """The pure-Python reader (two passes over lengths)."""
     shorts, snames, squals, longs, lnames, lquals = [], [], [], [], [], []
     for rec in read_sequence_files(list(short_paths) + list(long_paths),
                                    categories=[0] * len(short_paths)
@@ -92,6 +113,44 @@ def load_reads(
                           category=[1] * len(longs), pad_len=pad,
                           quals=lquals if keep_lq else None)
     return pr_s, pr_l
+
+
+def load_reads(
+    short_paths: Sequence[str] = (),
+    long_paths: Sequence[str] = (),
+    short_pad: Optional[int] = None,
+    long_pad: Optional[int] = None,
+    keep_quality: bool = False,
+) -> Tuple[Optional[PackedReads], Optional[PackedReads]]:
+    """Stream FASTQ/FASTA files into packed short/long read batches.
+
+    When the pads are known up front (short_pad, and long_pad whenever long
+    files are given) and the native C++ parser built, the packing runs in
+    native code (one pass, no Python string objects); otherwise the
+    pure-Python reader runs.  keep_quality=True keeps the FASTQ quality
+    plane (PackedReads.qual) and always takes the Python reader.
+    LAST_LOAD records the route taken.
+    """
+    from hga_tpu_torch.io import native as NV
+
+    if keep_quality:
+        why = "keep_quality"
+    elif short_pad is None or (long_paths and long_pad is None):
+        why = "pads not given"
+    elif not NV.available():
+        why = f"native reader unavailable: {NV.UNAVAILABLE}"
+    else:
+        pr_s = _load_native(short_paths, short_pad, 0) if short_paths \
+            else None
+        pr_l = _load_native(long_paths, long_pad, 1) if long_paths else None
+        LAST_LOAD.clear()
+        LAST_LOAD.update(route="native")
+        return pr_s, pr_l
+    out = _load_python(short_paths, long_paths, short_pad, long_pad,
+                       keep_quality)
+    LAST_LOAD.clear()
+    LAST_LOAD.update(route="python", why=why)
+    return out
 
 
 def _inputs_digest(pr_short: Optional[PackedReads],

@@ -15,6 +15,11 @@ Symbols: 0..3 = A,C,G,T (substitution vote), 4 = deletion, 5 = unused slot.
 ``myers_votes`` is one correction batch end to end (planes DP, float32
 identity gate, traceback, votes): the plain version of the CUDA kernel K2'
 (ops/myers_cuda.myers_votes_cuda), which does the same in one launch.
+
+``traceback_columns`` and ``accumulate_backbone_votes_merged`` walk the
+direction codes of ops/align.banded_sw_batch_dirs (the scored-SW engine,
+corr_engine="sw"): copies of the reference's functions of those names,
+plain XLA there and plain PyTorch here.
 """
 
 from __future__ import annotations
@@ -150,6 +155,117 @@ def accumulate_backbone_votes_myers(
         w = (torch.ones(idx.shape[0], dtype=merged.dtype, device=dev)
              if qw is None else torch.cat(w_parts).to(merged.dtype))
         merged.index_add_(0, idx, w)
+    return merged
+
+
+def _dirs_walk(dirs: torch.Tensor, qend: torch.Tensor, tend: torch.Tensor,
+               q: torch.Tensor, band: int, Lt: int, stop_early: bool):
+    """The lockstep walk of the reference's dirs traceback: from (qend,
+    tend), every active pair follows its cell's direction code each step;
+    stops where the code is 0 or a row or column reaches 0.  Yields per
+    step (i, j, run, qsym, diag, up, left) before the move, int64 (P,)
+    and bool (P,), for the reference's S = Lq + Lt steps, or with
+    stop_early until every pair stopped (a stopped pair makes no move).
+    An empty dirs or query (D or Lq 0) reads as all-stop."""
+    D, P, W = dirs.shape
+    Lq = q.shape[1]
+    dev = q.device
+    pid = torch.arange(P, dtype=torch.int64, device=dev)
+    i, j = qend.to(torch.int64), tend.to(torch.int64)
+    run = torch.zeros(P, dtype=torch.int64, device=dev)
+    active = qend > 0
+    for step in range(Lq + Lt):
+        if stop_early and step % 32 == 0 and not bool(active.any()):
+            return
+        d = i + j
+        o_d = torch.maximum(torch.clamp(d - Lt, min=1),
+                            torch.div(d - band + 1, 2, rounding_mode="floor"))
+        p = i - o_d
+        ok = active & (p >= 0) & (p < W) & (d >= 2)
+        if D and Lq:
+            code = dirs[torch.clamp(d - 2, 0, D - 1), pid,
+                        torch.clamp(p, 0, W - 1)].to(torch.int64)
+            dir_ = torch.where(ok, code, 0)
+            qsym = q[pid, torch.clamp(i - 1, 0, Lq - 1)].to(torch.int64)
+        else:
+            dir_ = torch.zeros_like(i)
+            qsym = torch.zeros_like(i)
+        diag = active & (dir_ == 1)
+        up = active & (dir_ == 2)
+        left = active & (dir_ == 3)
+        yield i, j, run, qsym, diag, up, left
+        run = torch.where(up, run + 1, 0)
+        i = i - (diag | up).to(torch.int64)
+        j = j - (diag | left).to(torch.int64)
+        active = active & (dir_ != 0) & (i >= 1) & (j >= 1)
+
+
+def traceback_columns(dirs: torch.Tensor, qend: torch.Tensor,
+                      tend: torch.Tensor, q: torch.Tensor, band: int,
+                      Lt: int):
+    """Lockstep traceback of a pair batch over banded_sw_batch_dirs'
+    direction codes (``hga_tpu.ops.pileup.traceback_columns``): diagonal
+    and left moves emit a column vote (read base / deletion symbol 4), up
+    moves an insertion (read base inserted after the column, slot counted
+    from the END of the insertion run).  qend 0 disables a row.
+
+    Returns (sub_col, sub_sym, sub_ok, ins_col, ins_base, ins_slot,
+    ins_ok), each (S, P) with S = Lq + Lt; int32 values, bool masks.
+    """
+    outs = [[] for _ in range(7)]
+    for i, j, run, qsym, diag, up, left in _dirs_walk(
+            dirs, qend, tend, q, band, Lt, stop_early=False):
+        for o, x in zip(outs, (j - 1, torch.where(diag, qsym, 4),
+                               diag | left, j - 1, qsym, run, up)):
+            o.append(x)
+    res = []
+    for k, o in enumerate(outs):
+        x = torch.stack(o)
+        res.append(x if k in (2, 6) else x.to(torch.int32))
+    return tuple(res)
+
+
+def accumulate_backbone_votes_merged(
+    merged: torch.Tensor,  # int32 (size_all + 1,) flat votes + sink slot
+    dirs: torch.Tensor,    # int8 (D, P, W) from banded_sw_batch_dirs
+    qend: torch.Tensor,    # int32 (P,) pre-masked 0 by the score gate
+    tend: torch.Tensor,    # int32 (P,)
+    q: torch.Tensor,       # int32 (P, Lq) oriented query codes
+    bb: torch.Tensor,      # int32 (P,) backbone id per pair
+    off: torch.Tensor,     # int32 (P,) window col -> forward backbone col
+    lb: torch.Tensor,      # int32 (P,) backbone true length per pair
+    *,
+    size_v: int,
+    lpad: int,
+    band: int,
+    Lt: int,
+    ins_slots: int = 3,
+) -> torch.Tensor:
+    """Dirs traceback of one batch, its votes scatter-added into `merged`
+    in place (and returned): ``hga_tpu.ops.pileup.
+    accumulate_backbone_votes_merged``, with the moves the reference drops
+    (index size_all, mode="drop") routed to the sink slot."""
+    size_all = merged.shape[0] - 1
+    i64 = lambda x: x.to(torch.int64)
+    bb, off, lb = i64(bb), i64(off), i64(lb)
+    base_v = bb * (lpad * N_SYM)
+    base_i = bb * (lpad * ins_slots * 4) + size_v
+    parts = []
+    for i, j, run, qsym, diag, up, left in _dirs_walk(
+            dirs, qend, tend, q, band, Lt, stop_early=True):
+        colf = (j - 1) + off
+        in_rng = (colf >= 0) & (colf < lb)
+        sym = torch.where(diag, qsym, 4)
+        parts.append(torch.where((diag | left) & in_rng,
+                                 base_v + colf * N_SYM + sym, size_all))
+        parts.append(torch.where(
+            up & in_rng & (run < ins_slots),
+            base_i + (colf * ins_slots + torch.clamp(run, 0, ins_slots - 1))
+            * 4 + torch.clamp(qsym, 0, 3), size_all))
+    if parts:
+        idx = torch.cat(parts)
+        merged.index_add_(0, idx, torch.ones(idx.shape[0], dtype=merged.dtype,
+                                             device=merged.device))
     return merged
 
 

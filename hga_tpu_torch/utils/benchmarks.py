@@ -2,9 +2,10 @@
 and the short-read pipeline (``hga-torch bench``).
 
 Counterpart of ``hga_tpu.utils.benchmarks.run_benchmark`` with the modes
-``sw`` (K3), ``myers`` (K1), ``count`` and ``pipeline``: the same shapes,
-JSON keys and cell counts.  ``correction`` (needs ``corr_engine="sw"``),
-``scaling`` and ``comm`` (need distribution) raise NotImplementedError.
+``sw`` (K3), ``myers`` (K1), ``count``, ``pipeline`` and ``correction``
+(both correction engines: K2' for "myers", the plain-torch scored dirs DP
+for "sw"): the same shapes, JSON keys and cell counts.  ``scaling`` and
+``comm`` (need distribution) raise NotImplementedError.
 
 Roofline of one H100 SXM (NVIDIA data sheet), computed for each shape:
 
@@ -190,6 +191,50 @@ def bench_myers(n_pairs: int = 8192, Lq: int = 128, Lt: int = 192,
     return out
 
 
+def bench_correction(n_pairs: int = 4096, Lq: int = 112, band: int = 64,
+                     engine: str = "myers", device="cuda") -> Dict:
+    """Correction-step alignments/s: one batch's DP, traceback and vote
+    scatter (models/correction._votes_into, cfg.corr_engine), on the
+    reference's shapes and inputs: read pad 112, window Lq + band + 8, 8
+    backbones of 4096 columns, random codes from default_rng(0), the
+    queries rotated by the step ((q + i) % 4), one vote buffer carried
+    across the steps.  Cells are Lq x Wt a pair, as in the reference."""
+    from hga_tpu_torch.config import AssemblerConfig
+    from hga_tpu_torch.models.correction import INS_SLOTS, _votes_into
+    from hga_tpu_torch.ops.pileup import N_SYM
+
+    dev = resolve_device(device)
+    cfg = AssemblerConfig(band=band, corr_engine=engine)
+    Wt = Lq + band + 8
+    nb, Lpad = 8, 4096
+    rng = np.random.default_rng(0)
+    q = rng.integers(0, 4, (n_pairs, Lq)).astype(np.int32)
+    t = rng.integers(0, 4, (n_pairs, Wt)).astype(np.int32)
+    ql = np.full(n_pairs, Lq, np.int32)
+    tl = np.full(n_pairs, Wt, np.int32)
+    bb = rng.integers(0, nb, n_pairs).astype(np.int32)
+    off = rng.integers(0, Lpad - Wt, n_pairs).astype(np.int32)
+    lb = np.full(n_pairs, Lpad, np.int32)
+    size_v = nb * Lpad * N_SYM
+    merged = torch.zeros(size_v + nb * Lpad * INS_SLOTS * 4 + 1,
+                         dtype=torch.int32, device=dev)
+    # the reference's 32 inner steps rotate the queries by the step: four
+    # distinct query sets
+    n_sets, reps = (4, 32) if dev.type == "cuda" else (2, 2)
+    sets = [tuple(torch.from_numpy(x).to(dev)
+                  for x in ((q + i) % 4, t, ql, tl, bb, off, lb))
+            for i in range(n_sets)]
+    ms = time_ms(lambda *a: _votes_into(merged, cfg, size_v, Lpad, *a),
+                 sets, reps, dev)
+    dt = ms * 1e-3
+    cells = n_pairs * Lq * Wt
+    impl = "plain" if dev.type != "cuda" else (
+        "cuda_k2v" if engine == "myers" else "torch")
+    return {"engine": engine, "impl": impl, "seconds": dt,
+            "aln_per_s": n_pairs / dt, "gcups": cells / dt / 1e9,
+            "n_pairs": n_pairs, "Lq": Lq, "Wt": Wt, **device_info(dev)}
+
+
 def bench_count(n_reads: int = 8192, read_len: int = 112, k: int = 21,
                 device="cuda") -> Dict:
     """Config-1 counting reads/s: extract canonical k-mers, sort-count,
@@ -265,12 +310,11 @@ def run_benchmark(what: str = "sw", n_pairs: int = 4096,
     if what == "pipeline":
         return bench_pipeline(device=device)
     if what == "correction":
-        raise NotImplementedError(
-            "bench --what correction times both correction engines; "
-            "corr_engine='sw' (the scored dirs DP) is not ported yet "
-            "(ROADMAP Queue 1)")
+        return {eng: bench_correction(n_pairs=n_pairs, engine=eng,
+                                      device=device)
+                for eng in ("myers", "sw")}
     if what in ("scaling", "comm"):
         raise NotImplementedError(
             f"bench --what {what} needs the multi-device paths, which are "
-            "not ported yet (ROADMAP Queue 1: distribution)")
+            "not ported yet (ROADMAP Queue 1 item 8: distribution)")
     raise ValueError(what)

@@ -1,6 +1,7 @@
 """``hga-torch bench`` against ``hga bench`` (hga_tpu.utils.benchmarks): the
 same modes, JSON keys and cell counts, a roofline computed from the H100's
-constants (not the TPU's 200 GCUPS), and the modes not ported yet raise.
+constants (not the TPU's 200 GCUPS), both correction engines, and the
+modes not ported yet raise.
 Run on the CPU at a few pairs; times and rates here are the CPU's."""
 
 import json
@@ -87,10 +88,25 @@ def test_bench_on_cpu_launches_no_kernel(capsys):
     assert (dict(TMC.LAUNCHES), dict(TAC.LAUNCHES)) == before
 
 
-@pytest.mark.parametrize("what", ["correction", "scaling", "comm"])
+@pytest.mark.parametrize("what", ["scaling", "comm"])
 def test_unported_modes_raise(what):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
         tmain(["bench", "--what", what, "--device", "cpu"])
+
+
+def test_correction_mode_has_the_jax_keys(capsys):
+    """`bench --what correction`: both engines with the keys and cell
+    count of hga_tpu/utils/benchmarks.py bench_correction, CPU times."""
+    got = _bench(capsys, "--what", "correction", "--pairs", "8")
+    assert set(got) == {"myers", "sw"}
+    for eng, r in got.items():
+        assert {"engine", "seconds", "aln_per_s", "gcups", "n_pairs", "Lq",
+                "Wt"} <= set(r)
+        assert r["engine"] == eng and r["impl"] == "plain"
+        assert (r["n_pairs"], r["Lq"], r["Wt"]) == (8, 112, 112 + 64 + 8)
+        assert r["device"] == "cpu" and r["seconds"] > 0
+        assert r["gcups"] == pytest.approx(8 * 112 * 184 / r["seconds"]
+                                           / 1e9)
 
 
 def test_cpu_timer_measures_calls():

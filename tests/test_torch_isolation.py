@@ -33,7 +33,10 @@ def test_importing_the_port_loads_no_jax():
               "hga_tpu_torch.exp.sw_variants", "hga_tpu_torch.exp.vpu_micro",
               "hga_tpu_torch.utils.benchmarks",
               "hga_tpu_torch.models.arbitration",
-              "hga_tpu_torch.utils.evalx"):
+              "hga_tpu_torch.utils.evalx", "hga_tpu_torch.io.native",
+              "hga_tpu_torch.models.pipeline",
+              "hga_tpu_torch.models.correction",
+              "hga_tpu_torch.ops.pileup"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

@@ -135,14 +135,30 @@ def test_convert_loaders_read_jax_artifacts(runs):
     assert ov.n == runs["tres"].stats["overlaps"]["n"]
 
 
-def test_unported_modes_and_missing_gpu_raise(runs, tmp_path):
-    # the scored-SW correction engine is not ported: the port raises in the
-    # correction stage, after the spectrum
+def test_unported_modes_and_missing_gpu_raise(runs, tmp_path, monkeypatch):
+    # corr_engine="sw" runs (tests/test_torch_sw_engine.py holds it
+    # against the JAX package): correction and polish go through its dirs
+    # DP, never through K2''s wrapper, and the pipeline finishes
+    from hga_tpu_torch.models import correction as TCR
+
+    calls = {"dirs": 0, "myers": 0}
+
+    def spy(name, fn):
+        def counted(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return counted
+
+    monkeypatch.setattr(TCR, "banded_sw_batch_dirs",
+                        spy("dirs", TCR.banded_sw_batch_dirs))
+    monkeypatch.setattr(TCR, "myers_votes_cuda",
+                        spy("myers", TCR.myers_votes_cuda))
     s, l = _reads(tpack, runs["ds"])
     d = str(tmp_path / "a")
-    with pytest.raises(NotImplementedError, match="corr_engine"):
-        trun(s, l, TCfg(**dict(KW, corr_engine="sw")), d, device="cpu")
-    assert os.path.exists(os.path.join(d, "spectrum.npz"))
+    res = trun(s, l, TCfg(**dict(KW, corr_engine="sw")), d, device="cpu")
+    assert res.polished and calls["dirs"] > 0 and calls["myers"] == 0
+    for f in ("spectrum.npz", "corrected.npz", "polished.fasta"):
+        assert os.path.exists(os.path.join(d, f)), f
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             trun(s, l, TCfg(**KW), str(tmp_path / "c"))

@@ -73,6 +73,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (K1''s shared-target counter must move); --phase10 picks the genomes
      (repeats, circular, repeats+circular)
 
+  c. distribution (parallel/): K1''s carried-state mode
+     (myers_cols_cuda, counted as myers_batch_cuda_carry) == ops/myers
+     .myers_cols bit-exact at segment_identity's shape (W 13, shared row)
+     and the long-overlap shape (W 14, per-pair rows) with qlen 0, 1, 31,
+     32, ragged tlen and codes -1, 4, 9, and chained over 2, 3 and 8 chunks
+     == one chunk == one-shot K1'; then, after phase 10, two ranks sharing
+     the card (gloo, parallel/launch.py): run_pipeline with phase 4's reads
+     and config, its FASTA byte-identical to phase 4's, corrected.npz and
+     overlaps.npz array-equal, spectrum.npz's histogram, threshold and
+     solid set equal, WORK split per block_range, K1' and K2' moving on
+     both ranks (K2' in the arbitrate stage); segment_identity of the
+     contigs through the ring on the 2 ranks == one rank (the carried-state
+     counter must move on both); `torchrun --nproc-per-node 1 -m
+     hga_tpu_torch.cli eval --segs` on NCCL, the same segment_dist; `bench
+     --what scaling` on 1 (NCCL) and 2 (gloo) ranks and `--what comm`
+
   b. the native FASTQ reader: phase 4's reads written as FASTQ (the long
      reads also as .fastq.gz), load_reads on the native route against its
      Python reader (array-equal; seconds and reads/s); the scored-SW
@@ -85,9 +101,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 Phase 5 also runs config 3 (100 bp and 300 bp reads) and the
 short-read-only pipeline (8 kb genome) on cuda and on cpu, byte-identical.
-Phases run in the order 0 1 2 3 7 4 8 a 5 b 6 9; phase 6 also times K2' at
-the arbitration shape and K1''s shared-target mode at segment_identity's
-shape.
+Phases run in the order 0 1 2 3 7 c(kernel) 4 8 a c 5 b 6 9 (phase c
+runs phase 4 when it is not asked for); phase 6 also times K2' at the
+arbitration shape, K1''s shared-target mode at segment_identity's shape
+and its carried-state mode at the ring's step shape on 2 ranks.
 
 The last three lines of standard output are the `kernels` JSON line, the
 card's `name, power.limit`, and {"ok": true, "device": {...}}.
@@ -113,6 +130,8 @@ KERNELS = {
                          "hga_tpu/ops/myers_pallas.py:47"),
     "myers_batch_cuda_shared": ("hga_tpu_torch/csrc/myers_gate.cu",
                                 "hga_tpu/ops/myers_pallas.py:47"),
+    "myers_batch_cuda_carry": ("hga_tpu_torch/csrc/myers_gate.cu",
+                               "hga_tpu/ops/myers_pallas.py:47"),
     "myers_votes_cuda": ("hga_tpu_torch/csrc/myers_votes.cu",
                          "hga_tpu/ops/myers_pallas.py:106"),
     "myers_votes_cuda_scratch": ("hga_tpu_torch/csrc/myers_votes.cu",
@@ -810,9 +829,12 @@ def run_judged(label: str, genome_len: int, MC, workdir: str,
 
 
 def phase_pipeline(genome_len: int, MC, workdir: str):
+    """Phase 4; returns its launches and {out, polished, dir} (phase c holds
+    its two ranks against this one-rank run)."""
     log(f"phase 4: run_pipeline(device='cuda') on a {genome_len} bp genome")
-    launches, out, _, _ = run_judged("p4", genome_len, MC, workdir)
-    return launches, out
+    launches, out, _, polished = run_judged("p4", genome_len, MC, workdir)
+    return launches, dict(out=out, polished=polished,
+                          dir=os.path.join(workdir, "p4"))
 
 
 PHASE10_GENOMES = {"repeats": (True, False), "circular": (False, True),
@@ -858,24 +880,25 @@ def phase_genomes(genome_len: int, kinds, MC, workdir: str):
 
 
 def same_outputs(dirs, text, npz) -> None:
-    """Fail unless the cuda and cpu output directories hold byte-identical
-    text files and equal arrays."""
+    """Fail unless the two output directories of `dirs` ({label: dir}, e.g.
+    cuda and cpu) hold byte-identical text files and equal arrays."""
     import numpy as np
 
+    (la, da), (lb, db) = dirs.items()
     for f in text:
-        a = open(os.path.join(dirs["cuda"], f), "rb").read()
-        b = open(os.path.join(dirs["cpu"], f), "rb").read()
+        a = open(os.path.join(da, f), "rb").read()
+        b = open(os.path.join(db, f), "rb").read()
         if a != b:
-            fail(f"{f} differs between cuda and cpu")
+            fail(f"{f} differs between {la} and {lb}")
         log(f"  ok: {f} byte-identical ({len(a)} bytes)")
     for f in npz:
-        za = np.load(os.path.join(dirs["cuda"], f))
-        zb = np.load(os.path.join(dirs["cpu"], f))
+        za = np.load(os.path.join(da, f))
+        zb = np.load(os.path.join(db, f))
         if sorted(za.files) != sorted(zb.files):
             fail(f"{f}: keys differ")
         for k in za.files:
             if za[k].dtype != zb[k].dtype or not np.array_equal(za[k], zb[k]):
-                fail(f"{f}[{k}] differs between cuda and cpu")
+                fail(f"{f}[{k}] differs between {la} and {lb}")
         log(f"  ok: {f} arrays equal ({len(za.files)} arrays)")
 
 
@@ -1220,6 +1243,280 @@ def phase_b(genome_len: int, workdir: str, MC, AC):
     return paths
 
 
+# ---------------------------------------------------------------- phase c
+
+def carry_chain(MC, M, args, cuts):
+    """K1''s carried-state mode over consecutive column chunks of widths
+    `cuts` from a fresh state; returns (state, MyersResult)."""
+    q, t, ql, tl = args
+    st = M.myers_init_state(ql, M.n_words(q.shape[1]))
+    j0, res = 0, None
+    for c in cuts:
+        st, res = MC.myers_cols_cuda(q, t[:, j0:j0 + c].contiguous(), ql, tl,
+                                     st, j0)
+        j0 += c
+    return st, res
+
+
+def chunk_cuts(Lt: int, n: int, rng):
+    """`n` uneven chunk widths that sum to Lt."""
+    import numpy as np
+
+    inner = np.sort(rng.choice(np.arange(1, Lt), n - 1, replace=False))
+    return np.diff(np.concatenate([[0], inner, [Lt]])).tolist()
+
+
+def phase_carry(rng, MC, M):
+    """Phase c, part 1: K1''s carried-state mode (myers_cols_cuda) ==
+    ops/myers.myers_cols, bit-exact (state words, score, best, bj, dist,
+    tend), at segment_identity's shape (W 13, one shared row) and the
+    long-overlap shape (W 14, per-pair rows) and at the edges (qlen 0, 1,
+    31, 32, tlen inside a later chunk, codes -1, 4, 9); chained over 2, 3
+    and 8 chunks (and 1, 31, 32, 1024, 1025, ... columns) == one chunk ==
+    one-shot K1' (myers_batch_cuda).  myers_batch_cuda_carry must move."""
+    import torch
+
+    log("phase c: K1''s carried-state mode vs myers_cols, bit-exact")
+    errs = []
+    before = MC.LAUNCHES["myers_batch_cuda_carry"]
+    cases = [("segment_identity shape (W 13, shared row, 4 kb genome: "
+              "Lt 8001)", segment_inputs(rng, 4_000)),
+             ("long-overlap shape (W 14, per-pair rows: N 4096, Lq 414, "
+              "Lt 478)", myers_edges(rng, 4096, 414, 478)),
+             ("shared-row edges (W 4: N 1000, Lq 112, Lt 3000)",
+              shared_edges(rng, 1000, 112, 3000)),
+             ("per-pair edges (W 1: N 1024, Lq 20, Lt 64)",
+              myers_edges(rng, 1024, 20, 64))]
+    for label, x in cases:
+        args = to_dev(*x)
+        q, t, ql, tl = args
+        W, Lt = M.n_words(q.shape[1]), t.shape[1]
+        t0 = time.perf_counter()
+        ref = M.myers_cols(*M.query_planes(q, ql, W), t, tl,
+                           M.myers_init_state(ql, W))
+        torch.cuda.synchronize()
+        log(f"  plain myers_cols ({label}): {time.perf_counter() - t0:.1f} s")
+        one = MC.myers_batch_cuda(*args)
+        st, res = MC.myers_cols_cuda(*args, M.myers_init_state(ql, W))
+        for f, a, b in zip(("pv", "mv", "score", "best", "bj"), st, ref):
+            errs.append(eq(f"carry {label}: {f}", a, b))
+        ref_res = M.state_result(ql, ref)
+        for f in ("dist", "tend"):
+            errs.append(eq(f"carry {label}: {f} vs plain", getattr(res, f),
+                           getattr(ref_res, f)))
+            errs.append(eq(f"carry {label}: {f} vs one-shot K1'",
+                           getattr(res, f), getattr(one, f)))
+        splits = [chunk_cuts(Lt, n, rng) for n in (2, 3, 8)]
+        if Lt > 2113:
+            splits.append([1, 31, 32, 1024, 1025, Lt - 2113])
+        for cuts in splits:
+            st_c, res_c = carry_chain(MC, M, args, cuts)
+            tag = f"carry {label} over {len(cuts)} chunks"
+            errs += [eq(f"{tag}: state", torch.stack([x.flatten() for x in
+                                                      st_c[2:]]),
+                        torch.stack([x.flatten() for x in st[2:]])),
+                     eq(f"{tag}: pv, mv", torch.cat(st_c[:2], 1),
+                        torch.cat(st[:2], 1)),
+                     eq(f"{tag}: dist", res_c.dist, one.dist),
+                     eq(f"{tag}: tend", res_c.tend, one.tend)]
+    moved = MC.LAUNCHES["myers_batch_cuda_carry"] - before
+    if moved <= 0:
+        fail("myers_batch_cuda_carry did not count")
+    log(f"  myers_batch_cuda_carry moved by {moved}")
+    return max(errs)
+
+
+def _w_distributed(reads: str, outdir: str, genome_fa: str):
+    """One rank of phase c's two (launched by parallel/launch.py): the
+    judged pipeline on the world, then segment_identity of its contigs
+    through the ring; launches, stage seconds and WORK of this rank."""
+    import torch
+
+    from hga_tpu_torch import convert
+    from hga_tpu_torch.io.fastq import iter_records
+    from hga_tpu_torch.models.pipeline import run_pipeline
+    from hga_tpu_torch.ops import myers_cuda as MC
+    from hga_tpu_torch.parallel import hostpart as HP
+    from hga_tpu_torch.parallel.mesh import make_mesh
+    from hga_tpu_torch.utils.evalx import segment_identity
+
+    pr_s = convert.load_corrected(os.path.join(reads, "short.npz"))
+    pr_l = convert.load_corrected(os.path.join(reads, "long.npz"))
+    MC.reset_launches()
+    arb = {}
+    t0 = time.perf_counter()
+    with stage_launches(MC, arb):
+        res = run_pipeline(pr_s, pr_l, judged_cfg(),
+                           os.path.join(outdir, f"run{HP.pid()}"),
+                           device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(MC.LAUNCHES)
+    genome = "".join(r.seq for r in iter_records(genome_fa))
+    MC.reset_launches()
+    t1 = time.perf_counter()
+    seg = segment_identity(res.polished, genome, device="cuda",
+                           mesh=make_mesh())
+    torch.cuda.synchronize()
+    seg["seconds"] = round(time.perf_counter() - t1, 3)
+    return dict(pipeline_s=round(wall, 3), launches=launches,
+                arbitrate_launches=arb, work=dict(HP.WORK),
+                stage_s={k: v["seconds"]
+                         for k, v in res.stats["stages"].items()},
+                correction_detail=res.stats.get("correction_detail"),
+                overlaps=res.stats.get("overlaps"),
+                segments=seg, segment_launches=dict(MC.LAUNCHES))
+
+
+def run_cli(argv, nproc: int = 0, timeout: int = 600):
+    """`hga-torch` as a user runs it: in a subprocess, or under torchrun
+    with `nproc` ranks; returns (the JSON object it printed last, the
+    combined output)."""
+    import subprocess
+
+    cmd = [sys.executable, "-m", "hga_tpu_torch.cli", *argv]
+    if nproc:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(nproc), "-m", "hga_tpu_torch.cli",
+               *argv]
+    p = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                       timeout=timeout)
+    if p.returncode:
+        fail(f"{' '.join(argv)} ({nproc} ranks) exited {p.returncode}: "
+             f"{p.stderr[-3000:]}")
+    last = [ln for ln in p.stdout.splitlines() if ln.startswith("{")]
+    return json.loads(last[-1]), p.stdout + p.stderr
+
+
+def phase_distributed(genome_len: int, workdir: str, p4: dict):
+    """Phase c, parts 2-5: two ranks on the one card (gloo; NCCL refuses
+    two ranks on a card): the judged pipeline against phase 4's one-rank
+    artifacts, segment_identity through the ring against one rank; a world
+    of 1 on NCCL (`torchrun --nproc-per-node 1 ... eval --segs`); `bench
+    --what scaling` on 1 (NCCL) and 2 (gloo) ranks and `--what comm`.
+    Returns {path: launches}."""
+    import numpy as np
+
+    from hga_tpu_torch.io.fastq import write_fasta
+    from hga_tpu_torch.models.correction import MAX_VOTE_COLS, length_groups
+    from hga_tpu_torch.parallel.launch import launch
+    from hga_tpu_torch.utils.evalx import segment_identity
+
+    tc = time.perf_counter()
+    genome, pr_s, pr_l = simulate(genome_len, 42)
+    reads = os.path.join(workdir, "c_reads")
+    os.makedirs(reads)
+    pr_s.save(os.path.join(reads, "short.npz"))
+    pr_l.save(os.path.join(reads, "long.npz"))
+    genome_fa = os.path.join(workdir, "c_genome.fasta")
+    contigs_fa = os.path.join(workdir, "c_contigs.fasta")
+    write_fasta(genome_fa, [("genome", genome)])
+    write_fasta(contigs_fa, p4["polished"])
+    log(f"phase c: run_pipeline on 2 ranks sharing the card (gloo), "
+        f"{genome_len} bp genome")
+    out = os.path.join(workdir, "c_ranks")
+    t0 = time.perf_counter()
+    ranks = launch("chip_smoke:_w_distributed", 2, out,
+                   dict(reads=reads, outdir=out, genome_fa=genome_fa),
+                   device="cuda", threads=4, pythonpath=[HERE],
+                   timeout=900)
+    wall = time.perf_counter() - t0
+    for r, o in enumerate(ranks):
+        if o["jax_loaded"] or o["hga_tpu_loaded"] or o["backend"] != "gloo":
+            fail(f"rank {r}: {o['backend']}, jax {o['jax_loaded']}, "
+                 f"hga_tpu {o['hga_tpu_loaded']}")
+        log(f"  rank {r}: " + json.dumps({k: o[k] for k in (
+            "pipeline_s", "stage_s", "work", "launches",
+            "arbitrate_launches", "correction_detail", "overlaps")}))
+        for name in ("myers_batch_cuda", "myers_votes_cuda"):
+            if o["launches"][name] <= 0:
+                fail(f"rank {r}: {name} never launched in the pipeline")
+        if o["arbitrate_launches"].get("myers_votes_cuda", 0) <= 0:
+            fail(f"rank {r}: K2' never launched in the arbitrate stage")
+    log(f"  two ranks: {wall:.1f} s wall (launch included); phase 4, one "
+        f"rank: {p4['out']['pipeline_s']} s, stages "
+        f"{json.dumps(p4['out']['stage_s'])}")
+    # artifacts: rank 0 wrote them, rank 1 nothing
+    d2, d1 = os.path.join(out, "run0"), p4["dir"]
+    if os.listdir(os.path.join(out, "run1")):
+        fail("rank 1 wrote artifacts")
+    same_outputs({"2 ranks": d2, "1 rank (phase 4)": d1},
+                 ("contigs.fasta", "assembly.gfa", "arbitrated.fasta",
+                  "polished.fasta"), ("corrected.npz", "overlaps.npz"))
+    s2 = np.load(os.path.join(d2, "spectrum.npz"))
+    s1 = np.load(os.path.join(d1, "spectrum.npz"))
+    solid = s2["count"] >= s2["threshold"]
+    for k, a, b in (("hist", s2["hist"], s1["hist"]),
+                    ("threshold", s2["threshold"], s1["threshold"]),
+                    ("solid hi", s2["hi"][solid], s1["hi"]),
+                    ("solid lo", s2["lo"][solid], s1["lo"]),
+                    ("solid count", s2["count"][solid], s1["count"])):
+        if not np.array_equal(a, b):
+            fail(f"spectrum.npz {k}: 2 ranks differ from 1")
+    log(f"  ok: spectrum.npz hist, threshold and solid set equal "
+        f"({int(solid.sum())} solid of {s2['hi'].size} distinct on 2 ranks)")
+    # WORK: the whole, split per block_range
+    n_long = pr_l.n_reads
+    groups = length_groups(pr_l.length, MAX_VOTE_COLS)
+    want = {"corr_backbones": [sum(len(g) // 2 + (r < len(g) % 2)
+                                   for g in groups) for r in range(2)],
+            "long_query_reads": [n_long // 2 + (r < n_long % 2)
+                                 for r in range(2)]}
+    for key, w in want.items():
+        got = [o["work"].get(key, 0) for o in ranks]
+        if got != w:
+            fail(f"WORK {key}: {got}, block_range gives {w}")
+    log(f"  ok: WORK split per block_range: {json.dumps(want)}")
+    paths = {f"phase c 2-rank pipeline, rank {r}": o["launches"]
+             for r, o in enumerate(ranks)}
+
+    # segment_identity: the ring on 2 ranks, one rank here
+    one = segment_identity(p4["polished"], genome, device="cuda")
+    for r, o in enumerate(ranks):
+        seg = o["segments"]
+        log(f"  rank {r} segment_identity (ring): {json.dumps(seg)}; "
+            f"launches {json.dumps(o['segment_launches'])}")
+        if seg["segment_dist"] != one["segment_dist"]:
+            fail(f"ring segment_dist {seg['segment_dist']} != one rank's "
+                 f"{one['segment_dist']}")
+        if o["segment_launches"]["myers_batch_cuda_carry"] <= 0:
+            fail(f"rank {r}: the ring did not launch the carried-state mode")
+        paths[f"phase c ring segment_identity, rank {r}"] = \
+            o["segment_launches"]
+    log(f"  ok: segment_dist {one['segment_dist']} on 2 ranks == 1 rank "
+        f"({one['n_segments']} segments)")
+
+    # a world of 1 on NCCL, as a user runs it
+    t0 = time.perf_counter()
+    got, text = run_cli(["eval", "--contigs", contigs_fa, "--reference",
+                         genome_fa, "--segs"], nproc=1)
+    if "backend nccl" not in text:
+        fail("torchrun --nproc-per-node 1 did not take NCCL")
+    if got["segment_dist"] != one["segment_dist"]:
+        fail(f"eval --segs on NCCL: {got['segment_dist']} != "
+             f"{one['segment_dist']}")
+    log(f"  ok: torchrun --nproc-per-node 1 eval --segs on NCCL: "
+        f"segment_dist {got['segment_dist']} ({time.perf_counter() - t0:.1f}"
+        " s)")
+
+    bench = {}
+    for n in (1, 2):
+        t0 = time.perf_counter()
+        bench[n], text = run_cli(["bench", "--what", "scaling"], nproc=n)
+        want = "nccl" if n == 1 else "gloo"
+        if f"backend {want}" not in text:
+            fail(f"bench --what scaling on {n} ranks did not take {want}")
+        log(f"  bench --what scaling, {n} rank(s) ({want}): "
+            f"{json.dumps(bench[n])} ({time.perf_counter() - t0:.1f} s)")
+    if "not a scaling figure" not in bench[2].get("note", ""):
+        fail("the 2-rank scaling figure does not say it shares one card")
+    comm, _ = run_cli(["bench", "--what", "comm"])
+    log(f"  bench --what comm: {json.dumps(comm)}")
+    log(f"  phase c distribution: {time.perf_counter() - tc:.1f} s")
+    return paths, dict(ranks=ranks, one_rank=p4["out"], scaling=bench,
+                       comm=comm)
+
+
 def read_loci(names):
     """Truth loci from simulated read names (utils/sim.py):
     sr_{i}_{start}_{strand} and lr_{i}_{start}_{strand}_{len}."""
@@ -1411,6 +1708,61 @@ def shared_row(rng, MC, M, genome_len: int):
                 cut_shape=cut_row)
 
 
+def carry_row(rng, MC, M, genome_len: int, P: int = 2):
+    """K1''s carried-state mode at the ring's step shape on P ranks of
+    segment_identity on a genome of `genome_len`: one rank's block (N / 2P
+    segments of 384, W 13) against its chunk (Lt / P columns of the shared
+    row), from a fresh state; the wrapper (state packing included) and the
+    kernel alone, 3 launches each after a warm-up over 2 input sets; the
+    plain version at a cut shape (a 2 kb genome).  Bound: N C W 20
+    operations; codes, lengths and the chunk read once, the state read and
+    written once, dist and tend written."""
+    from hga_tpu_torch.utils import benchmarks as B
+
+    def sets_of(g):
+        out = []
+        for _ in range(2):
+            q, t, ql, tl = segment_inputs(rng, g)
+            Lt = -(-t.shape[1] // P) * P
+            B = max(2 * P, 8)             # segment_identity's padding
+            NB = -(-q.shape[0] // B) * B // (2 * P)   # one of 2 P blocks
+            q, ql, tl = q[:NB], ql[:NB], tl[:NB]
+            a = to_dev(q, t[:, :Lt // P].copy(), ql, tl)
+            out.append((*a, M.myers_init_state(a[2], M.n_words(q.shape[1]))))
+        return out
+
+    def cost(sets):
+        (N, Lq), C = sets[0][0].shape, sets[0][1].shape[1]
+        W = M.n_words(Lq)
+        return (dict(N=N, Lq=Lq, C=C, W=W, G=MC.GATE_GROUP[W], P=P),
+                N * C * W * B.OPS_PER_WORD_COLUMN,
+                4 * N * Lq + 4 * C + 8 * N + 2 * 4 * N * (2 * W + 3) + 8 * N)
+
+    plain = lambda q, t, ql, tl, st: M.myers_cols(
+        *M.query_planes(q, ql, M.n_words(q.shape[1])), t, tl, st)
+    cut = sets_of(2000)
+    shape, ops, nbytes = cost(cut)
+    cut_row = time_row(shape, MC.myers_cols_cuda, cut, MC.run_carry_kernel,
+                       [MC.carry_operands(*a) for a in cut], plain, 0, ops,
+                       nbytes, [MC.LAUNCHES])
+    full = sets_of(genome_len)
+    shape, ops, nbytes = cost(full)
+    before = dict(MC.LAUNCHES)
+    ms = B.cuda_ms(MC.myers_cols_cuda, full, 3)
+    kern_ms = B.cuda_ms(MC.run_carry_kernel,
+                        [MC.carry_operands(*a) for a in full], 3)
+    MC.LAUNCHES.update(before)
+    bound, by = B.bound_ms(ops, nbytes)
+    regs, local = MC.kernel_attrs(shape["W"])
+    return dict(shape=shape, ms=ms, kernel_ms=kern_ms,
+                plain_ms=cut_row["plain_ms"], plain_shape=cut_row["shape"],
+                bound_ms=bound, bound_by=by,
+                pct_of_bound=100 * bound / kern_ms, registers=regs,
+                local_bytes=local, blocks=MC.gate_blocks(shape["N"],
+                                                         shape["G"]),
+                cut_shape=cut_row)
+
+
 def phase_times(rng, MC, M, PU, genome_len: int):
     import torch
 
@@ -1444,6 +1796,7 @@ def phase_times(rng, MC, M, PU, genome_len: int):
         MC, PU, [to_dev(*ops)[:7] for ops, _, _ in arb], arb[0][1],
         arb[0][2], judged_cfg().min_identity)
     rows["myers_batch_cuda_shared"] = shared_row(rng, MC, M, genome_len)
+    rows["myers_batch_cuda_carry"] = carry_row(rng, MC, M, genome_len)
     # the scratch route where the shape takes it: W 24, band 960
     big = [votes_inputs(rng, 256, 744, 960) for _ in range(2)]
     rows["myers_votes_cuda_scratch"], _, _ = votes_row(
@@ -1951,9 +2304,9 @@ def main() -> int:
     ap.add_argument("--genome-len", type=int, default=1_000_000,
                     help="genome length of phases 4, 8 and 10 (default "
                          "1,000,000 bp)")
-    ap.add_argument("--phases", default="0123456789ab",
-                    help="phases to run, 'a' for phase 10 and 'b' for "
-                         "phase b (default all)")
+    ap.add_argument("--phases", default="0123456789abc",
+                    help="phases to run, 'a' for phase 10, 'b' for phase b "
+                         "and 'c' for phase c (default all)")
     ap.add_argument("--phase10", default="repeats+circular",
                     help="phase 10's genomes, comma-separated among "
                          + ", ".join(PHASE10_GENOMES))
@@ -2039,6 +2392,9 @@ def main() -> int:
     if "7" in ph:
         err.update(phase_k3(rng, AC, A))
         done("7")
+    if "c" in ph:
+        err["myers_batch_cuda_carry"] = phase_carry(rng, MC, M)
+        done("c (kernel)")
     torch.cuda.synchronize()
 
     # launches per kernel on each path that ran: K1' and K2' on the hybrid
@@ -2049,8 +2405,9 @@ def main() -> int:
     workdir = tempfile.mkdtemp(prefix="hga_smoke_")
     paths = {}
     try:
-        if "4" in ph:
-            paths["phase 4 hybrid pipeline"], _ = phase_pipeline(
+        p4 = None
+        if "4" in ph or "c" in ph:
+            paths["phase 4 hybrid pipeline"], p4 = phase_pipeline(
                 args.genome_len, MC, workdir)
             done("4")
         if "8" in ph:
@@ -2062,6 +2419,10 @@ def main() -> int:
         if "a" in ph:
             paths.update(phase_genomes(args.genome_len, kinds, MC, workdir))
             done("10")
+        if "c" in ph:
+            c_paths, _ = phase_distributed(args.genome_len, workdir, p4)
+            paths.update(c_paths)
+            done("c")
         if "5" in ph:
             phase_cpu_equal(workdir, AC)
             done("5")

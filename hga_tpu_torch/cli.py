@@ -16,8 +16,15 @@ versions):
   simulate  — synthetic genome + hybrid read set generator
   bench     — one JSON line of GCUPS (``--what sw`` K3, ``myers`` K1) or
               reads/s (``count``, ``pipeline``) on the device, with the
-              H100's roofline, or both correction engines' aln/s
-              (``correction``) (utils/benchmarks.py)
+              H100's roofline, both correction engines' aln/s
+              (``correction``), counting over the ranks (``scaling``) or
+              the comm volume model (``comm``) (utils/benchmarks.py)
+
+Under ``torchrun --nproc-per-node N -m hga_tpu_torch.cli ...`` every rank
+joins the world before any stage (parallel/mesh.init_distributed: NCCL
+when each rank has a card of its own, else gloo), ``pipeline`` runs on the
+mesh of ranks, the stages split their host loops over the ranks, and
+``eval --segs`` sweeps through the ring engine.
 
 ``overlap_refine="sw"`` (the scored Smith-Waterman refine) is set through
 ``--config``, as in the reference.  ``--profile DIR`` on any subcommand
@@ -274,12 +281,18 @@ def cmd_eval(args) -> int:
         if args.align:
             out.update(alignment_identity(contigs, ref, device=args.device))
         if args.segs:
-            out.update(segment_identity(contigs, ref, device=args.device))
+            from hga_tpu_torch.parallel.mesh import auto_mesh
+
+            out.update(segment_identity(contigs, ref, device=args.device,
+                                        mesh=auto_mesh()))
     if args.exact:
         # byte-for-byte contig-set diff against another assembler's output
         ref_contigs = [(r.name, r.seq) for r in iter_records(args.exact)]
         out.update(exact_contig_match(contigs, ref_contigs))
-    print(json.dumps(out))
+    from hga_tpu_torch.parallel.hostpart import is_main
+
+    if is_main():
+        print(json.dumps(out))
     return 0
 
 
@@ -312,9 +325,12 @@ def cmd_simulate(args) -> int:
 def cmd_bench(args) -> int:
     from hga_tpu_torch.utils.benchmarks import run_benchmark
 
+    from hga_tpu_torch.parallel.hostpart import is_main
+
     out = run_benchmark(what=args.what, n_pairs=args.pairs,
                         device=args.device)
-    print(json.dumps(out))
+    if is_main():
+        print(json.dumps(out))
     return 0
 
 
@@ -387,6 +403,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    # under torchrun every rank joins the world before any stage touches a
+    # device (a no-op without WORLD_SIZE)
+    from hga_tpu_torch.parallel.mesh import init_distributed
+
+    init_distributed(device=getattr(args, "device", "cpu"))
     if args.profile:
         return _profiled(args)
     return args.fn(args)

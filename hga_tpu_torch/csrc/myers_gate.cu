@@ -40,8 +40,20 @@
 //     Each pair still walks all Lt columns one after another: at a few
 //     warps an SM the step chain's latency, not the issue rate, bounds it.
 //   - Score: only the lane whose word holds the end bit moves the score;
-//     it keeps best and bj over columns j < tlen (strict <) and writes dist
-//     and tend (lane 0 when no word holds it: qlen <= 0 or qlen > 31 W).
+//     it keeps best and bj over columns j0 + j < tlen (strict <) and writes
+//     dist and tend (lane 0 when no word holds it: qlen <= 0 or qlen > 31 W).
+//   - Carried state (`carry` = 1; the ring engine, parallel/ring_myers.py,
+//     runs the target in column chunks, one a rank): the DP starts from the
+//     caller's column state instead of column 0's and returns the state it
+//     ends in, one int32 row of 2 W + 3 a pair: pv[W], mv[W] (31-bit
+//     words), score, best, bj.  Lane w loads its words' pv and mv; every
+//     lane loads score, best and bj (only the end-bit lane's move).  j0 is
+//     the chunk's global first column: the tlen mask and bj stay global.
+//     After the skewed pipeline drains (Lt + A - 1 steps) each lane stores
+//     its words and the writer lane stores score, best and bj; dist and tend
+//     are written as always, so the last chunk's are the answer.  Nothing
+//     else crosses a chunk edge: the carries into lane w at a chunk's first
+//     column come from lane w - 1 on that same column, as inside a chunk.
 // G = 1 is one thread per pair with every word in registers, the previous
 // K1 layout with the planes built in the kernel; the wrapper picks G per W
 // from a table its chip measurement filled in (ops/myers_cuda.py).
@@ -89,7 +101,9 @@ myers_gate_kernel(const int32_t* __restrict__ q,      // (N, Lq)
                   const int32_t* __restrict__ t,      // (N, Lt) or (1, Lt)
                   const int32_t* __restrict__ qlen,
                   const int32_t* __restrict__ tlen,   // (N,)
-                  int N, int Lq, int Lt, int shared,
+                  int N, int Lq, int Lt, int shared, int j0, int carry,
+                  const int32_t* __restrict__ st_in,  // (N, 2 W + 3)
+                  int32_t* __restrict__ st_out,       // (N, 2 W + 3)
                   int32_t* __restrict__ dist, int32_t* __restrict__ tend) {
   using Gm = Geo<W, G>;
   constexpr int WL = Gm::WL, A = Gm::A;
@@ -104,6 +118,9 @@ myers_gate_kernel(const int32_t* __restrict__ q,      // (N, Lq)
   const bool live = n < N;
   const int ql = live ? qlen[n] : 0;
   const int tl = live ? tlen[n] : 0;
+  constexpr int S = 2 * W + 3;            // a pair's state row
+  const int32_t* st = carry && live ? st_in + static_cast<size_t>(n) * S
+                                    : nullptr;
 
   uint32_t q0[WL], q1[WL], vq[WL], mend[WL], pv[WL], mv[WL];
 #pragma unroll
@@ -130,11 +147,17 @@ myers_gate_kernel(const int32_t* __restrict__ q,      // (N, Lq)
     q1[k] = b1;
     vq[k] = bv;
     mend[k] = me;
-    pv[k] = M31;
-    mv[k] = 0u;
+    const bool mine = carry && live && w < A;
+    pv[k] = mine ? static_cast<uint32_t>(st[wi]) : M31;
+    mv[k] = mine ? static_cast<uint32_t>(st[W + wi]) : 0u;
   }
 
   int score = ql, best = ql, bj = 0;
+  if (carry && live) {
+    score = st[2 * W];
+    best = st[2 * W + 1];
+    bj = st[2 * W + 2];
+  }
   uint32_t out = 0u;           // carries out of this lane's last word
   const int steps = Lt + A - 1;
   int8_t* rows = stage[warp];
@@ -217,9 +240,9 @@ myers_gate_kernel(const int32_t* __restrict__ q,      // (N, Lq)
         }
         out = cin | (cp << 1) | (cm << 2);
         score += (pb != 0u ? 1 : 0) - (mb != 0u ? 1 : 0);
-        if (score < best && j < tl) {
+        if (score < best && j0 + j < tl) {
           best = score;
-          bj = j + 1;
+          bj = j0 + j + 1;
         }
       }
     }
@@ -230,21 +253,72 @@ myers_gate_kernel(const int32_t* __restrict__ q,      // (N, Lq)
     dist[n] = ql == 0 ? 0 : best;
     tend[n] = ql == 0 ? 0 : bj;
   }
+  if (carry && live) {
+    int32_t* so = st_out + static_cast<size_t>(n) * S;
+    if (w < A) {
+#pragma unroll
+      for (int k = 0; k < WL; ++k) {
+        so[w * WL + k] = static_cast<int32_t>(pv[k]);
+        so[W + w * WL + k] = static_cast<int32_t>(mv[k]);
+      }
+    }
+    if (w == writer) {
+      so[2 * W] = score;
+      so[2 * W + 1] = best;
+      so[2 * W + 2] = bj;
+    }
+  }
 }
 
 template <int W, int G>
 cudaError_t launch_g(const int32_t* q, const int32_t* t, const int32_t* ql,
                      const int32_t* tl, int N, int Lq, int Lt, int shared,
+                     int j0, const int32_t* st_in, int32_t* st_out,
                      int32_t* dist, int32_t* tend, cudaStream_t s) {
   constexpr int per_block = kWarps * Geo<W, G>::P;
   myers_gate_kernel<W, G><<<(N + per_block - 1) / per_block, kThreads, 0, s>>>(
-      q, t, ql, tl, N, Lq, Lt, shared, dist, tend);
+      q, t, ql, tl, N, Lq, Lt, shared, j0, st_in != nullptr, st_in, st_out,
+      dist, tend);
   return cudaGetLastError();
 }
 
 #define HGA_WORD_CASES(X) \
   X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) \
   X(13) X(14) X(15) X(16) X(17) X(18) X(19) X(20) X(21) X(22) X(23) X(24)
+
+int launch(const void* q, const void* t, const void* qlen, const void* tlen,
+           int N, int Lq, int Lt, int W, int G, int shared, int j0,
+           const void* st_in, void* st_out, void* dist, void* tend,
+           void* stream) {
+  if (N <= 0 || Lq < 0 || Lt < 0 || Lq > W * kPayload || j0 < 0 ||
+      (shared != 0 && shared != 1) || ((st_in == nullptr) != (st_out ==
+                                                               nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto* s = static_cast<cudaStream_t>(stream);
+  auto c = [](const void* p) { return static_cast<const int32_t*>(p); };
+  auto m = [](void* p) { return static_cast<int32_t*>(p); };
+  switch (W) {
+#define HGA_CASE(w)                                                          \
+  case w:                                                                    \
+    if (G == 1) {                                                            \
+      return static_cast<int>(launch_g<w, 1>(                                \
+          c(q), c(t), c(qlen), c(tlen), N, Lq, Lt, shared, j0, c(st_in),     \
+          m(st_out), m(dist), m(tend), s));                                  \
+    }                                                                        \
+    if (G == group_of(w)) {                                                  \
+      return static_cast<int>(launch_g<w, group_of(w)>(                      \
+          c(q), c(t), c(qlen), c(tlen), N, Lq, Lt, shared, j0, c(st_in),     \
+          m(st_out), m(dist), m(tend), s));                                  \
+    }                                                                        \
+    break;
+    HGA_WORD_CASES(HGA_CASE)
+#undef HGA_CASE
+    default:
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
 }  // namespace
 
@@ -259,33 +333,22 @@ int hga_myers_gate_launch(const void* q, const void* t, const void* qlen,
                           const void* tlen, int N, int Lq, int Lt, int W,
                           int G, int shared, void* dist, void* tend,
                           void* stream) {
-  if (N <= 0 || Lq < 0 || Lt < 0 || Lq > W * kPayload ||
-      (shared != 0 && shared != 1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  auto* s = static_cast<cudaStream_t>(stream);
-  auto c = [](const void* p) { return static_cast<const int32_t*>(p); };
-  auto m = [](void* p) { return static_cast<int32_t*>(p); };
-  switch (W) {
-#define HGA_CASE(w)                                                          \
-  case w:                                                                    \
-    if (G == 1) {                                                            \
-      return static_cast<int>(launch_g<w, 1>(c(q), c(t), c(qlen), c(tlen),   \
-                                             N, Lq, Lt, shared, m(dist),     \
-                                             m(tend), s));                   \
-    }                                                                        \
-    if (G == group_of(w)) {                                                  \
-      return static_cast<int>(launch_g<w, group_of(w)>(                      \
-          c(q), c(t), c(qlen), c(tlen), N, Lq, Lt, shared, m(dist), m(tend), \
-          s));                                                               \
-    }                                                                        \
-    break;
-    HGA_WORD_CASES(HGA_CASE)
-#undef HGA_CASE
-    default:
-      break;
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch(q, t, qlen, tlen, N, Lq, Lt, W, G, shared, 0, nullptr,
+                nullptr, dist, tend, stream);
+}
+
+// K1''s carried-state mode: as hga_myers_gate_launch over the target chunk
+// t whose first column is global column j0, starting from the states
+// st_in and writing the states it ends in to st_out, int32 (N, 2 W + 3)
+// rows of pv[W], mv[W], score, best, bj.
+int hga_myers_gate_carry_launch(const void* q, const void* t,
+                                const void* qlen, const void* tlen, int N,
+                                int Lq, int Lt, int W, int G, int shared,
+                                int j0, const void* st_in, void* st_out,
+                                void* dist, void* tend, void* stream) {
+  if (st_in == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(q, t, qlen, tlen, N, Lq, Lt, W, G, shared, j0, st_in,
+                st_out, dist, tend, stream);
 }
 
 // Registers per thread and local (spill) bytes per thread of one

@@ -221,10 +221,13 @@ def arbitrate_contigs(
     cfg: AssemblerConfig,
     rare_cap: int = 0,
     device="cuda",
+    mesh=None,
 ) -> List[Tuple[str, str]]:
     """Arbitrate every contig with the raw long reads on `device` (``"cuda"``
     unless the caller asks for ``"cpu"``); returns the arbitrated (name,
-    sequence) list in order.  No-op on empty inputs.
+    sequence) list in order.  No-op on empty inputs.  On a mesh of several
+    ranks every rank places the reads, and each batch's votes are split
+    over the ranks and summed (correction.consensus_backbones).
 
     rare_cap 0 = auto: ~1.6x the long-read coverage estimated from total
     long bases over total contig bases, +2 — a unique-locus seed occurs
@@ -287,7 +290,7 @@ def arbitrate_contigs(
              dd.astype(np.int32))
     arb_cfg = cfg.replace(min_pileup_depth=cfg.arb_min_depth)
     out = consensus_backbones(pr_c, pr_chunks, arb_cfg, device=dev,
-                              cands=cands)
+                              cands=cands, mesh=mesh)
     t_vote = time.perf_counter() - t2
     LAST_TIMINGS.clear()
     LAST_TIMINGS.update(place_s=round(t_place, 3), mat_s=round(t_mat, 3),

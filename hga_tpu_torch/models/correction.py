@@ -19,6 +19,14 @@ on either device, as the reference's engine is plain XLA.
 
 Consensus covers substitutions, deletions (symbol 4) and up-to-3-base
 insertions per column, restored when a majority of covering reads agrees.
+
+In a world of several ranks (parallel/): correction splits every length
+group's backbones and polish its contigs into contiguous rank blocks, each
+corrected on the rank's own device and gathered back in rank order; and
+``consensus_backbones(mesh=...)`` on a mesh of several ranks (copy
+arbitration's votes) splits each batch over the ranks, each rank voting
+into a zeroed buffer, and sums the buffers with an all_reduce — the votes
+are order-free int32 adds, so the buffer is the one-device buffer.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from hga_tpu_torch.ops.align import banded_sw_batch_dirs
 from hga_tpu_torch.ops.kmer import unpack_bases, words_to_tensor
 from hga_tpu_torch.ops.myers_cuda import myers_votes_cuda
 from hga_tpu_torch.ops.pairs import candidate_pairs
+from hga_tpu_torch.parallel import hostpart as HP
 from hga_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -56,7 +65,8 @@ MAX_VOTE_COLS = 24_000_000  # nb * Lpad budget per correction group
 def find_candidates_cross(pr_a: PackedReads, pr_b: PackedReads,
                           cfg: AssemblerConfig,
                           pair_cap: Optional[int] = None,
-                          solid=None, seed_index=None, device="cuda"):
+                          solid=None, seed_index=None, device="cuda",
+                          b_mine: Optional[np.ndarray] = None):
     """Candidates between two read sets as host arrays (a, b, rel, diag):
     `a` indexes pr_a, `b` indexes pr_b.
 
@@ -65,19 +75,22 @@ def find_candidates_cross(pr_a: PackedReads, pr_b: PackedReads,
     entries, the memory-bounded sorted-index route of models/overlap_long.py
     runs; otherwise both read sets' seed entries go through the bounded
     self-join of ops/pairs.py in "cross" mode.  pair_cap is the reference's
-    signature only: the self-join returns every kept pair.
+    signature only: the self-join returns every kept pair.  b_mine (the
+    sorted-index route only): the candidates of these backbones alone, seed
+    frequencies counted over all of pr_b (a rank's share of the whole).
     """
     from hga_tpu_torch.models import overlap_long as OL
 
     dev = resolve_device(device)
     est = (int(pr_a.length.sum()) + int(pr_b.length.sum())) \
         // max(cfg.w, 1) * 2
-    if seed_index is not None or est > OL.INDEXED_ROUTE_ENTRIES:
+    if (seed_index is not None or b_mine is not None
+            or est > OL.INDEXED_ROUTE_ENTRIES):
         return OL.find_candidates_cross_indexed(
             pr_a, pr_b, cfg, solid=solid, index=seed_index,
             depth_cap=cfg.corr_depth_cap,
             rare_cap=max(0, cfg.corr_rare_seed_freq),
-            anchor_min=cfg.corr_anchor_min, device=dev)
+            anchor_min=cfg.corr_anchor_min, device=dev, b_mine=b_mine)
     ea = extract_seed_entries(pr_a, cfg, device=dev)
     eb = extract_seed_entries(pr_b, cfg, device=dev)
     na = pr_a.n_reads
@@ -217,6 +230,38 @@ def _votes_into(merged, cfg: AssemblerConfig, size_v: int, lpad: int,
     return merged
 
 
+def _votes_step(cfg: AssemblerConfig, size_v: int, lpad: int, mesh,
+                min_score: Optional[int]):
+    """One batch's votes into `merged`: _votes_into on one device; on a
+    mesh of several ranks each rank votes its contiguous share of the batch
+    into a zeroed buffer and the ranks' buffers are summed into `merged`
+    (a batch not divisible by the mesh size votes whole on every rank)."""
+
+    def single(merged, *args):
+        return _votes_into(merged, cfg, size_v, lpad, *args,
+                           min_score=min_score)
+
+    if mesh is None or mesh.size <= 1:
+        return single
+    from hga_tpu_torch.parallel.collectives import all_reduce_sum
+
+    P = mesh.size
+
+    def step(merged, *args):
+        N = args[0].shape[0]
+        if N % P:
+            return single(merged, *args)
+        nb = N // P
+        mine = slice(mesh.rank * nb, (mesh.rank + 1) * nb)
+        part = single(torch.zeros_like(merged),
+                      *(None if x is None else x[mine].contiguous()
+                        for x in args))
+        merged += all_reduce_sum(part)
+        return merged
+
+    return step
+
+
 def consensus_backbones(
     backbones: PackedReads,
     reads: PackedReads,
@@ -227,6 +272,7 @@ def consensus_backbones(
     solid=None,
     seed_index=None,
     cands=None,
+    mesh=None,
 ) -> List[str]:
     """Correct every backbone by short-read pileup consensus (device DP,
     traceback and votes: one K2' launch a batch on the Myers engine);
@@ -234,7 +280,8 @@ def consensus_backbones(
 
     min_score: the sw engine's alignment score gate (default
     cfg.min_overlap_score).  cands: optional pre-computed (a, b, rel, diag)
-    candidate arrays with b indexing `backbones`.
+    candidate arrays with b indexing `backbones`.  mesh: a mesh of several
+    ranks splits each batch's votes over them (module docstring).
     """
     dev = resolve_device(device)
     if batch_pairs is None:
@@ -279,6 +326,7 @@ def consensus_backbones(
     size_v = nb * Lpad * PU.N_SYM
     size_all = size_v + nb * Lpad * INS_SLOTS * 4
     merged = torch.zeros(size_all + 1, dtype=torch.int32, device=dev)
+    step = _votes_step(cfg, size_v, Lpad, mesh, min_score)
 
     r_dev, rlen_dev, rqw_dev = _device_reads(reads, r_qw, dev)
     b_dev = words_to_tensor(backbones.packed, dev)
@@ -305,7 +353,7 @@ def consensus_backbones(
             dd = np.pad(dd, (0, padn))
         args = _prep(cfg.band, Lq, Wt, r_dev, rlen_dev, rqw_dev, b_dev,
                      blen_dev, i64(aa), i64(bb), i64(rr), i64(dd), nbatch)
-        _votes_into(merged, cfg, size_v, Lpad, *args, min_score=min_score)
+        merged = step(merged, *args)
         bytes_up += 4 * 4 * P
         t_prep += time.perf_counter() - t_b0
 
@@ -388,7 +436,9 @@ def correct_long_reads(pr_short: PackedReads, pr_long: PackedReads,
     reads.  Backbones are LENGTH-BUCKETED into groups whose (count x
     group_pad) vote footprint stays under max_cols, each corrected at its
     own pad.  Accepts consensus_backbones kwargs (device=..., min_score=...,
-    solid=..., seed_index=...).
+    solid=..., seed_index=..., mesh=...).  In a world of several ranks each
+    rank corrects a contiguous block of every group's backbones on its own
+    device and the corrected sequences are gathered back in rank order.
     """
     out = pr_long
     totals: dict = {}
@@ -405,25 +455,36 @@ def correct_long_reads(pr_short: PackedReads, pr_long: PackedReads,
     return out
 
 
-def _correct_once(pr_short: PackedReads, pr_long: PackedReads,
-                  cfg: AssemblerConfig, max_cols: int, suffix: str = "_corr",
-                  **kw) -> PackedReads:
-    n = pr_long.n_reads
-    order = np.argsort(pr_long.length, kind="stable")
+def length_groups(lengths: np.ndarray, max_cols: int) -> List[np.ndarray]:
+    """Backbone indices by ascending length, cut into groups whose count x
+    group pad stays under max_cols (the order correction runs them in)."""
     groups: List[np.ndarray] = []
     cur: List[int] = []
-    for i in order:
-        L = int(pr_long.length[i])
-        pad = ((max(L, 32) + 31) // 32) * 32
+    for i in np.argsort(lengths, kind="stable"):
+        pad = ((max(int(lengths[i]), 32) + 31) // 32) * 32
         if cur and (len(cur) + 1) * pad > max_cols:
             groups.append(np.array(cur))
             cur = []
         cur.append(int(i))
     if cur:
         groups.append(np.array(cur))
+    return groups
+
+
+def _correct_once(pr_short: PackedReads, pr_long: PackedReads,
+                  cfg: AssemblerConfig, max_cols: int, suffix: str = "_corr",
+                  **kw) -> PackedReads:
+    partition = HP.nproc() > 1
+    if partition:
+        kw = dict(kw, mesh=HP.local_mesh(kw.get("mesh")))
+    n = pr_long.n_reads
+    groups = length_groups(pr_long.length, max_cols)
+    if partition:       # this rank's contiguous block of every group
+        groups = [g[slice(*HP.block_range(len(g)))] for g in groups]
+    whole = partition or len(groups) > 1
 
     t_idx0 = time.perf_counter()
-    if len(groups) > 1 and kw.get("seed_index") is None:
+    if whole and kw.get("seed_index") is None:
         from hga_tpu_torch.models.overlap_long import build_seed_index
 
         kw = dict(kw)
@@ -433,18 +494,26 @@ def _correct_once(pr_short: PackedReads, pr_long: PackedReads,
     t_idx = time.perf_counter() - t_idx0
 
     # query the index ONCE for the whole long-read set and slice candidates
-    # per group
+    # per group.  Split over ranks, each rank expands only its own
+    # backbones, with every seed frequency still counted over the whole
+    # set, so its candidates are the one-process run's (the reference
+    # counts over the rank's block, which changes them)
     g_all = None
     t_gc0 = time.perf_counter()
-    if len(groups) > 1:
+    if whole:
+        mine = np.sort(np.concatenate(groups)) if partition else None
         g_all = find_candidates_cross(
             pr_short, pr_long, cfg, solid=kw.get("solid"),
-            seed_index=kw.get("seed_index"), device=kw.get("device", "cuda"))
+            seed_index=kw.get("seed_index"), device=kw.get("device", "cuda"),
+            b_mine=mine)
     t_gc = time.perf_counter() - t_gc0
 
     corrected: List[Optional[str]] = [None] * n
     totals: dict = {"index_s": round(t_idx, 3), "gcand_s": round(t_gc, 3)}
     for g in groups:
+        HP.note("corr_backbones", len(g))
+        if len(g) == 0:
+            continue
         pad_g = ((int(pr_long.length[g].max()) + 31) // 32) * 32
         sub = pr_long.subset(g).with_pad(pad_g)
         log.info("correction group: %d reads @ pad %d", len(g), pad_g)
@@ -464,6 +533,12 @@ def _correct_once(pr_short: PackedReads, pr_long: PackedReads,
         for i, s in zip(g, seqs):
             corrected[i] = s
     LAST_TIMINGS.update(totals)
+    if partition:
+        mine = [i for i in range(n) if corrected[i] is not None]
+        g_idx, g_seqs = HP.allgather_indexed_strings(
+            mine, [corrected[i] for i in mine])
+        for i, s in zip(g_idx, g_seqs):
+            corrected[int(i)] = s
     assert all(s is not None for s in corrected)
     # inserted bases can push a read past the original pad — re-derive it
     pad = max(pr_long.pad_len,
@@ -475,12 +550,38 @@ def _correct_once(pr_short: PackedReads, pr_long: PackedReads,
 
 def polish_contigs(contigs: List[Tuple[str, str]], pr_short: PackedReads,
                    cfg: AssemblerConfig, **kw) -> List[Tuple[str, str]]:
-    """Config-5 second half: polish assembled contigs with short reads."""
+    """Config-5 second half: polish assembled contigs with short reads.
+
+    In a world of several ranks each rank polishes a contiguous block of
+    the contigs on its own device (their candidates counted over every
+    contig, as one process counts them); they are gathered back in
+    order."""
     if not contigs:
         return []
-    seqs = [s for _, s in contigs]
-    backbones = pack_reads(
-        seqs, names=[n for n, _ in contigs],
-        category=np.ones(len(seqs), np.int32), pad_len=max(len(s) for s in seqs))
-    polished = consensus_backbones(backbones, pr_short, cfg, **kw)
-    return [(name, s) for (name, _), s in zip(contigs, polished)]
+    partition = HP.nproc() > 1
+    idx = list(range(len(contigs)))
+    if partition:
+        kw = dict(kw, mesh=HP.local_mesh(kw.get("mesh")))
+        b_lo, b_hi = HP.block_range(len(contigs))
+        idx = idx[b_lo:b_hi]
+    polished: List[str] = []
+    if idx:
+        seqs = [contigs[i][1] for i in idx]
+        backbones = pack_reads(
+            seqs, names=[contigs[i][0] for i in idx],
+            category=np.ones(len(seqs), np.int32),
+            pad_len=max(len(s) for s in seqs))
+        if partition:
+            every = pack_reads([s for _, s in contigs],
+                               pad_len=max(len(s) for _, s in contigs))
+            a, b, rel, diag = find_candidates_cross(
+                pr_short, every, cfg, solid=kw.get("solid"),
+                seed_index=kw.get("seed_index"),
+                device=kw.get("device", "cuda"), b_mine=np.arange(b_lo, b_hi))
+            kw = dict(kw, cands=(a, (b - b_lo).astype(b.dtype), rel, diag))
+        polished = consensus_backbones(backbones, pr_short, cfg, **kw)
+    if partition:
+        g_idx, g_seqs = HP.allgather_indexed_strings(idx, polished)
+        by_i = dict(zip((int(i) for i in g_idx), g_seqs))
+        return [(contigs[i][0], by_i[i]) for i in range(len(contigs))]
+    return [(contigs[i][0], s) for i, s in zip(idx, polished)]

@@ -19,8 +19,11 @@ reads — judged config 3):
 The band is centred by construction: the target is re-oriented (reverse
 complement when rel=1) and shifted by the candidate's estimated diagonal.
 Batch prep is host numpy, copied from the reference; each DP batch is
-shipped to the device, launched, and read back.  The reference's
-multi-process partition of the candidate list comes with distribution.
+shipped to the device, launched, and read back.
+
+In a world of several ranks (parallel/), each rank gates and refines a
+contiguous block of the candidate list on its own device; the records are
+re-replicated by a rank-ordered gather, in the one-process order.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ from hga_tpu_torch.ops.align import SWResult
 from hga_tpu_torch.ops.align_cuda import banded_sw_batch_cuda
 from hga_tpu_torch.ops.myers import MyersResult
 from hga_tpu_torch.ops.myers_cuda import myers_batch_cuda
+from hga_tpu_torch.parallel import hostpart as HP
+from hga_tpu_torch.parallel.mesh import shard_batch_fn
 from hga_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -51,25 +56,61 @@ BATCH_PAIRS = 4096  # candidate pairs per gate / refine launch
 LAST_TIMINGS: Dict[str, float] = {}
 
 
-def default_sw(cfg: AssemblerConfig):
+def default_sw(cfg: AssemblerConfig, mesh=None):
     """Score-only SW dispatch: K3's wrapper, which launches the kernel for
-    CUDA tensors and runs its plain version for CPU tensors."""
+    CUDA tensors and runs its plain version for CPU tensors.  On a mesh of
+    several ranks each rank sweeps its block of the pair batch and a
+    rank-ordered all_gather rebuilds it (parallel/mesh.shard_batch_fn)."""
+    cache = {}
 
     def sw(q, t, ql, tl, band: int) -> SWResult:
-        return banded_sw_batch_cuda(q, t, ql, tl, band=band, match=cfg.match,
-                                    mismatch=cfg.mismatch, gap=cfg.gap)
+        if band not in cache:
+            def inner(q, t, ql, tl):
+                return banded_sw_batch_cuda(q, t, ql, tl, band=band,
+                                            match=cfg.match,
+                                            mismatch=cfg.mismatch,
+                                            gap=cfg.gap)
+
+            cache[band] = shard_batch_fn(mesh, inner, 4, SWResult)
+        return cache[band](q, t, ql, tl)
 
     return sw
 
 
-def default_edit():
+def _edit_inner(q, t, ql, tl) -> MyersResult:
+    i32 = lambda x: x.to(torch.int32).contiguous()
+    return myers_batch_cuda(i32(q), i32(t), i32(ql), i32(tl))
+
+
+# Target length from which a mesh run splits the target's COLUMNS over the
+# ranks (the ring engine, parallel/ring_myers.py) instead of splitting the
+# pair batch: each rank then holds Lt / P columns.
+RING_MIN_LT = 1 << 16
+
+
+def default_edit(cfg: AssemblerConfig, mesh=None,
+                 ring_min_lt: int = RING_MIN_LT):
     """Edit-distance dispatch for the overlap gate: K1's wrapper, which
     launches the kernel for CUDA tensors and runs its plain version for CPU
-    tensors."""
+    tensors.  On a mesh of several ranks, a shared one-row target or one of
+    at least ring_min_lt columns goes through the ring engine (when Lt
+    divides over the ranks and N over 2 P blocks); any other batch is split
+    over the ranks (parallel/mesh.shard_batch_fn)."""
+    sharded = shard_batch_fn(mesh, _edit_inner, 4, MyersResult)
+    if mesh is None or mesh.size <= 1:
+        return sharded
+    from hga_tpu_torch.parallel.ring_myers import myers_ring
+
+    P = mesh.size
 
     def edit(q, t, ql, tl) -> MyersResult:
-        i32 = lambda x: x.to(torch.int32).contiguous()
-        return myers_batch_cuda(i32(q), i32(t), i32(ql), i32(tl))
+        N, Lt = q.shape[0], t.shape[1]
+        if (Lt % P == 0 and N % (2 * P) == 0
+                and (t.shape[0] == 1 or Lt >= ring_min_lt)):
+            return myers_ring(mesh, q, t, ql, tl)
+        if t.shape[0] == 1:
+            t = t.expand(N, Lt)
+        return sharded(q, t, ql, tl)
 
     return edit
 
@@ -287,10 +328,15 @@ def _check_refine(cfg: AssemblerConfig) -> None:
                          f"got {cfg.overlap_refine!r}")
 
 
-def _records(outs, len_a, len_b, t_gate, t_ref0, n0, n_f, what):
-    """Concatenate the refine batches into OverlapRecords and record the
-    gate/refine split in LAST_TIMINGS."""
-    cat = {k: np.concatenate(v) for k, v in outs.items()}
+def _records(outs, len_a, len_b, t_gate, t_ref0, n0, n_f, what,
+             partition: bool):
+    """Concatenate the refine batches into OverlapRecords (gathered in rank
+    order when `partition`; a rank without survivors still joins the
+    gather) and record the gate/refine split in LAST_TIMINGS."""
+    cat = {k: (np.concatenate(v) if v else np.zeros(0, np.int32))
+           for k, v in outs.items()}
+    if partition:
+        cat = HP.allgather_concat(cat)
     rec = OverlapRecords(a_len=len_a[cat["a"]].astype(np.int32),
                          b_len=len_b[cat["b"]].astype(np.int32), **cat)
     t_ref = time.perf_counter() - t_ref0
@@ -307,15 +353,28 @@ def compute_overlaps(
     cands,
     cfg: AssemblerConfig,
     device="cuda",
+    mesh=None,
 ) -> OverlapRecords:
     """Two-pass overlap engine over the candidates (models/seeding.py
-    SeedingResult) of one read set: Myers edit-rate gate, then refine."""
+    SeedingResult) of one read set: Myers edit-rate gate, then refine.
+
+    In a world of several ranks each rank takes a contiguous block of the
+    candidates (hostpart.block_range) on its own device, and the records
+    are gathered back in rank order."""
     if cands.n_pairs == 0:
         return _empty()
     _check_refine(cfg)
     dev = resolve_device(device)
-    sw = default_sw(cfg)
-    edit = default_edit()
+    partition = HP.nproc() > 1 and cands.n_pairs >= HP.nproc()
+    if partition:
+        lo, hi = HP.block_range(cands.n_pairs)
+        cands = dataclasses.replace(
+            cands, a=cands.a[lo:hi], b=cands.b[lo:hi], rel=cands.rel[lo:hi],
+            diag=cands.diag[lo:hi], shared=cands.shared[lo:hi])
+        mesh = HP.local_mesh(mesh)
+    HP.note("gate_pairs", cands.n_pairs)
+    sw = default_sw(cfg, mesh)
+    edit = default_edit(cfg, mesh)
 
     codes = unpack_codes(pr.packed).astype(np.int32)  # (R, pad_len)
     # mask bases past each read's length so they can never match
@@ -343,7 +402,7 @@ def compute_overlaps(
     n_f = f_a.shape[0]
     log.info("overlap gate: %d candidates -> %d pass edit-rate filter",
              cands.n_pairs, n_f)
-    if n_f == 0:
+    if n_f == 0 and not partition:
         return _empty()
 
     # ---- pass 2: survivor coordinates ----
@@ -385,7 +444,7 @@ def compute_overlaps(
                                   b_fwd_start, b_fwd_end, dist)):
             outs[k].append(v[keep].astype(np.int32))
     return _records(outs, lengths, lengths, t_gate, t_ref0, cands.n_pairs,
-                    n_f, "overlap")
+                    n_f, "overlap", partition)
 
 
 def compute_overlaps_cross(
@@ -393,6 +452,7 @@ def compute_overlaps_cross(
     pr_b: PackedReads,
     cfg: AssemblerConfig,
     device="cuda",
+    mesh=None,
 ) -> OverlapRecords:
     """Judged config 3: overlaps between two read sets (short reads as
     queries `a`, long reads as targets `b`).
@@ -401,7 +461,8 @@ def compute_overlaps_cross(
     .find_candidates_cross; each runs the same two passes as
     compute_overlaps.  b coordinates are in the long read's forward frame;
     the short READ is reverse-complemented for rel=1 so alignments share
-    the target's forward context.
+    the target's forward context.  In a world of several ranks the
+    candidate list is split as in compute_overlaps.
     """
     from hga_tpu_torch.models.correction import find_candidates_cross
 
@@ -410,8 +471,13 @@ def compute_overlaps_cross(
     a, b, rel, diag = find_candidates_cross(pr_a, pr_b, cfg, device=dev)
     if len(a) == 0:
         return _empty()
-    sw = default_sw(cfg)
-    edit = default_edit()
+    partition = HP.nproc() > 1 and len(a) >= HP.nproc()
+    if partition:
+        lo, hi = HP.block_range(len(a))
+        a, b, rel, diag = a[lo:hi], b[lo:hi], rel[lo:hi], diag[lo:hi]
+        mesh = HP.local_mesh(mesh)
+    sw = default_sw(cfg, mesh)
+    edit = default_edit(cfg, mesh)
 
     a_codes = unpack_codes(pr_a.packed).astype(np.int32)
     Lq = a_codes.shape[1]
@@ -456,7 +522,7 @@ def compute_overlaps_cross(
     n_f = f_a.shape[0]
     log.info("overlap-cross gate: %d candidates -> %d pass edit-rate filter",
              n0, n_f)
-    if n_f == 0:
+    if n_f == 0 and not partition:
         return _empty()
 
     # ---- pass 2: survivor coordinates ----
@@ -497,4 +563,4 @@ def compute_overlaps_cross(
                                   b_start, b_end, dist)):
             outs[k].append(v[keep].astype(np.int32))
     return _records(outs, pr_a.length, pr_b.length, t_gate, t_ref0, n0, n_f,
-                    "overlap-cross")
+                    "overlap-cross", partition)

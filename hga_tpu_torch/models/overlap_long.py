@@ -22,6 +22,11 @@ in-flight queue existed to hide a tunnel round trip this port does not have.
 The sorted-index candidate routes (``find_candidates_cross_indexed`` for
 correction/polish and config 3, ``find_candidates_all_indexed`` for
 all-vs-all above INDEXED_ROUTE_ENTRIES) live here too, as in the reference.
+
+In a world of several ranks (parallel/), ``compute_overlaps_long`` and
+``find_candidates_all_indexed`` split their query reads into contiguous
+rank blocks and gather the results back in rank order, which is the
+one-process order.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from hga_tpu_torch.models.overlap import OverlapRecords, SENT_BASE, default_edit
 from hga_tpu_torch.models.seeding import (SeedingResult, extract_seed_entries,
                                          solid_mask)
 from hga_tpu_torch.ops.kmer import words_to_tensor
+from hga_tpu_torch.parallel import hostpart as HP
 from hga_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -144,6 +150,7 @@ def find_candidates_cross_indexed(
     rare_cap: int = 0,
     anchor_min: int = 2,
     device="cuda",
+    b_mine: Optional[np.ndarray] = None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Scalable cross candidates (same output contract as
     models.correction.find_candidates_cross): sorted short-read index,
@@ -175,6 +182,10 @@ def find_candidates_cross_indexed(
     stretches no anchors exist and ambiguous candidates are kept — their
     votes are harmless (the copies agree wherever such a read spans).
     Anchored candidates also win depth-cap slots first.
+
+    b_mine: expand only these backbones (ascending indices into pr_b; a
+    rank's share), with every seed frequency still counted over all of
+    pr_b, so each kept backbone's candidates are those of the whole run.
     """
     idx = index or build_seed_index(pr_a, cfg, solid=solid, device=device)
     eb = extract_seed_entries(pr_b, cfg, device=device)
@@ -205,9 +216,10 @@ def find_candidates_cross_indexed(
 
     outs_a, outs_b, outs_rel, outs_diag = [], [], [], []
     n_amb_dropped = 0
-    for b_lo in range(0, pr_b.n_reads, chunk_reads):
-        b_hi = min(pr_b.n_reads, b_lo + chunk_reads)
-        m = (eb.read >= b_lo) & (eb.read < b_hi)
+    order_b = (np.arange(pr_b.n_reads) if b_mine is None
+               else np.asarray(b_mine, np.int64))
+    for c_lo in range(0, order_b.size, chunk_reads):
+        m = np.isin(eb.read, order_b[c_lo:c_lo + chunk_reads])
         take = take_all[m]
         total = int(take.sum())
         if total == 0:
@@ -308,6 +320,8 @@ def find_candidates_all_indexed(
     enumerated once: read a's entries query the sorted index and keep hits
     with t > a.  Solid masking comes from the index side — a non-solid seed
     has no run in the solid-filtered index.  overflow is always 0.
+    In a world of several ranks each rank takes a contiguous block of the
+    query reads and the pair lists are gathered back in rank order.
     """
     idx = index or build_seed_index(pr, cfg, solid=solid, device=device)
     ent = extract_seed_entries(pr, cfg, device=device)
@@ -323,8 +337,11 @@ def find_candidates_all_indexed(
     read_len = pr.length.astype(np.int64)
 
     outs = {f: [] for f in ("a", "b", "rel", "diag", "shared")}
-    for a_lo in range(0, pr.n_reads, chunk_reads):
-        a_hi = min(pr.n_reads, a_lo + chunk_reads)
+    n = pr.n_reads
+    r_lo, r_hi = HP.block_range(n) if HP.nproc() > 1 else (0, n)
+    HP.note("cand_query_reads", r_hi - r_lo)
+    for a_lo in range(r_lo, r_hi, chunk_reads):
+        a_hi = min(r_hi, a_lo + chunk_reads)
         m = (ent.read >= a_lo) & (ent.read < a_hi)
         take = take_all[m]
         total = int(take.sum())
@@ -363,7 +380,8 @@ def find_candidates_all_indexed(
 
     cat = lambda xs: (np.concatenate(xs).astype(np.int32) if xs
                       else np.zeros(0, np.int32))
-    res = SeedingResult(overflow=0, **{f: cat(v) for f, v in outs.items()})
+    fields = HP.allgather_concat({f: cat(v) for f, v in outs.items()})
+    res = SeedingResult(overflow=0, **fields)
     log.info("all-indexed: %d candidate pairs", res.n_pairs)
     return res
 
@@ -528,10 +546,17 @@ def compute_overlaps_long(
     device="cuda",
     chunk_reads: int = 512,
     seg_batch: int = 4096,
+    mesh=None,
 ) -> OverlapRecords:
-    """All-vs-all overlaps of a LONG read set (multi-kb pads) on `device`."""
+    """All-vs-all overlaps of a LONG read set (multi-kb pads) on `device`.
+
+    In a world of several ranks the sorted index is built on every rank,
+    but the query-read loop (anchors, chaining, segment DPs) is split into
+    contiguous rank blocks on each rank's own device, and the records are
+    gathered back in rank order."""
     dev = resolve_device(device)
-    edit = default_edit()
+    partition = HP.nproc() > 1
+    edit = default_edit(cfg, HP.local_mesh(mesh) if partition else mesh)
     k = cfg.k
     n = pr.n_reads
     read_len = pr.length.astype(np.int64)
@@ -561,7 +586,13 @@ def compute_overlaps_long(
 
     out = {f: [] for f in ("a", "b", "rel", "score", "a_start", "a_end",
                            "b_start", "b_end", "dist")}
-    spans = [(s, min(n, s + chunk_reads)) for s in range(0, n, chunk_reads)]
+    # split at read granularity: per-chunk records come out sorted by
+    # ascending query read, so any chunking of a contiguous read block
+    # concatenates to the same order
+    r_lo, r_hi = HP.block_range(n) if partition else (0, n)
+    spans = [(s, min(r_hi, s + chunk_reads))
+             for s in range(r_lo, r_hi, chunk_reads)]
+    HP.note("long_query_reads", r_hi - r_lo)
     for ci, (q_lo, q_hi) in enumerate(spans):
         if ci % 4 == 0:
             log.info("overlap-long: chunk %d/%d (reads %d-%d)",
@@ -588,6 +619,8 @@ def compute_overlaps_long(
 
     cat = {f: (np.concatenate(v).astype(np.int32) if v
                else np.zeros(0, np.int32)) for f, v in out.items()}
+    if partition:
+        cat = HP.allgather_concat(cat)
     rec = OverlapRecords(
         a_len=pr.length[cat["a"]].astype(np.int32),
         b_len=pr.length[cat["b"]].astype(np.int32), **cat)

@@ -17,7 +17,10 @@ Every stage writes the reference's artifact under the reference's
 config+input digest, so ``resume=True`` skips stages whose artifact matches —
 including artifacts the JAX package wrote (loaded through convert.py).
 
-One process, one device.
+One device a process.  Under ``torchrun --nproc-per-node N`` the mesh is the
+world of ranks (parallel/): counting is split by owner shard, correction,
+overlaps and polish by contiguous rank blocks (gathered back in order),
+arbitration's votes are summed over the ranks, and only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ from hga_tpu_torch.models.overlap import (LAST_TIMINGS as OV_TIMINGS,
                                           compute_overlaps)
 from hga_tpu_torch.models.seeding import find_candidates
 from hga_tpu_torch.models.spectrum import count_reads
+from hga_tpu_torch.parallel import hostpart as HP
+from hga_tpu_torch.parallel.mesh import auto_mesh
 from hga_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -203,9 +208,10 @@ class _Stage:
     def done(self, name: str, t0: float, inputs_digest: str = "") -> None:
         dt = time.perf_counter() - t0
         self.stats["stages"][name] = {"seconds": round(dt, 3)}
-        with open(self._meta_path(name), "w") as fh:
-            json.dump({"config": self.digest, "inputs": inputs_digest,
-                       "seconds": dt}, fh)
+        if HP.is_main():  # one writer per (possibly shared) outdir
+            with open(self._meta_path(name), "w") as fh:
+                json.dump({"config": self.digest, "inputs": inputs_digest,
+                           "seconds": dt}, fh)
         log.info("stage %s: %.2fs", name, dt)
 
 
@@ -216,10 +222,24 @@ def run_pipeline(
     outdir: str,
     resume: bool = False,
     device="cuda",
+    mesh="auto",
 ) -> PipelineResult:
-    """Full hybrid pipeline on one device (``"cuda"`` unless the caller asks
-    for ``"cpu"``; CUDA without a GPU raises)."""
+    """Full hybrid pipeline on `device` (``"cuda"`` unless the caller asks
+    for ``"cpu"``; CUDA without a GPU raises).  mesh: "auto" takes the
+    world of ranks when there are several (parallel/mesh.auto_mesh), None
+    forces the one-device path, or pass a parallel.mesh.Mesh.  With
+    several ranks resume is off and only rank 0 writes."""
     dev = resolve_device(device)
+    if mesh == "auto":
+        mesh = auto_mesh()
+    if HP.nproc() > 1 and resume:
+        # each rank holds different partial work, so a stage's artifact
+        # cannot be known fresh on every rank at once
+        log.warning("multi-process run: disabling --resume")
+        resume = False
+    main = HP.is_main()
+    if mesh is not None:
+        log.info("pipeline: mesh of %d ranks", mesh.size)
     st = _Stage(outdir, resume, cfg)
     t_all = time.perf_counter()
     inputs = _inputs_digest(pr_short, pr_long)
@@ -233,8 +253,9 @@ def run_pipeline(
             spec = convert.load_spectrum(path("spectrum.npz"))
         else:
             t0 = time.perf_counter()
-            spec = count_reads(pr_short, cfg, device=dev)
-            spec.save(path("spectrum.npz"))
+            spec = count_reads(pr_short, cfg, device=dev, mesh=mesh)
+            if main:
+                spec.save(path("spectrum.npz"))
             st.done("spectrum", t0, inputs)
         st.stats["spectrum"] = {"distinct": spec.n_distinct,
                                 "threshold": spec.threshold}
@@ -297,10 +318,11 @@ def run_pipeline(
             if pr_short is not None:
                 asm_reads = correct_long_reads(
                     pr_short, pr_long, cfg_corr, device=dev, solid=solid,
-                    seed_index=short_seed_index())
+                    seed_index=short_seed_index(), mesh=mesh)
             else:
                 asm_reads = pr_long
-            asm_reads.save(path("corrected.npz"))
+            if main:
+                asm_reads.save(path("corrected.npz"))
             st.done("corrected", t0, inputs)
             st.stats["correction_detail"] = dict(CT)
     if asm_reads is None:
@@ -316,9 +338,11 @@ def run_pipeline(
             from hga_tpu_torch.models import overlap_long as OL
 
             t0 = time.perf_counter()
-            ov = OL.compute_overlaps_long(asm_reads, cfg, device=dev)
+            ov = OL.compute_overlaps_long(asm_reads, cfg, device=dev,
+                                          mesh=mesh)
             ov_timings = dict(OL.LAST_TIMINGS)
-            ov.save(path("overlaps.npz"))
+            if main:
+                ov.save(path("overlaps.npz"))
             st.done("overlaps", t0, inputs)
     else:
         # --- stage: candidates (config 2) ---
@@ -332,7 +356,8 @@ def run_pipeline(
             cands = find_candidates(
                 asm_reads, cfg, solid=solid if pr_long is None else None,
                 device=dev)
-            cands.save(path("candidates.npz"))
+            if main:
+                cands.save(path("candidates.npz"))
             st.done("candidates", t0, inputs)
         st.stats["candidates"] = {"n": cands.n_pairs}
 
@@ -342,9 +367,11 @@ def run_pipeline(
             ov = convert.load_overlaps(path("overlaps.npz"))
         else:
             t0 = time.perf_counter()
-            ov = compute_overlaps(asm_reads, cands, cfg, device=dev)
+            ov = compute_overlaps(asm_reads, cands, cfg, device=dev,
+                                  mesh=mesh)
             ov_timings = dict(OV_TIMINGS)
-            ov.save(path("overlaps.npz"))
+            if main:
+                ov.save(path("overlaps.npz"))
             st.done("overlaps", t0, inputs)
     st.stats["overlaps"] = {"n": ov.n, **ov_timings}
 
@@ -355,9 +382,10 @@ def run_pipeline(
         t0 = time.perf_counter()
         res = assemble(asm_reads, ov, cfg, device=dev)
         contigs = res.contigs
-        write_fasta(path("contigs.fasta"), res.contigs)
-        with open(path("assembly.gfa"), "w") as fh:
-            fh.write(res.to_gfa(asm_reads.names, asm_reads.length))
+        if main:
+            write_fasta(path("contigs.fasta"), res.contigs)
+            with open(path("assembly.gfa"), "w") as fh:
+                fh.write(res.to_gfa(asm_reads.names, asm_reads.length))
         st.done("assembly", t0, inputs)
         st.stats["assembly"] = {
             "contigs": len(res.contigs),
@@ -379,8 +407,9 @@ def run_pipeline(
         else:
             t0 = time.perf_counter()
             contigs = ARB.arbitrate_contigs(contigs, pr_long, cfg,
-                                            device=dev)
-            write_fasta(path("arbitrated.fasta"), contigs)
+                                            device=dev, mesh=mesh)
+            if main:
+                write_fasta(path("arbitrated.fasta"), contigs)
             st.done("arbitrate", t0, inputs)
             st.stats["arbitrate_detail"] = dict(ARB.LAST_TIMINGS)
 
@@ -393,18 +422,20 @@ def run_pipeline(
             if p:
                 log.info("polish pass %d/%d", p + 1, cfg.polish_passes)
             polished = polish_contigs(polished, pr_short, cfg, device=dev,
-                                      solid=solid,
+                                      solid=solid, mesh=mesh,
                                       seed_index=short_seed_index())
             for key, v in CT.items():  # sum the split across passes
                 if isinstance(v, (int, float)) and not isinstance(v, bool):
                     pol_tot[key] = round(pol_tot.get(key, 0) + v, 3)
-        write_fasta(path("polished.fasta"), polished)
+        if main:
+            write_fasta(path("polished.fasta"), polished)
         st.done("polish", t0, inputs)
         st.stats["polish_detail"] = pol_tot
 
     st.stats["total_seconds"] = round(time.perf_counter() - t_all, 3)
     st.stats["config"] = json.loads(cfg.to_json())
-    with open(path("run_metrics.json"), "w") as fh:
-        json.dump(st.stats, fh, indent=2)
+    if main:
+        with open(path("run_metrics.json"), "w") as fh:
+            json.dump(st.stats, fh, indent=2)
     return PipelineResult(contigs=contigs, polished=polished,
                           stats=st.stats)

@@ -1,8 +1,9 @@
 """L3 — bit-parallel Myers semi-global edit distance, plain PyTorch version.
 
-Counterpart of ``hga_tpu.ops.myers`` and the plain version of the two CUDA
-kernels in ops/myers_cuda.py: the CPU path of the port, and the yardstick
-each kernel is held against on the card.
+Counterpart of ``hga_tpu.ops.myers`` and the plain version of the CUDA
+kernels in ops/myers_cuda.py (``myers_cols`` that of K1''s carried-state
+mode): the CPU path of the port, and the yardstick each kernel is held
+against on the card.
 
 Semantics (utils/oracle.edit_distance_hw): infix / "HW" mode — the query
 aligns fully, target start and end are free: D[i][0] = i, D[0][j] = 0, the
@@ -78,24 +79,55 @@ def query_planes(q: torch.Tensor, qlen: torch.Tensor, W: int):
     return q0, q1, vq, mend
 
 
-def _columns(qp, t, qlen, tlen, planes: bool):
-    """Run the column recurrence over every target column, from the
-    query's (q0, q1, vq, mend) bit-planes (int32 (N, W), query_planes).
+def myers_init_state(qlen: torch.Tensor, W: int):
+    """Fresh column-0 state (pv, mv, score, best, bj), int32, for a query
+    batch: pv all ones (31 bits), mv 0, score = best = qlen, bj 0."""
+    N = qlen.shape[0]
+    dev = qlen.device
+    ql = qlen.to(torch.int32)
+    return (torch.full((N, W), M31, dtype=torch.int32, device=dev),
+            torch.zeros((N, W), dtype=torch.int32, device=dev),
+            ql.clone(), ql.clone(),
+            torch.zeros(N, dtype=torch.int32, device=dev))
 
-    Returns (best, bj) and, with planes=True, the int32 (Lt, N, W) Pv/Mv
-    planes stored after every column.
+
+def pack_state(state) -> torch.Tensor:
+    """A state tuple as one int32 (N, 2 W + 3) tensor: pv, mv, score, best,
+    bj side by side (K1''s carried-state rows, the ring's message)."""
+    pv, mv, *rest = state
+    return torch.cat([pv.to(torch.int32), mv.to(torch.int32)]
+                     + [x.to(torch.int32)[:, None] for x in rest], dim=1)
+
+
+def unpack_state(st: torch.Tensor, W: int):
+    """pack_state's inverse (views of `st`)."""
+    return (st[:, :W], st[:, W:2 * W], st[:, 2 * W], st[:, 2 * W + 1],
+            st[:, 2 * W + 2])
+
+
+def myers_cols(q0, q1, vq, mend, t, tlen, state, j0: int = 0):
+    """Advance the Myers recurrence over the target columns in `t` (N, Lt)
+    or one shared row (1, Lt), from the query bit-planes (query_planes).
+
+    state: (pv, mv, score, best, bj) from myers_init_state or a previous
+    call; j0 is the GLOBAL index of t's first column (the tlen mask and the
+    tend values stay global).  Returns the state after t's last column:
+    what the ring engine (parallel/ring_myers.py) hands from rank to rank,
+    and the plain version of K1''s carried-state mode.
     """
+    state, _, _ = _cols((q0, q1, vq, mend), t, tlen, state, j0, False)
+    return state
+
+
+def _cols(qp, t, tlen, state, j0: int, planes: bool):
+    """The column recurrence; with planes=True also the int32 (Lt, N, W)
+    Pv/Mv planes stored after every column."""
     q0, q1, vq, mend = (x.to(torch.int64) for x in qp)
     N, W = q0.shape
     Lt = t.shape[1]
     dev = t.device
-    pv = torch.full((N, W), M31, dtype=torch.int64, device=dev)
-    mv = torch.zeros((N, W), dtype=torch.int64, device=dev)
-    ql = qlen.to(torch.int64)
+    pv, mv, score, best, bj = (x.to(torch.int64) for x in state)
     tl = tlen.to(torch.int64)
-    score = ql.clone()
-    best = ql.clone()
-    bj = torch.zeros(N, dtype=torch.int64, device=dev)
     tt = t.to(torch.int64)
     zero = torch.zeros((N, 1), dtype=torch.int64, device=dev)
     pvp = mvp = None
@@ -134,13 +166,28 @@ def _columns(qp, t, qlen, tlen, planes: bool):
         if planes:
             pvp[j] = pv.to(torch.int32)
             mvp[j] = mv.to(torch.int32)
-        take = (score < best) & (j < tl)
-        bj = torch.where(take, j + 1, bj)
+        jg = j0 + j
+        take = (score < best) & (jg < tl)
+        bj = torch.where(take, jg + 1, bj)
         best = torch.where(take, score, best)
-    zero_q = ql == 0
-    res = MyersResult(dist=torch.where(zero_q, 0, best).to(torch.int32),
-                      tend=torch.where(zero_q, 0, bj).to(torch.int32))
-    return res, pvp, mvp
+    out = tuple(x.to(torch.int32) for x in (pv, mv, score, best, bj))
+    return out, pvp, mvp
+
+
+def state_result(qlen: torch.Tensor, state) -> MyersResult:
+    """(dist, tend) of a finished state: best and bj, 0 where qlen = 0."""
+    zero_q = qlen == 0
+    best, bj = state[3], state[4]
+    return MyersResult(dist=torch.where(zero_q, 0, best).to(torch.int32),
+                       tend=torch.where(zero_q, 0, bj).to(torch.int32))
+
+
+def _columns(qp, t, qlen, tlen, planes: bool):
+    """Run the recurrence over every target column from a fresh state.
+    Returns (MyersResult, pv planes, mv planes); planes None unless asked."""
+    state = myers_init_state(qlen, qp[0].shape[1])
+    state, pvp, mvp = _cols(qp, t, tlen, state, 0, planes)
+    return state_result(qlen, state), pvp, mvp
 
 
 def myers_batch(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,

@@ -15,6 +15,12 @@ Counterpart of ``hga_tpu.ops.myers_pallas``:
   pairs is the shared-target mode (utils/evalx.segment_identity): every
   pair runs against that row, which each block stages once; it counts
   apart (``myers_batch_cuda_shared``).
+* ``myers_cols_cuda`` launches K1''s carried-state mode (the same kernel
+  with ``carry`` = 1; counted as ``myers_batch_cuda_carry``): it starts
+  from a given column state (pv, mv, score, best, bj) and returns the state
+  it ends in, over a target chunk whose first column is global column j0 —
+  each step of the ring engine (parallel/ring_myers.py).  Its plain version
+  is ``ops/myers.myers_cols``.
 * ``myers_votes_cuda`` launches K2' (``csrc/myers_votes.cu``
   ``myers_votes_kernel<G, SMEM>``), which replaces ``_myers_planes_kernel``
   (hga_tpu/ops/myers_pallas.py:106) on the correction and polish paths:
@@ -59,14 +65,16 @@ import torch
 
 from hga_tpu_torch.ops import cuda_build
 from hga_tpu_torch.ops.myers import (MAX_WORDS, MyersResult, myers_batch,
-                                     myers_batch_planes, n_words,
-                                     query_planes)
+                                     myers_batch_planes, myers_cols, n_words,
+                                     pack_state, query_planes, state_result,
+                                     unpack_state)
 from hga_tpu_torch.ops.pileup import myers_votes
 
 # launches of each kernel by its wrapper (reset with reset_launches()); K2'
 # counts its two plane homes apart
 LAUNCHES: Dict[str, int] = {"myers_batch_cuda": 0,
                             "myers_batch_cuda_shared": 0,
+                            "myers_batch_cuda_carry": 0,
                             "myers_votes_cuda": 0,
                             "myers_votes_cuda_scratch": 0,
                             "myers_batch_planes_cuda": 0}
@@ -120,6 +128,9 @@ def _gate_lib() -> ctypes.CDLL:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.hga_myers_gate_launch.argtypes = [vp] * 4 + [ci] * 6 + [vp] * 3
         lib.hga_myers_gate_launch.restype = ci
+        lib.hga_myers_gate_carry_launch.argtypes = ([vp] * 4 + [ci] * 7
+                                                    + [vp] * 5)
+        lib.hga_myers_gate_carry_launch.restype = ci
         lib.hga_myers_gate_attrs.argtypes = [ci, ci] + \
             [ctypes.POINTER(ci)] * 2
         lib.hga_myers_gate_attrs.restype = ci
@@ -273,6 +284,60 @@ def myers_batch_cuda(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
         LAUNCHES["myers_batch_cuda_shared" if ops[-1]
                  else "myers_batch_cuda"] += 1
     return MyersResult(*outs)
+
+
+def carry_operands(q, t, qlen, tlen, state, j0: int = 0):
+    """K1''s carried-state launch for one chunk: the caller's codes and
+    lengths as they are, W, GATE_GROUP's lanes a pair, the shared-target
+    flag, j0, the packed input state (int32 (N, 2 W + 3)) and fresh outputs
+    (the state, dist, tend)."""
+    N, W, _ = _check(q, t, qlen, tlen, shared_ok=True)
+    st_in = pack_state(state)
+    if st_in.shape != (N, 2 * W + 3) or st_in.device != q.device:
+        raise ValueError(f"state must be ({N}, {W}) x 2 + ({N},) x 3 int32 "
+                         f"on {q.device}")
+    if j0 < 0:
+        raise ValueError(f"j0={j0} must be >= 0")
+    outs = (torch.empty_like(st_in),) + tuple(
+        torch.empty(N, dtype=torch.int32, device=q.device) for _ in range(2))
+    return (q, t, qlen, tlen, W, GATE_GROUP[W], is_shared(q, t), j0, st_in,
+            outs)
+
+
+def run_carry_kernel(q, t, qlen, tlen, W, G, shared, j0, st_in,
+                     outs) -> None:
+    """Launch K1''s carried-state mode on the current stream."""
+    (N, Lq), Lt = q.shape, t.shape[1]
+    st_out, dist, tend = outs
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _gate_lib().hga_myers_gate_carry_launch(
+            q.data_ptr(), t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(), N,
+            Lq, Lt, W, G, int(shared), j0, st_in.data_ptr(),
+            st_out.data_ptr(), dist.data_ptr(), tend.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"myers gate kernel (carried state) launch "
+                           f"failed: CUDA error {err}")
+
+
+def myers_cols_cuda(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
+                    tlen: torch.Tensor, state, j0: int = 0):
+    """K1''s carried-state mode: advance the DP of the queries q (int32 codes
+    (N, Lq)) over the target chunk t ((N, Lt), or one row (1, Lt) shared by
+    every pair) whose first column is global column j0, from `state`
+    (pv, mv, score, best, bj: int32 (N, W), (N, W), (N,) x 3, as
+    ops/myers.myers_init_state makes it).  Returns (the state after t's
+    last column, MyersResult of that state).  Bit-exact with
+    ops.myers.myers_cols (CPU tensors: that plain version)."""
+    *ops, outs = carry_operands(q, t, qlen, tlen, state, j0)
+    if not q.is_cuda:
+        W = ops[4]
+        st = myers_cols(*query_planes(q, qlen, W), t, tlen, state, j0)
+        return st, state_result(qlen, st)
+    if q.shape[0]:
+        run_carry_kernel(*ops, outs)
+        LAUNCHES["myers_batch_cuda_carry"] += 1
+    return unpack_state(outs[0], ops[4]), MyersResult(*outs[1:])
 
 
 def myers_batch_planes_cuda(q: torch.Tensor, t: torch.Tensor,

@@ -4,8 +4,9 @@ and the short-read pipeline (``hga-torch bench``).
 Counterpart of ``hga_tpu.utils.benchmarks.run_benchmark`` with the modes
 ``sw`` (K3), ``myers`` (K1), ``count``, ``pipeline`` and ``correction``
 (both correction engines: K2' for "myers", the plain-torch scored dirs DP
-for "sw"): the same shapes, JSON keys and cell counts.  ``scaling`` and
-``comm`` (need distribution) raise NotImplementedError.
+for "sw"), ``scaling`` (counting reads/s on one rank, then owner-shard
+counting over the world of ranks) and ``comm`` (the analytic bytes each
+host moves a stage): the same shapes, JSON keys and cell counts.
 
 Roofline of one H100 SXM (NVIDIA data sheet), computed for each shape:
 
@@ -30,7 +31,7 @@ from __future__ import annotations
 
 import subprocess
 import time
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -299,6 +300,134 @@ def bench_pipeline(genome_len: int = 20_000, coverage: float = 20.0,
             **device_info(dev)}
 
 
+def bench_scaling(n_reads: int = 16384, read_len: int = 112, k: int = 21,
+                  device="cuda") -> Dict:
+    """Counting-stage reads/s on one rank, then over the world of ranks by
+    owner-shard counting (parallel/collectives.spectrum_hist_bucketed: one
+    all_to_all route, each rank counting its own bucket of its n/P reads).
+    Host clock around synchronized calls (the collectives are on the path).
+    Ranks that share a card (gloo, staged through host memory) measure the
+    path's cost, not a scaling: the result says so in `note`."""
+    from hga_tpu_torch.ops import count as C
+    from hga_tpu_torch.ops import kmer as K
+    from hga_tpu_torch.parallel import collectives as PC
+    from hga_tpu_torch.parallel.mesh import make_mesh
+
+    dev = resolve_device(device)
+    mesh = make_mesh()
+    P = mesh.size
+    rng = np.random.default_rng(0)
+    W = read_len // 16
+    packed = K.words_to_tensor(rng.integers(0, 2**32, (n_reads, W),
+                                            dtype=np.uint64).astype(np.uint32),
+                               dev)
+    bad = torch.zeros((n_reads, (read_len + 31) // 32), dtype=torch.int32,
+                      device=dev)
+    length = torch.full((n_reads,), read_len, dtype=torch.int32, device=dev)
+
+    def single(p, b, l):
+        kb = K.extract_kmers(p, b, l, k)
+        hi = torch.where(kb.valid, kb.hi, C.SENTINEL)
+        lo = torch.where(kb.valid, kb.lo, C.SENTINEL)
+        ck = C.sort_and_count(hi, lo, kb.valid.to(torch.int32))
+        return C.spectrum_histogram(ck, 16)
+
+    def time_one(f, args, n=3):
+        f(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            f(*args)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) / n
+
+    dt1 = time_one(single, (packed, bad, length))
+    out = {"devices": P, "reads": n_reads,
+           "single_reads_per_s": n_reads / dt1, **device_info(dev)}
+    if P > 1:
+        nb = n_reads // P
+        mine = slice(mesh.rank * nb, (mesh.rank + 1) * nb)
+        cap = 2 * nb * (read_len - k + 1) // P + 64
+
+        def sharded(p, b, l):
+            hist, _ = PC.spectrum_hist_bucketed(mesh, p, b, l, k, cap, 16)
+            return hist
+
+        dtn = time_one(sharded, (packed[mine], bad[mine], length[mine]))
+        out["sharded_reads_per_s"] = n_reads / dtn
+        out["scaling_efficiency"] = dt1 / dtn  # the same total work
+        n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+        if dev.type != "cuda" or P > n_cards:
+            out["note"] = (f"{P} ranks share {dev.type} ({n_cards} card(s)): "
+                           "a cost of the distributed path, not a scaling "
+                           "figure")
+    return out
+
+
+def comm_volume_model(
+    n_short: int = 1_380_000,
+    n_long: int = 10_600,
+    read_len: int = 100,
+    long_len_mean: int = 8000,
+    genome_len: int = 4_600_000,
+    k: int = 21,
+    n_hosts: int = 2,
+    chips_per_host: int = 4,
+    n_overlaps: Optional[int] = None,
+    dcn_gbps: float = 25.0,
+) -> Dict:
+    """Analytic bytes over the network between hosts per pipeline stage for
+    an n-host run (the reference's model, the same arithmetic and dict):
+    owner-shard all_to_all counting, host-partitioned blocks re-replicated
+    by rank-ordered gathers (parallel/collectives.py, parallel/hostpart.py).
+    Defaults are the judged E. coli-scale hybrid set (4.6 Mb, cov 30/20)."""
+    assert n_hosts >= 1 and chips_per_host >= 1
+    cross = (n_hosts - 1) / n_hosts      # share of routed data that leaves
+    # the host under a host-major layout (uniform hash)
+    stages: Dict[str, Dict] = {}
+    # counting: every k-mer routed once to its owner as an (hi, lo) pair
+    n_kmers = n_short * max(read_len - k + 1, 0)
+    local_kmers = n_kmers / n_hosts
+    stages["count_route"] = {
+        "dcn_bytes_per_host": int(local_kmers * 8 * cross),
+        "what": "owner-shard all_to_all of (hi,lo) k-mer pairs",
+    }
+    # correction: every host receives the other hosts' corrected bases
+    corr_bases = n_long * long_len_mean
+    stages["corrected_gather"] = {
+        "dcn_bytes_per_host": int(corr_bases * cross),
+        "what": "rank-ordered allgather of corrected long reads",
+    }
+    # overlaps: survivors re-replicate as 11 int32 fields per record,
+    # ~12 dovetails per corrected read by default
+    if n_overlaps is None:
+        n_overlaps = 12 * n_long
+    stages["overlap_gather"] = {
+        "dcn_bytes_per_host": int(n_overlaps * 11 * 4 * cross),
+        "what": "rank-ordered allgather of PAF-shaped overlap records",
+    }
+    # polish: contig sequences (~genome size) re-replicate once
+    stages["polish_gather"] = {
+        "dcn_bytes_per_host": int(genome_len * cross),
+        "what": "rank-ordered allgather of polished contigs",
+    }
+    total = sum(s["dcn_bytes_per_host"] for s in stages.values())
+    t_dcn = total / (dcn_gbps * 1e9 / 8)
+    return {
+        "n_hosts": n_hosts,
+        "chips_per_host": chips_per_host,
+        "stages": stages,
+        "total_dcn_bytes_per_host": total,
+        "dcn_gbps": dcn_gbps,
+        "dcn_seconds": round(t_dcn, 3),
+        "note": "compare dcn_seconds against measured single-host stage "
+                "seconds/n_hosts (metrics_*.json): efficiency bound "
+                "t_comp / (t_comp/n + dcn_seconds)",
+    }
+
+
 def run_benchmark(what: str = "sw", n_pairs: int = 4096,
                   device="cuda") -> Dict:
     if what == "sw":
@@ -313,8 +442,8 @@ def run_benchmark(what: str = "sw", n_pairs: int = 4096,
         return {eng: bench_correction(n_pairs=n_pairs, engine=eng,
                                       device=device)
                 for eng in ("myers", "sw")}
-    if what in ("scaling", "comm"):
-        raise NotImplementedError(
-            f"bench --what {what} needs the multi-device paths, which are "
-            "not ported yet (ROADMAP Queue 1 item 8: distribution)")
+    if what == "scaling":
+        return bench_scaling(device=device)
+    if what == "comm":
+        return comm_volume_model()
     raise ValueError(what)

@@ -125,32 +125,40 @@ def exact_contig_match(contigs: List[Tuple[str, str]],
 
 def segment_identity(contigs: List[Tuple[str, str]], reference: str,
                      seg: int = 384, batch: int = 4096,
-                     device="cuda") -> Dict[str, float]:
+                     device="cuda", mesh=None) -> Dict[str, float]:
     """Placement-free verification: every `seg`-sized contig segment's
     GLOBAL-best semi-global edit distance against the whole reference
     (both strands appended), summed into one identity number.
 
     Nothing is seeded: a segment that drifted, collapsed a repeat, or is
     chimeric still finds its best placement anywhere and pays its true edit
-    cost.  Each batch of segments goes through K1''s shared-target mode
-    (ops/myers_cuda.myers_batch_cuda with a (1, Lt) target), on one device.
+    cost.  The sweep is the overlap gate's edit engine
+    (models/overlap.default_edit): on one device each batch of segments
+    goes through K1''s shared-target mode (a (1, Lt) target); on a mesh of
+    several ranks the reference's columns are split over the ranks and the
+    DP streams through the ring engine (parallel/ring_myers.py, K1''s
+    carried-state mode), each rank holding Lt / P columns.
     """
     import torch
 
-    from hga_tpu_torch.models.overlap import SENT_BASE
-    from hga_tpu_torch.ops.myers_cuda import myers_batch_cuda
+    from hga_tpu_torch.config import AssemblerConfig
+    from hga_tpu_torch.models.overlap import SENT_BASE, default_edit
+    from hga_tpu_torch.parallel.mesh import pad_to_multiple
     from hga_tpu_torch.utils.device import resolve_device
 
     if not contigs:
         return dict(segment_identity=0.0, n_segments=0)
     dev = resolve_device(device)
-    # shared target: genome . sentinel . revcomp(genome)
+    P = mesh.size if mesh is not None else 1
+    # shared target: genome . sentinel . revcomp(genome), sentinel-padded
+    # to a multiple of the mesh size (the ring's chunks)
     g_fwd, _ = encode_bases(reference)
     g_rc = 3 - g_fwd[::-1]
     t_true = len(g_fwd) * 2 + 1
-    t_row = np.full(t_true, SENT_BASE, np.int32)
+    Lt = pad_to_multiple(t_true, P)
+    t_row = np.full(Lt, SENT_BASE, np.int32)
     t_row[: len(g_fwd)] = g_fwd
-    t_row[len(g_fwd) + 1 :] = g_rc
+    t_row[len(g_fwd) + 1 : t_true] = g_rc
     t1 = torch.from_numpy(t_row[None, :]).to(dev)
 
     # cut contigs into fixed-width segments
@@ -167,13 +175,18 @@ def segment_identity(contigs: List[Tuple[str, str]], reference: str,
     ql = np.array(ql, np.int32)
     n_seg = q.shape[0]
 
+    edit = default_edit(AssemblerConfig(), mesh)
+    B = 1 if P == 1 else max(2 * P, 8)  # batches padded for the ring
     total_dist = 0
     for s0 in range(0, n_seg, batch):
-        qb = torch.from_numpy(q[s0 : s0 + batch]).to(dev)
-        qlb = torch.from_numpy(ql[s0 : s0 + batch]).to(dev)
+        qb, qlb = q[s0 : s0 + batch], ql[s0 : s0 + batch]
+        pad = -qb.shape[0] % B
+        qb = np.pad(qb, ((0, pad), (0, 0)), constant_values=SENT_BASE)
+        qlb = np.pad(qlb, (0, pad))
         tlb = torch.full((qb.shape[0],), t_true, dtype=torch.int32,
                          device=dev)
-        r = myers_batch_cuda(qb, t1, qlb, tlb)
+        r = edit(torch.from_numpy(qb).to(dev), t1,
+                 torch.from_numpy(qlb).to(dev), tlb)
         total_dist += int(r.dist.to(torch.int64).sum())
     span = int(ql.sum())
     return dict(segment_identity=1.0 - total_dist / max(span, 1),

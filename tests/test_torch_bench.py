@@ -1,7 +1,8 @@
 """``hga-torch bench`` against ``hga bench`` (hga_tpu.utils.benchmarks): the
 same modes, JSON keys and cell counts, a roofline computed from the H100's
 constants (not the TPU's 200 GCUPS), both correction engines, and the
-modes not ported yet raise.
+distribution modes `scaling` and `comm` (on one rank here; two ranks in
+test_torch_distributed_pipeline.py).
 Run on the CPU at a few pairs; times and rates here are the CPU's."""
 
 import json
@@ -19,6 +20,9 @@ from hga_tpu_torch.utils import benchmarks as TB
 
 # the JAX modes' keys (hga_tpu/utils/benchmarks.py bench_pipeline, :276)
 PIPELINE_KEYS = {"reads", "seconds", "reads_per_s", "contigs"}
+# bench_scaling's keys (:320-342): one device's, and those a mesh adds
+SCALING_KEYS = {"devices", "reads", "single_reads_per_s"}
+SCALING_MESH_KEYS = {"sharded_reads_per_s", "scaling_efficiency"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -89,9 +93,18 @@ def test_bench_on_cpu_launches_no_kernel(capsys):
 
 
 @pytest.mark.parametrize("what", ["scaling", "comm"])
-def test_unported_modes_raise(what):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        tmain(["bench", "--what", what, "--device", "cpu"])
+def test_unported_modes_raise(what, capsys):
+    """The distribution modes no longer raise: `comm` prints the
+    reference's model dict exactly, `scaling` on one rank the reference's
+    keys of a one-device run (no sharded rate without a second rank)."""
+    if what == "comm":
+        got = _bench(capsys, "--what", "comm")
+        assert got == json.loads(json.dumps(JB.comm_volume_model()))
+        return
+    got = TB.bench_scaling(n_reads=64, device="cpu")
+    assert set(got) == SCALING_KEYS | {"device"}
+    assert got["devices"] == 1 and got["reads"] == 64
+    assert got["single_reads_per_s"] > 0
 
 
 def test_correction_mode_has_the_jax_keys(capsys):

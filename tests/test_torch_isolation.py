@@ -36,7 +36,11 @@ def test_importing_the_port_loads_no_jax():
               "hga_tpu_torch.utils.evalx", "hga_tpu_torch.io.native",
               "hga_tpu_torch.models.pipeline",
               "hga_tpu_torch.models.correction",
-              "hga_tpu_torch.ops.pileup"):
+              "hga_tpu_torch.ops.pileup", "hga_tpu_torch.parallel.mesh",
+              "hga_tpu_torch.parallel.hostpart",
+              "hga_tpu_torch.parallel.collectives",
+              "hga_tpu_torch.parallel.ring_myers",
+              "hga_tpu_torch.parallel.launch"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

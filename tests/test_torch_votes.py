@@ -476,7 +476,8 @@ def test_votes_routes_and_banks():
             assert r.stride % 2 == 0 and r.stride >= 2 * r.W * Lt
             assert r.smem <= TMC.SMEM_MAX and r.pairs * r.G == 32
     assert set(TMC.LAUNCHES) == {"myers_batch_cuda",
-                                 "myers_batch_cuda_shared", "myers_votes_cuda",
+                                 "myers_batch_cuda_shared",
+                                 "myers_batch_cuda_carry", "myers_votes_cuda",
                                  "myers_votes_cuda_scratch",
                                  "myers_batch_planes_cuda"}
     # at W 1, 2 and 4 the DP's 64-bit plane stores of a half-warp (the

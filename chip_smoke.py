@@ -31,10 +31,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      shape; and the correction shape on it); each route's counter must move
   4. the port's main path, run_pipeline(device="cuda") with the judged
      config (copy arbitration on), on a simulated genome with the judged
-     read model; K1' and K2''s launch counters must move, K2' also during
-     the arbitrate stage, and K2's stay 0; per-stage seconds, the
-     arbitrate split, contigs, N50, k-mer identity (>= 0.99, utils/evalx)
-     and genome fraction
+     read model, through hga_tpu_torch.exp.scale_run (simulate,
+     judged_cfg, run, scale_metrics); K1' and K2''s launch counters must
+     move, K2' also during the arbitrate stage, and K2's stay 0; per-stage
+     seconds, the arbitrate split, split_reconciliation (a WARNING fails),
+     contigs, N50, k-mer identity (>= 0.99, utils/evalx) and genome
+     fraction
   5. the same pipeline on a ~20 kb genome on cuda and on cpu: artifacts
      byte-identical / array-equal (arbitrated.fasta included)
   6. CUDA-event times of each kernel (wrapper and kernel alone) and of its
@@ -67,9 +69,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      X2, and `hga-torch bench --what sw|myers|count|pipeline --pairs 8192`
      through cli.main (the K1' and K3' counters must move)
   a. (phase 10) the pipeline on a repeat-bearing genome (sim.repeat_genome)
-     with circular reads, as exp/scale_run.py --repeats --circular runs
-     it: contigs, circular contigs, k-mer identity judged as a circle (>=
-     0.99), genome fraction, then utils/evalx.segment_identity on the card
+     with circular reads, through hga_tpu_torch.exp.scale_run as its
+     --repeats --circular runs it: contigs, circular contigs, k-mer
+     identity judged as a circle (>= 0.99), genome fraction, then
+     utils/evalx.segment_identity on the card
      (K1''s shared-target counter must move); --phase10 picks the genomes
      (repeats, circular, repeats+circular)
 
@@ -89,6 +92,22 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      hga_tpu_torch.cli eval --segs` on NCCL, the same segment_dist; `bench
      --what scaling` on 1 (NCCL) and 2 (gloo) ranks and `--what comm`
 
+  d. the exp/ scripts of hga_tpu_torch.exp as a user runs them, on a copy
+     of phase 4's run directory: bench_corr_tb (K2 and K2' must move; the
+     vote buffers of the K2 planes' traceback, fused_full_S and
+     fused_bounded equal on planted pairs; the three times), reoverlap
+     --polish (K1' must move; overlaps.npz and contigs.fasta equal phase
+     4's), polish_retry 2 passes over reoverlap's contigs (K2' must move,
+     identity >= 0.99 after each pass), count_scale at 200 kb on the card
+     against --device cpu (distinct k-mers, threshold and reads equal),
+     diag_false_ov, diag_graph and asm_sweep (nine variants, base's contig
+     count == reoverlap's); then on a 100 kb sim.repeat_genome:
+     diag_repeat_corr (K2' must move), diag_leak, a scale_run --repeats
+     and diag_polish_votes on its contig (K2' must move).  scale_run,
+     count_scale --device cpu, asm_sweep and diag_leak run as `python -m`
+     in processes of their own beside the others, which run in this
+     process through main() with the command's arguments
+
   b. the native FASTQ reader: phase 4's reads written as FASTQ (the long
      reads also as .fastq.gz), load_reads on the native route against its
      Python reader (array-equal; seconds and reads/s); the scored-SW
@@ -101,8 +120,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 Phase 5 also runs config 3 (100 bp and 300 bp reads) and the
 short-read-only pipeline (8 kb genome) on cuda and on cpu, byte-identical.
-Phases run in the order 0 1 2 3 7 c(kernel) 4 8 a c 5 b 6 9 (phase c
-runs phase 4 when it is not asked for); phase 6 also times K2' at the
+Phases run in the order 0 1 2 3 7 c(kernel) 4 8 a c d 5 b 6 9 (phases c
+and d run phase 4 when it is not asked for); phase 6 also times K2' at the
 arbitration shape, K1''s shared-target mode at segment_identity's shape
 and its carried-state mode at the ring's step shape on 2 ranks.
 
@@ -680,56 +699,32 @@ _SIMULATED: dict = {}
 # phase 8's second drive: 300 bp short reads (Illumina MiSeq 2 x 300), whose
 # refine width (pad 320) takes K3'' (the band route), on a 100 kb genome
 MISEQ_GENOME = 100_000
+# phase d's repeat genome (diag_repeat_corr, diag_leak, diag_polish_votes)
+# and count_scale's genome there (card against CPU), cut from 1 Mb so that
+# the phase stays near two minutes
+DIAG_GENOME = 100_000
+COUNT_GENOME = 200_000
 
 
 def simulate(genome_len: int, seed: int, read_len: int = 100,
              repeats: bool = False, circular: bool = False):
-    """The judged read model (exp/scale_run.py): short 100 bp at 30x, 1%
-    error, pad 112; long reads mean 8 kb, min 1 kb, 10% error, 20x.  Made
-    once per argument set and shared by the phases; `read_len` 300
-    (Illumina MiSeq's 2 x 300 reads) pads to 320; `repeats` takes
-    sim.repeat_genome (rRNA-operon, IS-element and tandem families) and
-    `circular` samples reads across the origin, as exp/scale_run.py
-    --repeats --circular does."""
+    """The judged read model, hga_tpu_torch.exp.scale_run.simulate: (genome,
+    short reads, long reads), made once per argument set and shared by the
+    phases; `read_len` 300 (Illumina MiSeq's 2 x 300 reads) pads to 320."""
     key = (genome_len, seed, read_len, repeats, circular)
     if key not in _SIMULATED:
-        _SIMULATED[key] = _simulate(*key)
+        from hga_tpu_torch.exp import scale_run as SR
+
+        _SIMULATED[key] = SR.simulate(*key)
     return _SIMULATED[key]
-
-
-def _simulate(genome_len: int, seed: int, read_len: int, repeats: bool,
-              circular: bool):
-    from hga_tpu_torch.io.encode import pack_reads
-    from hga_tpu_torch.utils import sim
-
-    genome = (sim.repeat_genome(genome_len, seed=seed) if repeats
-              else sim.random_genome(genome_len, seed=seed))
-    ss, sn = sim.simulate_short_reads(genome, coverage=30.0,
-                                      read_len=read_len, error_rate=0.01,
-                                      seed=seed + 1, circular=circular)
-    ls, ln = sim.simulate_long_reads(genome, coverage=20.0, mean_len=8000,
-                                     min_len=1000, error_rate=0.10,
-                                     seed=seed + 2, circular=circular)
-    pad_s = 112 if read_len == 100 else -(-(read_len + 12) // 32) * 32
-    pr_s = pack_reads(ss, names=sn, pad_len=pad_s)
-    pad_l = ((max(len(s) for s in ls) + 31) // 32) * 32
-    pr_l = pack_reads(ls, names=ln, category=[1] * len(ls), pad_len=pad_l)
-    return genome, pr_s, pr_l
-
-
-def judged_cfg():
-    from hga_tpu_torch.config import AssemblerConfig
-
-    return AssemblerConfig(k=15, w=5, band=64, batch_reads=4096,
-                           min_shared_minimizers=2, min_overlap_len=500,
-                           min_identity=0.75, polish_passes=2,
-                           corr_batch_pairs=4096, min_contig_len=2000)
 
 
 def config3_cfg():
     """Judged config 3 (BASELINE.json configs[2]): the judged config with
     the scored SW refine; min_overlap_len 32 because the judged 500 is for
     corrected long reads and no 100 bp read can reach it."""
+    from hga_tpu_torch.exp.scale_run import judged_cfg
+
     return judged_cfg().replace(overlap_refine="sw", min_overlap_len=32)
 
 
@@ -767,14 +762,15 @@ def stage_launches(MC, into: dict):
 
 def run_judged(label: str, genome_len: int, MC, workdir: str,
                repeats: bool = False, circular: bool = False):
-    """run_pipeline(device="cuda") on the judged config and read model; the
-    main path's launches (K1' and K2' must move, K2' also inside the
-    arbitrate stage, K2 stays 0), stage seconds and splits, and the
-    quality by utils/evalx (judged as a circle when `circular`)."""
+    """The judged pipeline on the card through hga_tpu_torch.exp.scale_run
+    (run, then scale_metrics, as its main() does; run resumes as the JAX
+    script does, here from a fresh directory); the main path's launches
+    (K1' and K2' must move, K2' also inside the arbitrate stage, K2 stays
+    0), stage seconds and splits, split_reconciliation (a WARNING fails),
+    and the quality by utils/evalx (judged as a circle when `circular`)."""
     import torch
 
-    from hga_tpu_torch.models.pipeline import run_pipeline
-    from hga_tpu_torch.utils.evalx import evaluate_contigs
+    from hga_tpu_torch.exp import scale_run as SR
 
     t0 = time.perf_counter()
     genome, pr_s, pr_l = simulate(genome_len, 42, repeats=repeats,
@@ -785,12 +781,9 @@ def run_judged(label: str, genome_len: int, MC, workdir: str,
     MC.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     arb = {}
-    t0 = time.perf_counter()
     with stage_launches(MC, arb):
-        res = run_pipeline(pr_s, pr_l, judged_cfg(),
+        res, wall = SR.run(pr_s, pr_l, SR.judged_cfg(),
                            os.path.join(workdir, label), device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launches = dict(MC.LAUNCHES)
     log(f"  launches on the main path: {json.dumps(launches)}; in the "
         f"arbitrate stage: {json.dumps(arb)}")
@@ -803,10 +796,10 @@ def run_judged(label: str, genome_len: int, MC, workdir: str,
     if launches["myers_batch_planes_cuda"]:
         fail("K2 (myers_batch_planes_cuda) ran on the main path, where K2' "
              "replaces it")
+    metrics, warnings = SR.scale_metrics(res, genome, pr_s, pr_l, wall,
+                                         genome_len / 1e6, repeats, circular)
     stages = {k: v["seconds"] for k, v in res.stats["stages"].items()}
-    ev = evaluate_contigs(res.polished, genome, k=21, circular=circular)
-    ev["circular_contigs"] = sum(
-        1 for n, _ in res.polished if n.endswith("_circular"))
+    ev = metrics["eval"]
     out = dict(genome_len=genome_len, repeats=repeats, circular=circular,
                n_short=pr_s.n_reads, n_long=pr_l.n_reads,
                pipeline_s=round(wall, 3), stage_s=stages,
@@ -816,9 +809,12 @@ def run_judged(label: str, genome_len: int, MC, workdir: str,
                arbitrate_detail=res.stats.get("arbitrate_detail"),
                overlaps=res.stats.get("overlaps"),
                assembly=res.stats.get("assembly"), eval=ev,
+               split_reconciliation=metrics["split_reconciliation"],
                peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3),
                launches=launches, arbitrate_launches=arb)
     log("  pipeline: " + json.dumps(out))
+    if warnings:
+        fail("split_reconciliation: " + "; ".join(warnings))
     if not res.polished:
         fail("the pipeline produced no contig")
     if "arbitrate" not in stages:
@@ -934,6 +930,7 @@ def config3_equal(label, pr_s, pr_l, workdir: str, AC):
 
 
 def phase_cpu_equal(workdir: str, AC):
+    from hga_tpu_torch.exp.scale_run import judged_cfg
     from hga_tpu_torch.models.pipeline import run_pipeline
 
     log("phase 5: the same work on cuda and on cpu, byte-identical")
@@ -1069,6 +1066,7 @@ def phase_sw_engine(workdir: str, MC, AC):
     pipeline's launches on the card."""
     import torch
 
+    from hga_tpu_torch.exp.scale_run import judged_cfg
     from hga_tpu_torch.models import correction as CR
     from hga_tpu_torch.models.pipeline import run_pipeline
 
@@ -1333,6 +1331,7 @@ def _w_distributed(reads: str, outdir: str, genome_fa: str):
     import torch
 
     from hga_tpu_torch import convert
+    from hga_tpu_torch.exp.scale_run import judged_cfg
     from hga_tpu_torch.io.fastq import iter_records
     from hga_tpu_torch.models.pipeline import run_pipeline
     from hga_tpu_torch.ops import myers_cuda as MC
@@ -1515,6 +1514,226 @@ def phase_distributed(genome_len: int, workdir: str, p4: dict):
     log(f"  phase c distribution: {time.perf_counter() - tc:.1f} s")
     return paths, dict(ranks=ranks, one_rank=p4["out"], scaling=bench,
                        comm=comm)
+
+
+@contextlib.contextmanager
+def script_logging():
+    """The scripts call logging.basicConfig(level=INFO); a root handler at
+    WARNING set first makes that a no-op, so the pipeline's INFO lines stay
+    out of this script's output.  The root's handlers are restored."""
+    import logging
+
+    root = logging.getLogger()
+    saved = root.handlers[:]
+    h = logging.StreamHandler(sys.stderr)
+    h.setLevel(logging.WARNING)
+    root.handlers = [h]
+    try:
+        yield
+    finally:
+        root.handlers = saved
+
+
+def run_script(name: str, argv, MC, show: int = 40):
+    """`python -m hga_tpu_torch.exp.<name> argv...` in this process: its
+    main(argv), with the launch counters set to 0 just before and read just
+    after.  Returns (what main returned, its standard output, the
+    launches)."""
+    import importlib
+
+    import torch
+
+    mod = importlib.import_module(f"hga_tpu_torch.exp.{name}")
+    MC.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf), script_logging():
+        ret = mod.main(list(argv))
+    torch.cuda.synchronize()
+    launches = dict(MC.LAUNCHES)
+    text = buf.getvalue()
+    lines = text.splitlines()
+    log(f"  {' '.join([name, *argv])}: {time.perf_counter() - t0:.1f} s, "
+        f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    for ln in lines[:show]:
+        log(f"    | {ln}")
+    if len(lines) > show:
+        log(f"    | ... ({len(lines) - show} more lines)")
+    return ret, text, launches
+
+
+def start_script(name: str, argv, out: str, env=None):
+    """`python -m hga_tpu_torch.exp.<name> argv...` in a subprocess of its
+    own, its output to the file `out`; returns (Popen, out)."""
+    import subprocess
+
+    with open(out, "w") as fh:
+        p = subprocess.Popen(
+            [sys.executable, "-m", f"hga_tpu_torch.exp.{name}", *argv],
+            cwd=HERE, stdout=fh, stderr=subprocess.STDOUT,
+            env=dict(os.environ, **(env or {})))
+    return p, out
+
+
+def wait_script(name: str, proc, out: str) -> str:
+    try:
+        rc = proc.wait(timeout=600)
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    text = open(out).read()
+    if rc:
+        fail(f"python -m hga_tpu_torch.exp.{name} exited {rc}: "
+             f"{text[-3000:]}")
+    return text
+
+
+def phase_scripts(genome_len: int, workdir: str, p4: dict, MC):
+    """Phase d: the exp/ scripts of hga_tpu_torch.exp as a user runs them,
+    on a copy of phase 4's run directory and on a DIAG_GENOME repeat
+    genome.  Four run as `python -m` in processes of their own, started
+    first and run beside the rest: scale_run --repeats (diag_polish_votes'
+    contig), count_scale --device cpu, and the two that launch no counted
+    kernel, asm_sweep and diag_leak.  The others run here, their launch
+    counters read.  Returns {path: launches}."""
+    import torch
+
+    td = time.perf_counter()
+    gmb = str(genome_len / 1e6)
+    cmb = str(COUNT_GENOME / 1e6)
+    rep_kb = str(DIAG_GENOME // 1000)
+    d = os.path.join(workdir, "d_run")
+    shutil.copytree(p4["dir"], d)
+    log(f"phase d: the exp/ scripts on a copy of phase 4's run "
+        f"({genome_len} bp) and a {DIAG_GENOME} bp repeat genome")
+    paths = {}
+
+    # bench_corr_tb first, alone on the card: its times
+    ret, _, L = run_script("bench_corr_tb", [], MC)
+    paths["phase d bench_corr_tb"] = L
+    for name in ("myers_batch_planes_cuda", "myers_votes_cuda"):
+        if L[name] <= 0:
+            fail(f"bench_corr_tb did not launch {name}")
+    # less the sink slot, which the plain traceback writes and K2' not
+    m = {k: v[:-1] for k, v in ret["merged"].items()}
+    if not (torch.equal(m["fused_full_S"], m["fused_bounded"])
+            and torch.equal(m["fused_full_S"], m["dp_only"])):
+        fail("bench_corr_tb: the vote buffers of fused_full_S, "
+             "fused_bounded and the K2 planes' traceback differ")
+    log(f"  ok: bench_corr_tb's three vote buffers equal ({ret['gated']} of "
+        f"{ret['P']} random pairs gated; planted: {ret['planted_gated']}, "
+        f"{int(m['fused_full_S'].sum())} votes); ms "
+        f"{json.dumps(ret['ms'])}")
+
+    rep_dir = os.path.join(workdir, "d_rep")
+    cjson = {dv: os.path.join(workdir, f"d_count_{dv}.json")
+             for dv in ("cuda", "cpu")}
+    bg = {}
+    for label, argv, env in (
+            ("scale_run", [str(DIAG_GENOME / 1e6), rep_dir, "--repeats"], {}),
+            ("count_scale", [cmb, cjson["cpu"], "--device", "cpu"],
+             {"OMP_NUM_THREADS": "2"}),
+            ("asm_sweep", [d, gmb, "42"], {}),
+            ("diag_leak", [rep_kb], {})):
+        bg[label] = start_script(label, argv,
+                                 os.path.join(workdir, f"d_{label}.log"), env)
+    try:
+        paths.update(scripts_here(d, gmb, cmb, rep_kb, workdir, MC, cjson))
+        outs = {k: wait_script(k, *v) for k, v in bg.items()}
+    finally:
+        for proc, _ in bg.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    rows = [json.loads(ln) for ln in outs["asm_sweep"].splitlines()
+            if ln.startswith("{")]
+    log("  asm_sweep (python -m): " + "; ".join(
+        f"{r['variant']} {r['n_contigs']} contigs, identity "
+        f"{r['identity']:.6f}" for r in rows))
+    n_contigs = json.load(open(os.path.join(
+        workdir, "d_reoverlap", "reoverlap_metrics.json")))["n_contigs"]
+    if len(rows) != 9 or "FAILED" in outs["asm_sweep"]:
+        fail(f"asm_sweep printed {len(rows)} of 9 variants")
+    if rows[0]["variant"] != "base" or rows[0]["n_contigs"] != n_contigs:
+        fail(f"asm_sweep base: {rows[0]['n_contigs']} contigs, reoverlap "
+             f"{n_contigs}")
+    leak = outs["diag_leak"].splitlines()
+    log("  diag_leak (python -m): " + " | ".join(leak[:4]))
+    if not any("misplaced" in ln for ln in leak):
+        fail("diag_leak printed no misplaced count")
+
+    # the contigs diag_polish_votes probes; on a repeat genome this small
+    # (seven 5 kb rRNA copies in 100 kb) identity is not held to 0.99
+    rep = json.load(open(os.path.join(rep_dir, "scale_metrics.json")))
+    log(f"  scale_run {DIAG_GENOME / 1e6} --repeats (python -m): "
+        + json.dumps(rep["eval"]))
+    if rep["eval"]["n_contigs"] < 1:
+        fail("scale_run --repeats produced no contig")
+    _, text, L = run_script(
+        "diag_polish_votes", [os.path.join(rep_dir, "contigs.fasta"), rep_kb],
+        MC)
+    paths["phase d diag_polish_votes"] = L
+    if L["myers_votes_cuda"] <= 0 or "votes at sites" not in text:
+        fail("diag_polish_votes did not polish on K2'")
+
+    got = {dv: json.load(open(p)) for dv, p in cjson.items()}
+    keys = ("distinct_kmers", "solid_threshold", "n_reads")
+    if any(got["cuda"][k] != got["cpu"][k] for k in keys):
+        fail(f"count_scale {cmb} Mb: card {[got['cuda'][k] for k in keys]} "
+             f"!= CPU {[got['cpu'][k] for k in keys]}")
+    log(f"  ok: count_scale {cmb} Mb card == CPU: "
+        + json.dumps({k: got["cuda"][k] for k in keys})
+        + f"; seconds first / warm: card {got['cuda']['seconds_first']} / "
+        f"{got['cuda']['seconds_warm']}, CPU {got['cpu']['seconds_first']} "
+        f"/ {got['cpu']['seconds_warm']}")
+    log(f"  phase d scripts: {time.perf_counter() - td:.1f} s")
+    return paths
+
+
+def scripts_here(d: str, gmb: str, cmb: str, rep_kb: str, workdir: str, MC,
+                 cjson: dict):
+    """Phase d's scripts in this process; returns {path: launches}."""
+    paths = {}
+    # reoverlap recomputes phase 4's overlaps and assembly from its
+    # corrected reads: the same records and contigs.  Those contigs are
+    # unpolished (--polish writes them and polishes nothing, as in the JAX
+    # script), so identity >= 0.99 is required after polish_retry polishes
+    # them, in reoverlap's directory.
+    rov = os.path.join(workdir, "d_reoverlap")
+    ret, _, L = run_script("reoverlap", [d, rov, gmb, "42", "--polish"], MC)
+    paths["phase d reoverlap"] = L
+    if L["myers_batch_cuda"] <= 0:
+        fail("reoverlap did not launch K1'")
+    same_outputs({"reoverlap": rov, "phase 4": d}, ("contigs.fasta",),
+                 ("overlaps.npz",))
+    log(f"  reoverlap's (unpolished) contigs: identity {ret['identity']}")
+
+    ret, _, L = run_script("polish_retry", [rov, "2", gmb, "42"], MC)
+    paths["phase d polish_retry"] = L
+    if L["myers_votes_cuda"] <= 0:
+        fail("polish_retry did not launch K2'")
+    for k, v in ret.items():
+        if v["identity"] < 0.99:
+            fail(f"polish_retry {k}: k-mer identity {v['identity']:.5f} "
+                 "< 0.99")
+
+    _, _, L = run_script("count_scale", [cmb, cjson["cuda"]], MC)
+    paths["phase d count_scale"] = L
+    _, text, L = run_script("diag_false_ov", [d], MC, show=12)
+    paths["phase d diag_false_ov"] = L
+    if not text.startswith("records: "):
+        fail("diag_false_ov printed no record count")
+    _, text, L = run_script("diag_graph", [d], MC, show=8)
+    paths["phase d diag_graph"] = L
+    if "cleaned" not in text:
+        fail("diag_graph did not reach the cleaned graph")
+    _, text, L = run_script("diag_repeat_corr", [rep_kb], MC)
+    paths["phase d diag_repeat_corr"] = L
+    if L["myers_votes_cuda"] <= 0 or "[corr ON]" not in text:
+        fail("diag_repeat_corr did not correct on K2'")
+    return paths
 
 
 def read_loci(names):
@@ -1766,6 +1985,7 @@ def carry_row(rng, MC, M, genome_len: int, P: int = 2):
 def phase_times(rng, MC, M, PU, genome_len: int):
     import torch
 
+    from hga_tpu_torch.exp.scale_run import judged_cfg
     from hga_tpu_torch.models import correction as CR
 
     log("phase 6: kernel times (CUDA events, distinct inputs, warm)")
@@ -1916,6 +2136,7 @@ def votes_times(rng, MC, PU, CR):
     wrapper (CUDA events), and the batch on the host clock."""
     import torch
 
+    from hga_tpu_torch.exp.scale_run import judged_cfg
     from hga_tpu_torch.utils import benchmarks as B
 
     band, Lq = 64, 112
@@ -2304,9 +2525,9 @@ def main() -> int:
     ap.add_argument("--genome-len", type=int, default=1_000_000,
                     help="genome length of phases 4, 8 and 10 (default "
                          "1,000,000 bp)")
-    ap.add_argument("--phases", default="0123456789abc",
-                    help="phases to run, 'a' for phase 10, 'b' for phase b "
-                         "and 'c' for phase c (default all)")
+    ap.add_argument("--phases", default="0123456789abcd",
+                    help="phases to run, 'a' for phase 10, 'b', 'c' and "
+                         "'d' for phases b, c and d (default all)")
     ap.add_argument("--phase10", default="repeats+circular",
                     help="phase 10's genomes, comma-separated among "
                          + ", ".join(PHASE10_GENOMES))
@@ -2406,7 +2627,7 @@ def main() -> int:
     paths = {}
     try:
         p4 = None
-        if "4" in ph or "c" in ph:
+        if "4" in ph or "c" in ph or "d" in ph:
             paths["phase 4 hybrid pipeline"], p4 = phase_pipeline(
                 args.genome_len, MC, workdir)
             done("4")
@@ -2423,6 +2644,9 @@ def main() -> int:
             c_paths, _ = phase_distributed(args.genome_len, workdir, p4)
             paths.update(c_paths)
             done("c")
+        if "d" in ph:
+            paths.update(phase_scripts(args.genome_len, workdir, p4, MC))
+            done("d")
         if "5" in ph:
             phase_cpu_equal(workdir, AC)
             done("5")

@@ -58,6 +58,11 @@ log = logging.getLogger(__name__)
 # seconds, bytes shipped host->device
 LAST_TIMINGS: dict = {}
 
+# diagnostics hook (exp/diag_polish_votes): when set to a dict,
+# consensus_backbones stores its vote tensors here, as numpy: votes (nb,
+# Lpad, N_SYM) and ins_votes (nb, Lpad, INS_SLOTS, 4)
+_DEBUG_SINK: Optional[dict] = None
+
 INS_SLOTS = 3
 MAX_VOTE_COLS = 24_000_000  # nb * Lpad budget per correction group
 
@@ -382,6 +387,11 @@ def consensus_backbones(
     sym8, n_ins, packed = PU.consensus_and_insertions(
         merged[:size_all], flat_backbone, min_depth=min_depth,
         size_v=size_v, ins_slots=INS_SLOTS, cap=cap)
+    if _DEBUG_SINK is not None:
+        _DEBUG_SINK.update(
+            votes=merged[:size_v].cpu().numpy().reshape(nb, Lpad, PU.N_SYM),
+            ins_votes=merged[size_v:size_all].cpu().numpy().reshape(
+                nb, Lpad, INS_SLOTS, 4))
     sym_out = sym8.cpu().numpy().reshape(nb, Lpad)
     stride = 1 + INS_SLOTS
     if n_ins > cap:  # error-rate bound blown: dense path, never drop

@@ -55,6 +55,12 @@ log = logging.getLogger(__name__)
 # incl. per-batch readback), n_anchors, n_pairs, n_segments, bytes_up
 LAST_TIMINGS: Dict[str, float] = {}
 
+# diagnostics hook (exp/diag_leak): when set to a dict,
+# find_candidates_cross_indexed appends per-KEPT-candidate stats under
+# these keys: rare_cnt, the bucket's anchored count A, the shared count
+# cnt and the least combined seed frequency min_comb
+_CAND_DEBUG: Optional[dict] = None
+
 SEG = 384          # query bases per segment (Lq_seg = 414 = 14 Myers words)
 SLACK = 32         # target window slack beyond the anchored span, per side
 
@@ -285,6 +291,15 @@ def find_candidates_cross_indexed(
                 n_amb_dropped += int((keep_sel & amb_drop).sum())
                 keep_sel &= ~amb_drop
             sel = o2[keep_sel]
+            if _CAND_DEBUG is not None and rare_cnt is not None:
+                # rare_cnt is set exactly when ganch is, so A is too
+                A_g = np.empty(o2.shape[0], np.int64)
+                A_g[o2] = A
+                mc = np.minimum.reduceat(comb[m][eidx][order], g_first)[keep]
+                _CAND_DEBUG.setdefault("rare_cnt", []).append(rare_cnt[sel])
+                _CAND_DEBUG.setdefault("A", []).append(A_g[sel])
+                _CAND_DEBUG.setdefault("cnt", []).append(gcnt[sel])
+                _CAND_DEBUG.setdefault("min_comb", []).append(mc[sel])
             ga, gb, grel, gdiag = ga[sel], gb[sel], grel[sel], gdiag[sel]
         outs_a.append(ga)
         outs_b.append(gb)

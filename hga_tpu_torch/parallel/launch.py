@@ -38,11 +38,12 @@ def _free_port() -> int:
 
 
 def launch(target: str, nprocs: int, outdir: str,
-           kwargs: Optional[Dict] = None, *, device: str = "cpu",
+           kwargs: Optional[Dict] = None, *, device: str = "cuda",
            threads: int = 1, timeout: float = 600.0,
            pythonpath: Sequence[str] = ()) -> List[Dict]:
     """Run ``target`` ("module:function") in `nprocs` rank processes on
-    `device` ranks; returns each rank's result dict, in rank order.
+    `device` ranks (``"cuda"`` unless the caller asks for ``"cpu"``, as the
+    tests do); returns each rank's result dict, in rank order.
     `pythonpath` adds import roots for the target's module."""
     os.makedirs(outdir, exist_ok=True)
     for f in [".store"] + [f"rank{r}.json" for r in range(nprocs)]:

@@ -115,13 +115,13 @@ def runs(tmp_path_factory):
     pool = concurrent.futures.ThreadPoolExecutor(3)
     port = {P: pool.submit(launch, "test_torch_distributed_pipeline:"
                            "_w_pipeline", P, str(root / f"t{P}"),
-                           {"root": str(root / f"t{P}")}, threads=1,
-                           pythonpath=[HERE], timeout=900)
+                           {"root": str(root / f"t{P}")}, device="cpu",
+                           threads=1, pythonpath=[HERE], timeout=900)
             for P in (2, 4)}
     c3 = pool.submit(launch, "test_torch_distributed_pipeline:_w_config3",
                      2, str(root / "c3"),
-                     {"out": str(root / "c3" / "overlaps.npz")}, threads=1,
-                     pythonpath=[HERE], timeout=600)
+                     {"out": str(root / "c3" / "overlaps.npz")},
+                     device="cpu", threads=1, pythonpath=[HERE], timeout=600)
     jax_dirs = {}
     for P in (2, 4):
         jax_dirs[P] = str(root / f"j{P}")
@@ -216,7 +216,7 @@ def test_bench_scaling_and_comm_on_two_ranks(tmp_path):
             "test_torch_distributed_pipeline:_w_cli", 2,
             str(tmp_path / what),
             {"argv": ["bench", "--what", what, "--device", "cpu"]},
-            threads=1, pythonpath=[HERE], timeout=300), 2)
+            device="cpu", threads=1, pythonpath=[HERE], timeout=300), 2)
         assert outs[1]["stdout"] == ""
         got = json.loads(outs[0]["stdout"])
         if what == "comm":

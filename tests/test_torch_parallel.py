@@ -28,7 +28,7 @@ CAP_SMALL = 8           # a lane capacity that must overflow
 def run_ranks(target, P, outdir, **kw):
     """`target` of this module in P gloo CPU rank processes."""
     outs = launch(f"test_torch_parallel:{target}", P, str(outdir), kw,
-                  threads=1, pythonpath=[HERE], timeout=300)
+                  device="cpu", threads=1, pythonpath=[HERE], timeout=300)
     for o in outs:
         assert not o["jax_loaded"] and not o["hga_tpu_loaded"], o
         assert o["backend"] == "gloo" and o["world"] == P

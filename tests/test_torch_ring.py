@@ -101,8 +101,8 @@ def ranks(tmp_path_factory):
     root = tmp_path_factory.mktemp("ring")
     pool = concurrent.futures.ThreadPoolExecutor(2)
     futs = {P: pool.submit(launch, "test_torch_ring:_w_rings", P,
-                           str(root / f"p{P}"), {"P": P}, threads=1,
-                           pythonpath=[HERE], timeout=400)
+                           str(root / f"p{P}"), {"P": P}, device="cpu",
+                           threads=1, pythonpath=[HERE], timeout=400)
             for P in (2, 4)}
     return futs
 

@@ -2,8 +2,9 @@
 """Chip smoke for the PyTorch/CUDA port (hga_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                     # every phase, 1 Mb genome
-    python3 chip_smoke.py --genome-len 4600000 --phases 014a \
-        --phase10 repeats,circular,repeats+circular   # judged quality rows
+    python3 chip_smoke.py --genome-len 4600000 --phase10-len 4600000 \
+        --phases 014a --phase10 repeats,circular,repeats+circular
+                                              # the judged quality rows
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
   0. card facts: nvidia-smi name/power limit, torch and CUDA versions
@@ -14,11 +15,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      long-overlap shape (N 4096, Lq 414, Lt 478), the config-3 gate shape
      (N 4096, Lq 112, Lt 184, ragged, code-4 padding) and at W 1, 2, 4, 5,
      14, 16, 24 with qlen 0, 1, 31, 32, 62, Lq - 1, ragged tlen and codes
-     -1, 4, 9; then K1''s shared-target mode (one target row for every
-     pair, counted as myers_batch_cuda_shared) at segment_identity's shape
-     (segments of 384, W 13, against genome . sentinel . revcomp of a 10 kb
-     genome: Lt 20001) and at W 4 and W 1 with qlen 0, 1, 31, 32 and target
-     codes -1, 4, 9
+     -1, 4, 9; at W 25, 26, 32-34 (N 4096, Lt = Lq + 72, the split design
+     alone, two words a lane at 33-34) with qlen 0, 1, 744, 745, 775, 992,
+     993, 1023, 1024; past each kernel's word cap (K1' and K2' at W 35, K2
+     at W 25) the wrapper raises and counts nothing; then K1''s
+     shared-target mode (one target row for every pair, counted as
+     myers_batch_cuda_shared) at segment_identity's shape (segments of 384,
+     W 13, against genome . sentinel . revcomp of a 4 kb genome: Lt 8001)
+     and at W 4, W 1, W 26 and W 34 with qlen 0, 1, 31, 32 and target codes
+     -1, 4, 9; and the carried-state mode at W 26 and W 33 (one chunk, 2,
+     3, 8 chunks)
   3. K2 (myers_batch_planes_cuda) == its plain version (dist, tend, Pv, Mv)
      at the correction shape (N 4096, Lq 112, Lt 184), and the traceback
      votes made from each set of planes are equal; then K2'
@@ -26,9 +32,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      its plain version (dist, tend and the vote buffer less its sink) at
      the correction shape (min_identity 0.9, weighted and unweighted, qlen
      0, 1, 31, 62 and multiples of 10, target codes -1 and 9, ragged tlen),
-     at W 1, 2, 11 (300 bp reads) and 24, at copy arbitration's shape (Lq
-     400, W 13, Lt 472), and on the device-scratch route (band 960, by
-     shape; and the correction shape on it); each route's counter must move
+     at W 1, 2, 11 (300 bp reads), 17 and 24 and at copy arbitration's
+     shape (Lq 400, W 13, Lt 472), each on the home its shape takes (the
+     device scratch from W 11: shared memory would hold fewer than 4
+     blocks an SM), W 13 and 17 also forced into shared memory, band 960 and
+     the correction shape on the scratch, and at W 26, 32, 33 and 34 (pads
+     800, 992, 1023, 1024, the scratch by shape); each route's counter
+     must move
   4. the port's main path, run_pipeline(device="cuda") with the judged
      config (copy arbitration on), on a simulated genome with the judged
      read model, through hga_tpu_torch.exp.scale_run (simulate,
@@ -41,13 +51,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      byte-identical / array-equal (arbitrated.fasta included)
   6. CUDA-event times of each kernel (wrapper and kernel alone) and of its
      plain version, GCUPS, bounds and the share of them, registers: K1' in
-     both designs at W 14, 4, 5 and 1, K2, K3' at the refine's shapes
+     both designs at W 14, 4, 5 and 1 and the split design at W 26, 32 and
+     34,
+     K2, K3' at the refine's shapes
      beside K3'' and K3's kernels on the same inputs, K3'' at the 300 bp
      refine's shapes (Lq 320, forward band 64 and reverse band 128) with
      its in-band share, K and shared memory, beside K3's kernel on the same
      inputs (K3's row, forced there); K2' on real correction batches
      (_prep's output) on both plane homes, its shared memory and blocks an
-     SM; and the correction batch split (_prep / K2')
+     SM, and on planted batches at W 26 (the scratch); K2''s two homes at
+     W 13 (arbitration), 11, 17, 20, 22, 24 and 26 (band 64), kernel alone, with
+     the blocks an SM shared memory holds (votes_route's cutoff); and the
+     correction batch split (_prep / K2')
   7. banded_sw_batch_cuda == its plain version, bit-exact, every case
      through the wrapper, whose route counter must move: K3' at the
      refine's forward (N 4096, Lq 112, Lt 184, band 64) and reverse (band
@@ -59,7 +74,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      (rows) at band >= Lq above Lq 256 and band 960 (device scratch); tie
      rows, -1 and 4 codes, qlen/tlen 0 everywhere
   8. judged config 3, compute_overlaps_cross(device="cuda") with the SW
-     refine, on the phase-4 reads: K1' and K3' counters must move, K3''
+     refine, on the judged read model of a 500 kb genome (phase 4's seed):
+     K1' and K3' counters must move, K3''
      and K3 stay 0, truth precision >= 0.95; then 300 bp reads on a 100
      kb genome, whose refine width takes K3'' (K3' and K3 stay 0)
   9. the measurement path: X1 (exp/myers_micro run_b), X2 (exp/sw_variants
@@ -74,7 +90,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      identity judged as a circle (>= 0.99), genome fraction, then
      utils/evalx.segment_identity on the card
      (K1''s shared-target counter must move); --phase10 picks the genomes
-     (repeats, circular, repeats+circular)
+     (repeats, circular, repeats+circular), --phase10-len their length
+     (500 kb by default)
 
   c. distribution (parallel/): K1''s carried-state mode
      (myers_cols_cuda, counted as myers_batch_cuda_carry) == ops/myers
@@ -118,12 +135,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      correct --profile DIR` (the trace must hold K2''s kernel events; the
      device busy share of the traced window); `count` and its spectrum.png
 
+  e. short reads past 24 Myers words: the hybrid pipeline on a 100 kb
+     genome with 780-base short reads (pad 800, W 26, 30x, 1% error) and
+     the judged long-read model (K2' must move in correction and in
+     polish, K1' must move; identity >= 0.99); config 3's overlaps and the
+     short-read-only pipeline on those reads (Myers refine: K1' moves at W
+     26); at 20 kb (short reads at 12x) the hybrid pipeline, config 3 and
+     the short-read-only pipeline at pad 800 and the short-read-only
+     pipeline at pad 1024 (W 34: K1' and K2' on the scratch move) on cuda
+     and on cpu, artifacts byte-identical; hga_tpu_torch.bench.main()
+     (bench.py's keys; K1' and K3' move); graft_entry.entry() == K3''s
+     plain version, bit-exact, and dryrun_multichip(1), a world of one on
+     NCCL
+
 Phase 5 also runs config 3 (100 bp and 300 bp reads) and the
 short-read-only pipeline (8 kb genome) on cuda and on cpu, byte-identical.
-Phases run in the order 0 1 2 3 7 c(kernel) 4 8 a c d 5 b 6 9 (phases c
-and d run phase 4 when it is not asked for); phase 6 also times K2' at the
-arbitration shape, K1''s shared-target mode at segment_identity's shape
-and its carried-state mode at the ring's step shape on 2 ranks.
+Phases run in the order 0 1 2 3 7 c(kernel) 4 8 a c b d 5 e 6 9 (phases c
+and d run phase 4 when it is not asked for).  The CPU side of the card ==
+CPU runs of phases 5, b and e runs in processes of its own (TWIN_THREADS),
+started after phase b, beside phase d and phase 5's card side; phase e
+starts once they have all ended, so no timed pipeline but phase d's
+scripts (which run beside processes of their own anyway) shares the host
+with them.  Phase 6 also times K2' at the arbitration shape, K1''s
+shared-target mode at segment_identity's shape and its carried-state mode
+at the ring's step shape on 2 ranks.
 
 The last three lines of standard output are the `kernels` JSON line, the
 card's `name, power.limit`, and {"ok": true, "device": {...}}.
@@ -189,8 +224,8 @@ _PTXAS_ENTRY = (
     ("K1'", r"myers_gate_kernelILi(\d+)ELi(\d+)E",
      lambda g: f"W{g[0]}G{g[1]}"),
     ("K2", r"myers_kernelILi(\d+)E", lambda g: int(g[0])),
-    ("K2'", r"myers_votes_kernelILi(\d+)ELb([01])E",
-     lambda g: f"G{g[0]}{'smem' if g[1] == '1' else 'scratch'}"),
+    ("K2'", r"myers_votes_kernelILi(\d+)ELi(\d+)ELb([01])E",
+     lambda g: f"G{g[0]}WL{g[1]}{'smem' if g[2] == '1' else 'scratch'}"),
     ("K3'", r"sw_diag_kernelILi(\d+)E", lambda g: f"K{g[0]}"),
     ("K3''", r"sw_band_kernelILi(\d+)E", lambda g: f"K{g[0]}"),
     ("K3", r"sw_kernelILb([01])E",
@@ -206,8 +241,8 @@ _PTXAS_ENTRY = (
 def ptxas_report(text: str):
     """(kernel, instantiation, registers, (spill store bytes, spill load
     bytes)) per instantiation, from nvcc's -Xptxas -v report: K1' by W and
-    lanes a pair, K2 by W, K2' by lanes a pair and plane home, K3' and K3''
-    by slots a lane, K3 by buffer kind, X1 by W, X2 by layout, K, G and
+    lanes a pair, K2 by W, K2' by lanes a pair, words a lane and plane
+    home, K3' and K3'' by slots a lane, K3 by buffer kind, X1 by W, X2 by layout, K, G and
     ablation flags, X3 by C and STEPS."""
     import re
 
@@ -269,6 +304,19 @@ def planted_pairs(rng, N, Lq, Lt, lead=16):
     return q, t, ql, tl
 
 
+def k2v_launches(launches: dict) -> int:
+    """K2''s launches on both plane homes (copy arbitration's chunks, W 13,
+    take the device scratch by shape, correction at W 4 shared memory)."""
+    return launches.get("myers_votes_cuda", 0) + \
+        launches.get("myers_votes_cuda_scratch", 0)
+
+
+def moved(before: dict, now: dict) -> dict:
+    """The launch counters that moved from `before` to `now`, by how
+    much."""
+    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+
+
 def to_dev(*xs):
     import torch
 
@@ -297,14 +345,14 @@ def gate_inputs(rng):
 
 # ---------------------------------------------------------------- phases
 
-def myers_edges(rng, N, Lq, Lt):
-    """Planted pairs with K1's edge cases: qlen 0, 1, 31, 32, 62 and
-    Lq - 1 (those that fit), code 4 past qlen, ragged tlen, codes -1, 4 and
-    9 in queries and targets."""
+def myers_edges(rng, N, Lq, Lt, edges=(0, 1, 31, 32, 62)):
+    """Planted pairs with K1's edge cases: qlen `edges` and Lq - 1 (those
+    that fit), code 4 past qlen, ragged tlen, codes -1, 4 and 9 in queries
+    and targets."""
     import numpy as np
 
     q, t, ql, tl = planted_pairs(rng, N, Lq, Lt)
-    edge = [x for x in (0, 1, 31, 32, 62, Lq - 1) if x <= Lq]
+    edge = [x for x in (*edges, Lq - 1) if x <= Lq]
     ql[:len(edge)] = edge
     q[np.arange(Lq)[None, :] >= ql[:, None]] = 4
     tl[N // 2:] = rng.integers(0, Lt + 1, N - N // 2)   # ragged targets
@@ -375,12 +423,16 @@ def phase_k1_shared(rng, MC, M):
     import torch
 
     errs = []
-    cases = [("shared target, segment_identity shape (10 kb genome: "
-              "Lq 384, W 13, Lt 20001)", segment_inputs(rng, 10_000)),
+    cases = [("shared target, segment_identity shape (4 kb genome: "
+              "Lq 384, W 13, Lt 8001)", segment_inputs(rng, 4_000)),
              ("shared target W 4 (N 1000, Lq 112, Lt 3000)",
               shared_edges(rng, 1000, 112, 3000)),
              ("shared target W 1 (N 300, Lq 20, Lt 1000)",
-              shared_edges(rng, 300, 20, 1000))]
+              shared_edges(rng, 300, 20, 1000)),
+             ("shared target W 26 (N 1000, Lq 800, Lt 3000)",
+              shared_edges(rng, 1000, 800, 3000)),
+             ("shared target W 34 (N 500, Lq 1024, Lt 3000)",
+              shared_edges(rng, 500, 1024, 3000))]
     for label, x in cases:
         args = to_dev(*x)
         t0 = time.perf_counter()
@@ -395,7 +447,7 @@ def phase_k1_shared(rng, MC, M):
         errs += [eq(f"K1' {label} G {MC.GATE_GROUP[W]} {f}",
                     getattr(got, f), getattr(ref, f))
                  for f in ("dist", "tend")]
-        for other in {1, MC.group_width(W)} - {MC.GATE_GROUP[W]}:
+        for other in set(MC.gate_designs(W)) - {MC.GATE_GROUP[W]}:
             *ops, outs = MC.kernel_operands(*args, group=other)
             MC.run_kernel(*ops, outs)
             errs += [eq(f"K1' {label} G {other} {f}", o, getattr(ref, f))
@@ -417,20 +469,63 @@ def phase_k1(rng, MC, M):
                       (512, 24 * 31, 800)):        # W 1, 2, 4, 5, 14, 16, 24
         cases.append((f"W {M.n_words(lq)} (N {n}, Lq {lq}, Lt {lt})",
                       myers_edges(rng, n, lq, lt)))
+    # W 25-34 (the split design alone; two words a lane at 33-34): 745-1054
+    # bases, Lt = Lq + 72
+    for lq in (775, 800, 992, 1023, 1024):         # W 25, 26, 32-34
+        cases.append((f"W {M.n_words(lq)} (N 4096, Lq {lq}, Lt {lq + 72})",
+                      myers_edges(rng, 4096, lq, lq + 72,
+                                  edges=(0, 1, 744, 745, 775, 992, 993,
+                                         1023, 1024))))
     for label, x in cases:
         args = to_dev(*x)
         ref = M.myers_batch(*args)
         W = M.n_words(x[0].shape[1])
+        before = MC.LAUNCHES["myers_batch_cuda"]
         got = MC.myers_batch_cuda(*args)
+        if MC.LAUNCHES["myers_batch_cuda"] != before + 1:
+            fail(f"K1' {label}: myers_batch_cuda did not count")
         G = MC.GATE_GROUP[W]
         errs += [eq(f"K1' {label} G {G} {f}", getattr(got, f),
                     getattr(ref, f)) for f in ("dist", "tend")]
-        for other in {1, MC.group_width(W)} - {G}:
+        for other in set(MC.gate_designs(W)) - {G}:
             *ops, outs = MC.kernel_operands(*args, group=other)
             MC.run_kernel(*ops, outs)
             errs += [eq(f"K1' {label} G {other} {f}", o, getattr(ref, f))
                      for f, o in zip(("dist", "tend"), outs)]
+    cap_check(rng, MC, M)
     return max(errs)
+
+
+def cap_check(rng, MC, M):
+    """Past each kernel's word cap a CUDA batch raises and launches
+    nothing: K1' and K2' at W 35 (Lq 1055), K2 at W 25 (Lq 775)."""
+    import torch
+
+    from hga_tpu_torch.ops import pileup as PU
+
+    def refused(label, fn, *a, **kw):
+        before = dict(MC.LAUNCHES)
+        try:
+            fn(*a, **kw)
+        except ValueError as e:
+            if "query words" not in str(e):
+                raise
+            if moved(before, MC.LAUNCHES):
+                fail(f"{label}: counted a launch before raising")
+            return
+        fail(f"{label} did not raise past its kernel's word cap")
+
+    lq, lq2 = MC.MAX_WORDS * 31 + 1, MC.PLANES_MAX_WORDS * 31 + 1
+    wide = to_dev(*myers_edges(rng, 256, lq, lq + 72))
+    refused("myers_batch_cuda at W 35", MC.myers_batch_cuda, *wide)
+    refused("myers_batch_planes_cuda at W 25", MC.myers_batch_planes_cuda,
+            *to_dev(*myers_edges(rng, 256, lq2, lq2 + 72)))
+    ops, nb, lpad = votes_inputs(rng, 256, lq, 64)
+    size_v = nb * lpad * PU.N_SYM
+    merged = torch.zeros(size_v + nb * lpad * 12 + 1, dtype=torch.int32,
+                         device="cuda")
+    refused("myers_votes_cuda at W 35", MC.myers_votes_cuda, merged,
+            *to_dev(*ops), min_identity=0.75, size_v=size_v, lpad=lpad)
 
 
 def phase_k2(rng, MC, M, PU):
@@ -499,9 +594,10 @@ def votes_inputs(rng, N, Lq, band, nb=8):
 
 
 def votes_check(label, MC, PU, ops, nb, lpad, min_identity, weighted,
-                scratch=False):
+                scratch=False, smem=False):
     """K2' through its wrapper (the route by shape, whose counter must move
-    by one), or forced onto the scratch route, against myers_votes on the
+    by one), or forced onto the scratch route or into shared memory (where
+    the shape's block fits), against myers_votes on the
     same inputs: dist, tend and the vote buffer less its sink, which the
     kernel never writes."""
     import torch
@@ -517,9 +613,14 @@ def votes_check(label, MC, PU, ops, nb, lpad, min_identity, weighted,
     ref_m = torch.zeros(size_all + 1, dtype=torch.int32, device="cuda")
     ref, _ = PU.myers_votes(ref_m, *args, **kw)
     got_m = torch.zeros_like(ref_m)
-    if scratch:
-        r, *kops, outs = MC.votes_operands(got_m, *args, scratch=True, **kw)
-        MC.run_votes_kernel(r, *kops, outs)
+    if scratch or smem:
+        r, ins, scalars, planes, _, outs = MC.votes_operands(
+            got_m, *args, scratch=True, **kw)
+        if smem:
+            r = r._replace(smem=r.smem + r.pairs * r.stride * 4,
+                           scratch=False)
+            planes = None
+        MC.run_votes_kernel(r, ins, scalars, planes, got_m, outs)
         got = MC.MyersResult(*outs)
     else:
         r = MC.votes_route(Lq, ops[1].shape[1])
@@ -543,8 +644,11 @@ def votes_check(label, MC, PU, ops, nb, lpad, min_identity, weighted,
 def phase_k2v(rng, MC, PU):
     """K2' against myers_votes: the correction shape at min_identity 0.9
     (where only float32 gate arithmetic agrees at qlen multiples of 10),
-    W 1, 2, 11, 13 (copy arbitration) and 24 at min_identity 0.75, then the
-    scratch route."""
+    W 1, 2, 11, 13 (copy arbitration), 17 and 24 at min_identity 0.75 on
+    the home the shape takes (W 13 and 17 also forced into the shared
+    memory the route declines), band 960 and the correction shape on the scratch
+    route, then W 26, 32, 33 and 34 (pads 800, 992, 1023 and 1024) on it
+    by shape."""
     log("phase 3: K2' myers_votes_cuda vs plain, bit-exact")
     errs = {"myers_votes_cuda": [], "myers_votes_cuda_scratch": []}
     ops, nb, lpad = votes_inputs(rng, 4096, 112, 64)
@@ -555,17 +659,35 @@ def phase_k2v(rng, MC, PU):
     errs["myers_votes_cuda_scratch"].append(votes_check(
         label, MC, PU, ops, nb, lpad, 0.9, False, scratch=True))
     # W 1, 2, 11 (300 bp reads), copy arbitration's chunks (pad 400 at
-    # k 15: W 13, Lt 472, 2 pairs a warp), W 24, and the scratch route
+    # k 15: W 13, Lt 472, 2 pairs a warp), W 17 (32 lanes a pair), W 24 and
+    # band 960, each on the home its shape takes (the scratch from W 11)
     for n, lq, band in ((4096, 31, 64), (4096, 62, 64), (4096, 320, 64),
-                        (4096, 400, 64), (512, 744, 64), (128, 744, 960)):
+                        (4096, 400, 64), (1024, 527, 64), (512, 744, 64),
+                        (128, 744, 960)):
         ops, nb, lpad = votes_inputs(rng, n, lq, band)
         r = MC.votes_route(lq, lq + band + 8)
+        label = f"W {r.W} (N {n}, Lq {lq}, Lt {lq + band + 8})"
         for weighted in (False, True):
             errs[MC.votes_counter(r)].append(votes_check(
-                f"W {r.W} (N {n}, Lq {lq}, Lt {lq + band + 8})", MC, PU,
-                ops, nb, lpad, 0.75, weighted))
-    if len(errs["myers_votes_cuda_scratch"]) < 3:
+                label, MC, PU, ops, nb, lpad, 0.75, weighted))
+        if lq in (400, 527):
+            # the shared-memory home the route declines (G 16 and 32)
+            errs["myers_votes_cuda"].append(votes_check(
+                label, MC, PU, ops, nb, lpad, 0.75, True, smem=True))
+    if not MC.votes_route(744, 744 + 968).scratch:
         fail("band 960 did not take K2''s scratch route")
+    # short reads padded to 800 (W 26), 992 (W 32), 1023 and 1024 (W 33
+    # and 34: two words a lane) at the correction band, on the scratch by
+    # shape
+    for n, lq in ((2048, 800), (2048, 992), (1024, 1023), (1024, 1024)):
+        ops, nb, lpad = votes_inputs(rng, n, lq, 64)
+        r = MC.votes_route(lq, lq + 72)
+        if not r.scratch:
+            fail(f"K2' at W {r.W} did not take the scratch route")
+        for weighted in (False, True):
+            errs[MC.votes_counter(r)].append(votes_check(
+                f"W {r.W} (N {n}, Lq {lq}, Lt {lq + 72})", MC, PU, ops, nb,
+                lpad, 0.75, weighted))
     return {k: max(v) for k, v in errs.items()}
 
 
@@ -699,6 +821,11 @@ _SIMULATED: dict = {}
 # phase 8's second drive: 300 bp short reads (Illumina MiSeq 2 x 300), whose
 # refine width (pad 320) takes K3'' (the band route), on a 100 kb genome
 MISEQ_GENOME = 100_000
+# phase 8's first drive (config 3 with 100 bp reads) and phase 10's default
+# genome, cut from phase 4's 1 Mb so that the smoke stays near 950 s on a
+# slow host (PERF.md section 4)
+CONFIG3_GENOME = 500_000
+PHASE10_GENOME = 500_000
 # phase d's repeat genome (diag_repeat_corr, diag_leak, diag_polish_votes)
 # and count_scale's genome there (card against CPU), cut from 1 Mb so that
 # the phase stays near two minutes
@@ -736,14 +863,17 @@ def short_only_cfg():
 
 
 @contextlib.contextmanager
-def stage_launches(MC, into: dict):
-    """Count the kernel launches made inside the pipeline's arbitrate stage:
-    models/pipeline calls ARB.arbitrate_contigs through the module, so a
-    wrapper there sees the stage's launches (`into` gets the counter
+def stage_launches(MC, into: dict, where=None, name="arbitrate_contigs"):
+    """Count the kernel launches made inside one of the pipeline's stages,
+    by default the arbitrate stage: models/pipeline calls the stage's
+    function `name` through the module `where` (models/arbitration, or
+    models/pipeline's own names for correct_long_reads and polish_contigs),
+    so a wrapper there sees the stage's launches (`into` gets the counter
     deltas).  It changes nothing the stage computes."""
-    from hga_tpu_torch.models import arbitration as ARB
+    if where is None:
+        from hga_tpu_torch.models import arbitration as where
 
-    inner = ARB.arbitrate_contigs
+    inner = getattr(where, name)
 
     def counted(*a, **kw):
         before = dict(MC.LAUNCHES)
@@ -753,11 +883,11 @@ def stage_launches(MC, into: dict):
             for k, v in MC.LAUNCHES.items():
                 into[k] = into.get(k, 0) + v - before[k]
 
-    ARB.arbitrate_contigs = counted
+    setattr(where, name, counted)
     try:
         yield into
     finally:
-        ARB.arbitrate_contigs = inner
+        setattr(where, name, inner)
 
 
 def run_judged(label: str, genome_len: int, MC, workdir: str,
@@ -790,9 +920,8 @@ def run_judged(label: str, genome_len: int, MC, workdir: str,
     for name in ("myers_batch_cuda", "myers_votes_cuda"):
         if launches[name] <= 0:
             fail(f"{name} was never launched on the main path")
-    if arb.get("myers_votes_cuda", 0) <= 0:
-        fail("K2' (myers_votes_cuda) was never launched in the arbitrate "
-             "stage")
+    if k2v_launches(arb) <= 0:
+        fail("K2' was never launched in the arbitrate stage")
     if launches["myers_batch_planes_cuda"]:
         fail("K2 (myers_batch_planes_cuda) ran on the main path, where K2' "
              "replaces it")
@@ -898,79 +1027,365 @@ def same_outputs(dirs, text, npz) -> None:
         log(f"  ok: {f} arrays equal ({len(za.files)} arrays)")
 
 
-def config3_equal(label, pr_s, pr_l, workdir: str, AC):
-    """Config 3 (compute_overlaps_cross, refine sw) on cuda and on cpu:
-    overlaps.npz and overlaps.paf byte-identical; on cuda the refine must
-    go through the route its width takes, and no other."""
-    from hga_tpu_torch.models.overlap import compute_overlaps_cross
+# ------------------------------------------------ card == CPU twin runs
 
-    cfg = config3_cfg()
-    route = AC.route(pr_s.pad_len, pr_s.pad_len + cfg.band + 8,
-                     cfg.band).kind
-    dirs = {}
-    for dev in ("cuda", "cpu"):
-        AC.reset_launches()
-        t0 = time.perf_counter()
-        ov = compute_overlaps_cross(pr_s, pr_l, cfg, device=dev)
-        d = dirs[dev] = os.path.join(workdir, f"{label}_{dev}")
-        os.makedirs(d)
-        ov.save(os.path.join(d, "overlaps.npz"))
-        with open(os.path.join(d, "overlaps.paf"), "w") as fh:
-            fh.write(ov.to_paf(pr_s.names, pr_l.names))
-        log(f"  {dev}: {ov.n} overlaps in {time.perf_counter() - t0:.1f} s"
-            f"; SW launches {json.dumps(AC.LAUNCHES)}")
-        if ov.n == 0:
-            fail(f"config 3 on {dev} found no overlap")
-        moved = {k for k, n in AC.LAUNCHES.items() if n}
-        want = {AC.ROUTE_COUNTER[route]} if dev == "cuda" else set()
-        if moved != want:
-            fail(f"config 3 on {dev} (pad {pr_s.pad_len}) launched {moved}, "
-                 f"not {want}")
-    same_outputs(dirs, ("overlaps.paf",), ("overlaps.npz",))
+# the runs held byte for byte between the card and the CPU (phases 5, b and
+# e): each runs on the card in this process and on the CPU in a process of
+# its own, all of them started once the timed pipelines of phases 4, 8, 10,
+# c and b are done, beside phase d and phase 5's card side; phase e's timed
+# pipelines wait for them to end; name -> (the text files, the arrays)
+# compared
+_PIPE = ("contigs.fasta", "assembly.gfa", "polished.fasta")
+_HYBRID = (_PIPE + ("arbitrated.fasta",),
+           ("spectrum.npz", "corrected.npz", "overlaps.npz"))
+_SHORT = (_PIPE, ("spectrum.npz", "candidates.npz", "overlaps.npz"))
+_CROSS = (("overlaps.paf",), ("overlaps.npz",))
+TWINS = {"p5_hybrid": _HYBRID, "p5_config3": _CROSS,
+         "p5_config3_300": _CROSS, "p5_short": _SHORT,
+         "b_sw_correct": ((), ("corrected.npz",)), "b_sw_hybrid": _HYBRID,
+         "e_hybrid": _HYBRID, "e_cross": _CROSS, "e_short": _SHORT,
+         "e_short1024": _SHORT}
 
 
-def phase_cpu_equal(workdir: str, AC):
+def _twin_spec(name: str):
+    """(kind, reads (genome, short, long), config) of one twin run: phase
+    5's hybrid pipeline (20 kb), config 3 with 100 and 300 bp reads and
+    the short-read-only pipeline (8 kb); phase b's scored-SW correction
+    engine (correct_long_reads at 8 kb, the 20 kb pipeline); phase e's
+    four runs at E_CUT (pads 800 and 1024)."""
     from hga_tpu_torch.exp.scale_run import judged_cfg
+
+    sw = lambda: judged_cfg().replace(corr_engine="sw")
+    wide = lambda read_len: lambda: e_reads(E_CUT, read_len, 61,
+                                            short_cov=E_CPU_COV)
+    e3 = lambda: e_cfgs()[0]
+    es = lambda: e_cfgs()[1]
+    return {
+        "p5_hybrid": ("pipeline", lambda: simulate(20_000, seed=7),
+                      judged_cfg),
+        "p5_config3": ("cross", lambda: simulate(8_000, seed=8),
+                       config3_cfg),
+        "p5_config3_300": ("cross", lambda: simulate(8_000, seed=9,
+                                                     read_len=300),
+                           config3_cfg),
+        "p5_short": ("short", lambda: simulate(8_000, seed=8),
+                     short_only_cfg),
+        "b_sw_correct": ("correct", lambda: simulate(8_000, seed=8), sw),
+        "b_sw_hybrid": ("pipeline", lambda: simulate(20_000, seed=7), sw),
+        "e_hybrid": ("pipeline", wide(780), judged_cfg),
+        "e_cross": ("cross", wide(780), e3),
+        "e_short": ("short", wide(780), es),
+        "e_short1024": ("short", wide(1000), es),
+    }[name]
+
+
+def twin_run(name: str, outdir: str, device: str) -> int:
+    """One of TWINS on `device`, its artifacts in outdir/name; returns its
+    contigs (reads for a correction, records for config 3)."""
+    from hga_tpu_torch.models import correction as CR
+    from hga_tpu_torch.models.overlap import compute_overlaps_cross
     from hga_tpu_torch.models.pipeline import run_pipeline
 
-    log("phase 5: the same work on cuda and on cpu, byte-identical")
-    log("  the hybrid pipeline, 20 kb genome")
-    _, pr_s, pr_l = simulate(20_000, seed=7)
-    dirs = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        d = dirs[dev] = os.path.join(workdir, f"p5_{dev}")
-        res = run_pipeline(pr_s, pr_l, judged_cfg(), d, device=dev)
-        log(f"  {dev}: {len(res.polished)} contigs in "
-            f"{time.perf_counter() - t0:.1f} s")
-        if not res.polished:
-            fail(f"{dev} run produced no contig")
-    same_outputs(dirs, ("contigs.fasta", "assembly.gfa", "arbitrated.fasta",
-                        "polished.fasta"),
-                 ("spectrum.npz", "corrected.npz", "overlaps.npz"))
+    kind, reads, cfg = _twin_spec(name)
+    _, pr_s, pr_l = reads()
+    d = os.path.join(outdir, name)
+    if kind in ("pipeline", "short"):
+        return len(run_pipeline(pr_s, pr_l if kind == "pipeline" else None,
+                                cfg(), d, device=device).polished)
+    os.makedirs(d)
+    if kind == "correct":
+        out = CR.correct_long_reads(pr_s, pr_l, cfg(), device=device)
+        out.save(os.path.join(d, "corrected.npz"))
+        return out.n_reads
+    ov = compute_overlaps_cross(pr_s, pr_l, cfg(), device=device)
+    ov.save(os.path.join(d, "overlaps.npz"))
+    with open(os.path.join(d, "overlaps.paf"), "w") as fh:
+        fh.write(ov.to_paf(pr_s.names, pr_l.names))
+    return ov.n
 
-    log("  config 3 (compute_overlaps_cross, refine sw), 8 kb genome")
-    _, pr_s, pr_l = simulate(8_000, seed=8)
-    config3_equal("p5c3", pr_s, pr_l, workdir, AC)
-    log("  config 3 with 300 bp reads (pad 320: the refine on K3''), 8 kb")
+
+P5_TWINS = ("p5_hybrid", "p5_config3", "p5_config3_300", "p5_short")
+B_TWINS = ("b_sw_correct", "b_sw_hybrid")
+E_TWINS = ("e_hybrid", "e_cross", "e_short", "e_short1024")
+# torch threads of a CPU twin run: one, or more for the two longest (the
+# plain SW refine at Lq 320 and the sw engine; ~110 s on one thread)
+TWIN_THREADS = {"p5_config3_300": 3, "b_sw_hybrid": 2}
+
+
+@contextlib.contextmanager
+def cpu_twins(names, workdir: str):
+    """Start the CPU side of the twin runs `names`, each in a process of its
+    own (OMP_NUM_THREADS from TWIN_THREADS), writing under workdir/cpu;
+    yields the jobs and stops whatever is still running on the way out."""
+    import subprocess
+
+    jobs = []
+    try:
+        for name in names:
+            out = os.path.join(workdir, f"cpu_{name}.log")
+            call = (f"S.twin_run({name!r}, "
+                    f"{os.path.join(workdir, 'cpu')!r}, 'cpu')")
+            with open(out, "w") as fh:
+                jobs.append((name, out, subprocess.Popen(
+                    [sys.executable, "-c", f"import chip_smoke as S; {call}"],
+                    cwd=HERE, stdout=fh, stderr=subprocess.STDOUT,
+                    env=dict(os.environ, OMP_NUM_THREADS=str(
+                        TWIN_THREADS.get(name, 1))))))
+        yield jobs
+    finally:
+        for _, _, p in jobs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+
+def card_twin(name: str, workdir: str, MC, AC):
+    """The card side of one twin run; returns (its result count, the
+    launches it made)."""
+    import torch
+
+    MC.reset_launches()
+    AC.reset_launches()
     t0 = time.perf_counter()
-    config3_equal("p5c3_300", *simulate(8_000, seed=9, read_len=300)[1:],
-                  workdir, AC)
-    log(f"  config 3 with 300 bp reads: {time.perf_counter() - t0:.1f} s")
+    n = twin_run(name, os.path.join(workdir, "cuda"), "cuda")
+    torch.cuda.synchronize()
+    launches = dict(MC.LAUNCHES, **AC.LAUNCHES)
+    log(f"  {name} on cuda: {n} in {time.perf_counter() - t0:.1f} s; "
+        f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    if n == 0:
+        fail(f"{name} on cuda gave no result")
+    return n, launches
 
-    log("  the short-read-only pipeline (refine sw, arbitrate on), 8 kb")
-    dirs = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        d = dirs[dev] = os.path.join(workdir, f"p5s_{dev}")
-        res = run_pipeline(pr_s, None, short_only_cfg(), d, device=dev)
-        log(f"  {dev}: {res.stats['candidates']['n']} candidates, "
-            f"{res.stats['overlaps']['n']} overlaps, {len(res.polished)} "
-            f"contigs in {time.perf_counter() - t0:.1f} s")
-        if not res.polished:
-            fail(f"short-read-only run on {dev} produced no contig")
-    same_outputs(dirs, ("contigs.fasta", "assembly.gfa", "polished.fasta"),
-                 ("spectrum.npz", "candidates.npz", "overlaps.npz"))
+
+def twins_wait(jobs) -> None:
+    """Wait for the CPU side of `jobs`; fail if one failed."""
+    t0 = time.perf_counter()
+    for name, out, p in jobs:
+        if p.wait(timeout=900):
+            fail(f"the CPU run {name} failed: {open(out).read()[-3000:]}")
+    log(f"  waited {time.perf_counter() - t0:.1f} s for the CPU runs "
+        f"({', '.join(n for n, _, _ in jobs)})")
+
+
+def twins_equal(jobs, workdir: str) -> None:
+    """Wait for the CPU side of `jobs`, then hold each run's artifacts
+    against the card's, byte for byte."""
+    twins_wait(jobs)
+    for name, _, _ in jobs:
+        log(f"  {name}: cuda vs cpu")
+        same_outputs({d: os.path.join(workdir, d, name)
+                      for d in ("cuda", "cpu")}, *TWINS[name])
+
+
+def phase_cpu_equal(workdir: str, MC, AC):
+    """Phase 5, the card side: the hybrid pipeline (20 kb, arbitrated.fasta
+    included), config 3 with 100 and 300 bp reads and the short-read-only
+    pipeline (8 kb) on cuda (main holds them against their CPU side); on
+    cuda config 3's refine must go through the SW route its width takes,
+    and no other."""
+    log("phase 5: the same work on cuda and on cpu, byte-identical")
+    cfg = config3_cfg()
+    for name in P5_TWINS:
+        _, launches = card_twin(name, workdir, MC, AC)
+        if "config3" in name:
+            pad = 320 if name.endswith("300") else 112
+            want = {AC.ROUTE_COUNTER[AC.route(pad, pad + cfg.band + 8,
+                                              cfg.band).kind]}
+            if {k for k in AC.LAUNCHES if launches[k]} != want:
+                fail(f"{name} (pad {pad}) launched {launches}, not {want}")
+
+
+# ---------------------------------------------------------------- phase e
+
+# phase e: short reads past 24 Myers words, 780 bases padded to 800 (W 26)
+# and 1000 padded to 1024 (W 34: two words a lane), K1' and K2' at both;
+# the hybrid pipeline at E_GENOME with the judged read model; the card ==
+# CPU runs at E_CUT with short reads at E_CPU_COV (cut from 30x so that the
+# four CPU runs, in processes of their own, stay near 30-45 s)
+E_GENOME = 100_000
+E_CUT = 20_000
+E_CPU_COV = 12.0
+
+
+def e_reads(genome_len: int, read_len: int, seed: int,
+            short_cov: float = 30.0):
+    """The judged read model (exp/scale_run.simulate_reads) with
+    `read_len`-base short reads at `short_cov`: (genome, short PackedReads
+    padded to read_len + 12 rounded up to 32, long PackedReads)."""
+    from hga_tpu_torch.exp import scale_run as SR
+    from hga_tpu_torch.utils import sim
+
+    genome = sim.random_genome(genome_len, seed=seed)
+    short = sim.simulate_short_reads(genome, coverage=short_cov,
+                                     read_len=read_len, error_rate=0.01,
+                                     seed=seed + 1)
+    long_ = sim.simulate_long_reads(genome, coverage=20.0, mean_len=8000,
+                                    min_len=1000, error_rate=0.10,
+                                    seed=seed + 2)
+    return (genome, *SR.pack(short, long_, read_len))
+
+
+def e_cfgs():
+    """Config 3 and the short-read-only pipeline with the judged config's
+    Myers refine (K1' gates and refines; the SW refine's plain version
+    takes ~10x longer at Lq 800 on the CPU side)."""
+    return (config3_cfg().replace(overlap_refine="myers"),
+            short_only_cfg().replace(overlap_refine="myers"))
+
+
+def e_hybrid(MC, workdir: str):
+    """Phase e, 1: the hybrid pipeline on an E_GENOME genome with 780-base
+    short reads (pad 800, 30x, 1% error) and the judged long-read model:
+    K2' must move in correction and in polish, on the route W 26 takes,
+    K1' must move; identity >= 0.99."""
+    import torch
+
+    from hga_tpu_torch.exp import scale_run as SR
+    from hga_tpu_torch.models import pipeline as PL
+
+    genome, pr_s, pr_l = e_reads(E_GENOME, 780, 45)
+    W = (pr_s.pad_len + 30) // 31
+    key = MC.votes_counter(MC.votes_route(pr_s.pad_len,
+                                          pr_s.pad_len + 64 + 8))
+    log(f"  {pr_s.n_reads} short reads (pad {pr_s.pad_len}, W {W}) + "
+        f"{pr_l.n_reads} long reads; K2''s route at W {W}: {key}")
+    MC.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    corr, pol = {}, {}
+    t0 = time.perf_counter()
+    with stage_launches(MC, corr, PL, "correct_long_reads"), \
+            stage_launches(MC, pol, PL, "polish_contigs"):
+        res, wall = SR.run(pr_s, pr_l, SR.judged_cfg(),
+                           os.path.join(workdir, "e100_hybrid"),
+                           device="cuda")
+    launches = dict(MC.LAUNCHES)
+    metrics, _ = SR.scale_metrics(res, genome, pr_s, pr_l, wall,
+                                  E_GENOME / 1e6, False, False)
+    ev = metrics["eval"]
+    out = dict(pipeline_s=round(wall, 3), stage_s={
+        k: v["seconds"] for k, v in res.stats["stages"].items()},
+        launches=launches, correction=corr, polish=pol,
+        contigs=ev.get("n_contigs"), identity=ev["identity"],
+        genome_fraction=ev.get("genome_fraction"),
+        peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3))
+    log("  e hybrid: " + json.dumps(out))
+    for stage, got in (("correction", corr), ("polish", pol)):
+        if got.get(key, 0) <= 0:
+            fail(f"K2' ({key}) did not move in {stage} at W {W}")
+    if launches["myers_batch_cuda"] <= 0:
+        fail("K1' did not move on the hybrid pipeline")
+    if ev["identity"] < 0.99:
+        fail(f"k-mer identity {ev['identity']:.5f} < 0.99")
+    log(f"  e hybrid: {time.perf_counter() - t0:.1f} s")
+    return launches, pr_s, pr_l
+
+
+def e_short(MC, pr_s, pr_l, workdir: str):
+    """Phase e, 2: config 3's overlaps and the short-read-only pipeline on
+    phase e's 100 kb short reads (pad 800): K1' must move at W 26."""
+    from hga_tpu_torch.models.overlap import compute_overlaps_cross
+    from hga_tpu_torch.models.pipeline import run_pipeline
+
+    cross_cfg, short_cfg = e_cfgs()
+    MC.reset_launches()
+    t0 = time.perf_counter()
+    ov = compute_overlaps_cross(pr_s, pr_l, cross_cfg, device="cuda")
+    t1 = time.perf_counter()
+    res = run_pipeline(pr_s, None, short_cfg,
+                       os.path.join(workdir, "e100_short"), device="cuda")
+    launches = dict(MC.LAUNCHES)
+    log(f"  e config 3: {ov.n} records in {t1 - t0:.1f} s; short-read-only "
+        f"pipeline: {res.stats['overlaps']['n']} overlaps, "
+        f"{len(res.polished)} contigs in {time.perf_counter() - t1:.1f} s; "
+        f"launches {json.dumps(launches)}")
+    if ov.n == 0 or not res.polished:
+        fail("phase e's short reads gave no record or no contig")
+    if launches["myers_batch_cuda"] <= 0:
+        fail("K1' did not move on config 3 at W 26")
+    return launches
+
+
+def e_bench(MC, AC):
+    """Phase e, 5: hga_tpu_torch.bench.main() in this process: one JSON
+    line with bench.py's keys in its order; K1' and K3' must move."""
+    from hga_tpu_torch import bench
+
+    before = (dict(MC.LAUNCHES), dict(AC.LAUNCHES))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main([])
+    lines = buf.getvalue().strip().splitlines()
+    line = json.loads(lines[-1])
+    log(f"  e bench: {lines[0]} | {lines[-1]}")
+    keys = ["metric", "value", "unit", "vs_baseline", "scored_sw_gcups",
+            "scored_sw_impl"]
+    if rc or list(line) != keys or line["metric"] != \
+            "overlap_dp_gcups_per_chip" or line["scored_sw_impl"] != "cuda_k3":
+        fail(f"hga_tpu_torch.bench printed {lines[-1]}")
+    got = {**moved(before[0], MC.LAUNCHES), **moved(before[1], AC.LAUNCHES)}
+    if got.get("myers_batch_cuda", 0) <= 0 or \
+            got.get("banded_sw_batch_cuda", 0) <= 0:
+        fail(f"hga_tpu_torch.bench moved {got}, not K1' and K3'")
+    return got
+
+
+def e_graft(AC, A):
+    """Phase e, 6: graft_entry.entry() on the card == K3''s plain version on
+    the same inputs, bit-exact (K3' must move), then dryrun_multichip(1), a
+    world of one on NCCL."""
+    from hga_tpu_torch import graft_entry as GE
+
+    fn, args = GE.entry()
+    before = dict(AC.LAUNCHES)
+    got = fn(*args)
+    step = moved(before, AC.LAUNCHES)
+    if step != {"banded_sw_batch_cuda": 1}:
+        fail(f"graft_entry.entry()'s step moved {step}, not K3' once")
+    ref = A.banded_sw_batch(*args, **fn.keywords)
+    err = max(eq(f"graft_entry.entry() {f}", getattr(got, f),
+                 getattr(ref, f)) for f in ("score", "qend", "tend"))
+    t0 = time.perf_counter()
+    (rank0,) = GE.dryrun_multichip(1)
+    log(f"  e dryrun_multichip(1): backend {rank0['backend']}, "
+        f"{len(rank0['polished'])} polished contigs, launches "
+        f"{json.dumps(rank0['launches'])}, {time.perf_counter() - t0:.1f} s")
+    if rank0["backend"] != "nccl" or rank0["world"] != 1:
+        fail(f"dryrun_multichip(1) ran on {rank0['backend']}, not NCCL")
+    for k in ("banded_sw_batch_cuda", "myers_batch_cuda_carry",
+              "myers_batch_cuda"):
+        if rank0["launches"].get(k, 0) <= 0:
+            fail(f"dryrun_multichip(1) did not launch {k}")
+    return step, rank0["launches"], err
+
+
+def phase_wide(workdir: str, MC, AC, A, jobs):
+    """Phase e (see the module docstring; `jobs`: the CPU side of its twin
+    runs, ended before it starts); returns its paths' launches and K3''s
+    error on graft_entry's step."""
+    log("phase e: short reads past 24 words (pads 800 and 1024), "
+        "hga_tpu_torch.bench and graft_entry")
+    te = time.perf_counter()
+    paths = {}
+    paths["phase e hybrid, pad 800"], pr_s, pr_l = e_hybrid(MC, workdir)
+    paths["phase e config 3 and short-only, pad 800"] = e_short(
+        MC, pr_s, pr_l, workdir)
+    for name in E_TWINS:
+        _, launches = card_twin(name, workdir, MC, AC)
+        if name == "e_short1024" and not (
+                launches["myers_batch_cuda"] > 0
+                and launches["myers_votes_cuda_scratch"] > 0):
+            fail(f"{name}: K1' and K2' (scratch) did not both move at W 34: "
+                 f"{launches}")
+        paths[f"phase e {name}, {E_CUT} bp"] = launches
+    MC.reset_launches()
+    AC.reset_launches()
+    paths["phase e hga_tpu_torch.bench"] = e_bench(MC, AC)
+    g_moved, rank_launches, err = e_graft(AC, A)
+    paths["phase e graft_entry.entry()"] = g_moved
+    paths["phase e dryrun_multichip(1), rank 0"] = rank_launches
+    twins_equal(jobs, workdir)
+    log(f"  phase e: {time.perf_counter() - te:.1f} s")
+    return paths, err
 
 
 def write_reads(path: str, pr) -> int:
@@ -1059,68 +1474,23 @@ def phase_native(genome_len: int, workdir: str):
 
 
 def phase_sw_engine(workdir: str, MC, AC):
-    """Phase b, the scored-SW correction engine (corr_engine="sw", plain
-    torch): correct_long_reads on an 8 kb genome, then phase 5's 20 kb
-    hybrid pipeline, each on cuda and on cpu, byte-identical; K1' (long
-    overlaps) must move on the card and K2' must not.  Returns the
-    pipeline's launches on the card."""
-    import torch
-
-    from hga_tpu_torch.exp.scale_run import judged_cfg
-    from hga_tpu_torch.models import correction as CR
-    from hga_tpu_torch.models.pipeline import run_pipeline
-
-    cfg = judged_cfg().replace(corr_engine="sw")
+    """Phase b, the card side of the scored-SW correction engine
+    (corr_engine="sw", plain torch): correct_long_reads on an 8 kb genome,
+    then phase 5's 20 kb hybrid pipeline; K1' (long overlaps) must move on
+    the card and K2' must not.  Returns the pipeline's launches on the
+    card."""
     k2v = ("myers_votes_cuda", "myers_votes_cuda_scratch",
            "myers_batch_planes_cuda")
-    log("phase b: corr_engine='sw', correct_long_reads on an 8 kb genome, "
-        "cuda and cpu")
-    _, pr_s, pr_l = simulate(8_000, seed=8)
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        MC.reset_launches()
-        t0 = time.perf_counter()
-        outs[dev] = CR.correct_long_reads(pr_s, pr_l, cfg, device=dev)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        log(f"  {dev}: {outs[dev].n_reads} reads in "
-            f"{time.perf_counter() - t0:.1f} s, "
-            f"{CR.LAST_TIMINGS.get('n_batches')} batches, loop "
-            f"{CR.LAST_TIMINGS.get('loop_s')} s")
-        if any(MC.LAUNCHES[k] for k in k2v):
-            fail(f"the sw engine launched a Myers planes kernel on {dev}: "
-                 f"{json.dumps(MC.LAUNCHES)}")
-    same_reads("correct_long_reads(corr_engine='sw'), cuda vs cpu",
-               outs["cuda"], outs["cpu"])
-    log("  ok: corrected reads equal on cuda and cpu")
-
-    log("phase b: corr_engine='sw', the hybrid pipeline, 20 kb genome")
-    _, pr_s, pr_l = simulate(20_000, seed=7)
-    dirs, launches = {}, {}
-    for dev in ("cuda", "cpu"):
-        MC.reset_launches()
-        AC.reset_launches()
-        t0 = time.perf_counter()
-        d = dirs[dev] = os.path.join(workdir, f"pb_sw_{dev}")
-        res = run_pipeline(pr_s, pr_l, cfg, d, device=dev)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            launches = dict(MC.LAUNCHES, **AC.LAUNCHES)
-        stages = {k: v["seconds"] for k, v in res.stats["stages"].items()}
-        log(f"  {dev}: {len(res.polished)} contigs in "
-            f"{time.perf_counter() - t0:.1f} s; stages {json.dumps(stages)}"
-            f"; correction {json.dumps(res.stats.get('correction_detail'))}")
-        if not res.polished:
-            fail(f"the sw-engine pipeline on {dev} produced no contig")
-    log(f"  launches on the card: {json.dumps(launches)}")
+    log("phase b: corr_engine='sw', correct_long_reads on an 8 kb genome "
+        "and the hybrid pipeline on a 20 kb one, cuda and cpu")
+    for name in ("b_sw_correct", "b_sw_hybrid"):
+        _, launches = card_twin(name, workdir, MC, AC)
+        if any(launches[k] for k in k2v):
+            fail(f"the sw engine launched a Myers planes kernel in {name}: "
+                 f"{json.dumps(launches)}")
     if launches["myers_batch_cuda"] <= 0:
         fail("K1' (myers_batch_cuda) was never launched by the sw-engine "
              "pipeline's long overlaps")
-    if any(launches[k] for k in k2v):
-        fail("the sw-engine pipeline launched K2'/K2")
-    same_outputs(dirs, ("contigs.fasta", "assembly.gfa", "arbitrated.fasta",
-                        "polished.fasta"),
-                 ("spectrum.npz", "corrected.npz", "overlaps.npz"))
     return launches
 
 
@@ -1220,9 +1590,9 @@ def phase_profile(cli, workdir: str, MC):
 
 
 def phase_b(genome_len: int, workdir: str, MC, AC):
-    """Phase b: the native reader, the sw correction engine, bench
-    --what correction, --profile and spectrum.png.  Returns {path:
-    launches}."""
+    """Phase b: the native reader, the card side of the sw correction
+    engine's twin runs (their CPU side runs later, see main), bench --what
+    correction, --profile and spectrum.png.  Returns {path: launches}."""
     from hga_tpu_torch import cli
 
     tb = time.perf_counter()
@@ -1230,7 +1600,7 @@ def phase_b(genome_len: int, workdir: str, MC, AC):
     log(f"  native reader: {time.perf_counter() - tb:.1f} s")
     t0 = time.perf_counter()
     paths = {"phase b sw-engine pipeline": phase_sw_engine(workdir, MC, AC)}
-    log(f"  sw engine: {time.perf_counter() - t0:.1f} s")
+    log(f"  sw engine on the card: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     _, paths["phase b bench correction"] = bench_correction_path(cli, MC)
     log(f"  bench: {time.perf_counter() - t0:.1f} s")
@@ -1286,41 +1656,69 @@ def phase_carry(rng, MC, M):
              ("per-pair edges (W 1: N 1024, Lq 20, Lt 64)",
               myers_edges(rng, 1024, 20, 64))]
     for label, x in cases:
-        args = to_dev(*x)
-        q, t, ql, tl = args
-        W, Lt = M.n_words(q.shape[1]), t.shape[1]
-        t0 = time.perf_counter()
-        ref = M.myers_cols(*M.query_planes(q, ql, W), t, tl,
-                           M.myers_init_state(ql, W))
-        torch.cuda.synchronize()
-        log(f"  plain myers_cols ({label}): {time.perf_counter() - t0:.1f} s")
-        one = MC.myers_batch_cuda(*args)
-        st, res = MC.myers_cols_cuda(*args, M.myers_init_state(ql, W))
-        for f, a, b in zip(("pv", "mv", "score", "best", "bj"), st, ref):
-            errs.append(eq(f"carry {label}: {f}", a, b))
-        ref_res = M.state_result(ql, ref)
-        for f in ("dist", "tend"):
-            errs.append(eq(f"carry {label}: {f} vs plain", getattr(res, f),
-                           getattr(ref_res, f)))
-            errs.append(eq(f"carry {label}: {f} vs one-shot K1'",
-                           getattr(res, f), getattr(one, f)))
-        splits = [chunk_cuts(Lt, n, rng) for n in (2, 3, 8)]
-        if Lt > 2113:
-            splits.append([1, 31, 32, 1024, 1025, Lt - 2113])
-        for cuts in splits:
-            st_c, res_c = carry_chain(MC, M, args, cuts)
-            tag = f"carry {label} over {len(cuts)} chunks"
-            errs += [eq(f"{tag}: state", torch.stack([x.flatten() for x in
-                                                      st_c[2:]]),
-                        torch.stack([x.flatten() for x in st[2:]])),
-                     eq(f"{tag}: pv, mv", torch.cat(st_c[:2], 1),
-                        torch.cat(st[:2], 1)),
-                     eq(f"{tag}: dist", res_c.dist, one.dist),
-                     eq(f"{tag}: tend", res_c.tend, one.tend)]
+        errs += carry_case(rng, MC, M, label, x)
     moved = MC.LAUNCHES["myers_batch_cuda_carry"] - before
     if moved <= 0:
         fail("myers_batch_cuda_carry did not count")
     log(f"  myers_batch_cuda_carry moved by {moved}")
+    return max(errs)
+
+
+def carry_case(rng, MC, M, label, x):
+    """One case of the carried-state mode: one chunk == myers_cols (state
+    and result) == one-shot K1', and chains over 2, 3 and 8 chunks (and 1,
+    31, 32, 1024, 1025, ... columns where Lt allows) == one chunk."""
+    import torch
+
+    errs = []
+    args = to_dev(*x)
+    q, t, ql, tl = args
+    W, Lt = M.n_words(q.shape[1]), t.shape[1]
+    t0 = time.perf_counter()
+    ref = M.myers_cols(*M.query_planes(q, ql, W), t, tl,
+                       M.myers_init_state(ql, W))
+    torch.cuda.synchronize()
+    log(f"  plain myers_cols ({label}): {time.perf_counter() - t0:.1f} s")
+    one = MC.myers_batch_cuda(*args)
+    st, res = MC.myers_cols_cuda(*args, M.myers_init_state(ql, W))
+    for f, a, b in zip(("pv", "mv", "score", "best", "bj"), st, ref):
+        errs.append(eq(f"carry {label}: {f}", a, b))
+    ref_res = M.state_result(ql, ref)
+    for f in ("dist", "tend"):
+        errs.append(eq(f"carry {label}: {f} vs plain", getattr(res, f),
+                       getattr(ref_res, f)))
+        errs.append(eq(f"carry {label}: {f} vs one-shot K1'",
+                       getattr(res, f), getattr(one, f)))
+    splits = [chunk_cuts(Lt, n, rng) for n in (2, 3, 8)]
+    if Lt > 2113:
+        splits.append([1, 31, 32, 1024, 1025, Lt - 2113])
+    for cuts in splits:
+        st_c, res_c = carry_chain(MC, M, args, cuts)
+        tag = f"carry {label} over {len(cuts)} chunks"
+        errs += [eq(f"{tag}: state", torch.stack([x.flatten() for x in
+                                                  st_c[2:]]),
+                    torch.stack([x.flatten() for x in st[2:]])),
+                 eq(f"{tag}: pv, mv", torch.cat(st_c[:2], 1),
+                    torch.cat(st[:2], 1)),
+                 eq(f"{tag}: dist", res_c.dist, one.dist),
+                 eq(f"{tag}: tend", res_c.tend, one.tend)]
+    return errs
+
+
+def phase_carry_wide(rng, MC, M):
+    """Phase 2's carried-state cases at W 26 and W 33 (the last lane's
+    spare word past the query: per-pair rows, N 2048, Lt = Lq + 72);
+    myers_batch_cuda_carry must move."""
+    before = MC.LAUNCHES["myers_batch_cuda_carry"]
+    errs = []
+    for lq in (800, 1023):
+        errs += carry_case(
+            rng, MC, M, f"W {M.n_words(lq)} (per-pair rows: N 2048, Lq {lq}, "
+            f"Lt {lq + 72})", myers_edges(rng, 2048, lq, lq + 72,
+                                          edges=(0, 1, 744, 745, 775, 993,
+                                                 1023)))
+    if MC.LAUNCHES["myers_batch_cuda_carry"] <= before:
+        fail("myers_batch_cuda_carry did not count at W 26 and 33")
     return max(errs)
 
 
@@ -1430,7 +1828,7 @@ def phase_distributed(genome_len: int, workdir: str, p4: dict):
         for name in ("myers_batch_cuda", "myers_votes_cuda"):
             if o["launches"][name] <= 0:
                 fail(f"rank {r}: {name} never launched in the pipeline")
-        if o["arbitrate_launches"].get("myers_votes_cuda", 0) <= 0:
+        if k2v_launches(o["arbitrate_launches"]) <= 0:
             fail(f"rank {r}: K2' never launched in the arbitrate stage")
     log(f"  two ranks: {wall:.1f} s wall (launch included); phase 4, one "
         f"rank: {p4['out']['pipeline_s']} s, stages "
@@ -1875,7 +2273,7 @@ def gate_row(MC, M, sets):
                    M.myers_batch, cells, ops, nbytes, [MC.LAUNCHES])
     row.update(zip(("registers", "local_bytes"), MC.kernel_attrs(W, group=G)),
                blocks=MC.gate_blocks(N, G), designs={})
-    for g in sorted({1, MC.group_width(W)}):
+    for g in MC.gate_designs(W):
         ms = B.cuda_ms(MC.run_kernel,
                        [MC.kernel_operands(*a, group=g) for a in sets], 20,
                        passes=3)
@@ -1983,8 +2381,6 @@ def carry_row(rng, MC, M, genome_len: int, P: int = 2):
 
 
 def phase_times(rng, MC, M, PU, genome_len: int):
-    import torch
-
     from hga_tpu_torch.exp.scale_run import judged_cfg
     from hga_tpu_torch.models import correction as CR
 
@@ -1999,6 +2395,12 @@ def phase_times(rng, MC, M, PU, genome_len: int):
     for name, lq in (("W5", 128), ("W1", 31)):
         rows["myers_batch_cuda"][name] = gate_row(MC, M, [
             to_dev(*planted_pairs(rng, 4096, lq, 192)) for _ in range(4)])
+    # short reads padded to 800 (W 26), 992 (W 32) and 1024 (W 34, two words
+    # a lane), the split design alone, against windows of Lq + 72
+    for name, lq in (("W26", 800), ("W32", 992), ("W34", 1024)):
+        rows["myers_batch_cuda"][name] = gate_row(MC, M, [
+            to_dev(*planted_pairs(rng, 4096, lq, lq + 72))
+            for _ in range(4)])
     sets = [to_dev(*planted_pairs(rng, 4096, 112, 184)) for _ in range(4)]
     rows["myers_batch_planes_cuda"] = time_row(
         dict(N=4096, Lq=112, Lt=184, W=4), MC.myers_batch_planes_cuda, sets,
@@ -2017,15 +2419,56 @@ def phase_times(rng, MC, M, PU, genome_len: int):
         arb[0][2], judged_cfg().min_identity)
     rows["myers_batch_cuda_shared"] = shared_row(rng, MC, M, genome_len)
     rows["myers_batch_cuda_carry"] = carry_row(rng, MC, M, genome_len)
-    # the scratch route where the shape takes it: W 24, band 960
-    big = [votes_inputs(rng, 256, 744, 960) for _ in range(2)]
+    # the device scratch where the shape takes it: correction batches of
+    # 800-base short reads (W 26); votes_homes times both homes
+    wide = [votes_inputs(rng, 4096, 800, 64) for _ in range(2)]
+    sets = [to_dev(*ops)[:7] for ops, _, _ in wide]
     rows["myers_votes_cuda_scratch"], _, _ = votes_row(
-        MC, PU, [to_dev(*ops)[:7] for ops, _, _ in big], big[0][1],
-        big[0][2], judged_cfg().min_identity)
+        MC, PU, sets, wide[0][1], wide[0][2], judged_cfg().min_identity)
+    rows["myers_votes_cuda"]["homes"] = votes_homes(rng, MC, PU)
     for name, r in rows.items():
         log(f"  {name}: {json.dumps(r)}")
     log(f"  correction batch (N 4096, Lq 112, Lt 184): {json.dumps(split)}")
     return rows, split
+
+
+def votes_homes(rng, MC, PU):
+    """K2''s two plane homes, kernel alone, on the same planted correction
+    batches (N 4096, band 64: Lt = Lq + 72) at copy arbitration's shape
+    (Lq 400, W 13) and at W 11, 17, 20, 22, 24 and 26: shared memory (where a
+    block fits) with the blocks an SM it holds, and the device scratch;
+    votes_route's cutoff comes from these rows."""
+    import torch
+
+    from hga_tpu_torch.exp.scale_run import judged_cfg
+    from hga_tpu_torch.utils import benchmarks as B
+
+    mi = judged_cfg().min_identity
+    rows = []
+    for lq in (320, 400, 527, 620, 682, 744, 800):
+        made = [votes_inputs(rng, 4096, lq, 64) for _ in range(2)]
+        nb, lpad = made[0][1], made[0][2]
+        size_v = nb * lpad * PU.N_SYM
+        merged = torch.zeros(size_v + nb * lpad * 12 + 1, dtype=torch.int32,
+                             device="cuda")
+        kw = dict(min_identity=mi, size_v=size_v, lpad=lpad, ins_slots=3,
+                  max_steps=lq + int((1.0 - mi) * lq) + 2)
+        ops = [MC.votes_operands(merged, *to_dev(*m)[:7], scratch=True, **kw)
+               for m, _, _ in made]
+        r = ops[0][0]
+        smem = r._replace(smem=r.smem + r.pairs * r.stride * 4, scratch=False)
+        row = dict(W=r.W, Lq=lq, Lt=lq + 72, G=r.G,
+                   route="scratch" if MC.votes_route(lq, lq + 72).scratch
+                   else "smem", smem_per_block=smem.smem)
+        if smem.smem <= MC.SMEM_MAX:
+            row["smem_blocks_per_sm"] = MC.votes_attrs(smem)[2]
+            row["smem_ms"] = B.cuda_ms(
+                MC.run_votes_kernel,
+                [(smem, *o[1:3], None, *o[4:]) for o in ops], 20, passes=3)
+        row["scratch_ms"] = B.cuda_ms(MC.run_votes_kernel, ops, 20, passes=3)
+        rows.append(row)
+        log(f"  K2' homes: {json.dumps(row)}")
+    return rows
 
 
 def correction_batches(rng, n_sets=4, N=4096, nb=64, L=8192):
@@ -2523,11 +2966,14 @@ def phase_measurement(rng, VM, MM, SV, M, A, MC, AC, cuda_build):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--genome-len", type=int, default=1_000_000,
-                    help="genome length of phases 4, 8 and 10 (default "
-                         "1,000,000 bp)")
-    ap.add_argument("--phases", default="0123456789abcd",
-                    help="phases to run, 'a' for phase 10, 'b', 'c' and "
-                         "'d' for phases b, c and d (default all)")
+                    help="genome length of phase 4, whose reads and run "
+                         "phases b, c and d reuse (default 1,000,000 bp)")
+    ap.add_argument("--phase10-len", type=int, default=PHASE10_GENOME,
+                    help=f"genome length of phase 10 (default "
+                         f"{PHASE10_GENOME:,} bp)")
+    ap.add_argument("--phases", default="0123456789abcde",
+                    help="phases to run, 'a' for phase 10, 'b', 'c', 'd' "
+                         "and 'e' for phases b, c, d and e (default all)")
     ap.add_argument("--phase10", default="repeats+circular",
                     help="phase 10's genomes, comma-separated among "
                          + ", ".join(PHASE10_GENOMES))
@@ -2577,14 +3023,15 @@ def main() -> int:
             f"{os.path.relpath(p, HERE)} {built[n]['seconds']:.1f} s"
             for n, p in libs.items()))
     report = ptxas_report("".join(str(b["ptxas"]) for b in built.values()))
-    expect = ((2 * M.MAX_WORDS - 1) + M.MAX_WORDS + 2 * 6
-              + len(AC.DIAG_SLOTS) + len(AC.BAND_SLOTS) + 2
-              + M.MAX_WORDS + sum(len(k) for k in SV.BUILT.values())
+    expect = ((2 * MC.SINGLE_MAX_WORDS - 1)
+              + (M.MAX_WORDS - MC.SINGLE_MAX_WORDS) + MC.PLANES_MAX_WORDS
+              + 2 * 7 + len(AC.DIAG_SLOTS) + len(AC.BAND_SLOTS) + 2
+              + MM.MAX_WORDS + sum(len(k) for k in SV.BUILT.values())
               + len(VM.BUILT))
     log(f"  ptxas report: {len(report)} of {expect} kernel instantiations "
         "parsed")
     for kern, by in (("K1'", "W, lanes a pair"), ("K2", "W"),
-                     ("K2'", "lanes a pair, plane home"),
+                     ("K2'", "lanes a pair, words a lane, plane home"),
                      ("K3'", "slots a lane"), ("K3''", "slots a lane"),
                      ("K3", "buffer"), ("X1", "W"),
                      ("X2", "layout"), ("X3", "C, STEPS")):
@@ -2605,6 +3052,7 @@ def main() -> int:
     if "2" in ph:
         err["myers_batch_cuda"] = phase_k1(rng, MC, M)
         err["myers_batch_cuda_shared"] = phase_k1_shared(rng, MC, M)
+        err["myers_batch_cuda_carry"] = phase_carry_wide(rng, MC, M)
         done("2")
     if "3" in ph:
         err["myers_batch_planes_cuda"] = phase_k2(rng, MC, M, PU)
@@ -2614,7 +3062,8 @@ def main() -> int:
         err.update(phase_k3(rng, AC, A))
         done("7")
     if "c" in ph:
-        err["myers_batch_cuda_carry"] = phase_carry(rng, MC, M)
+        err["myers_batch_cuda_carry"] = max(
+            phase_carry(rng, MC, M), err["myers_batch_cuda_carry"] or 0)
         done("c (kernel)")
     torch.cuda.synchronize()
 
@@ -2622,7 +3071,8 @@ def main() -> int:
     # pipeline (phases 4 and 10), K1' and K3' on config 3 and K1' and K3'' on
     # its 300 bp drive (phase 8), K1''s shared-target mode on
     # segment_identity (phase 10), X1-X3 on the harnesses and K1'/K3' on
-    # hga-torch bench (phase 9)
+    # hga-torch bench (phase 9), K1'/K2' at W 26 and K1'/K3' on
+    # hga_tpu_torch.bench and graft_entry (phase e)
     workdir = tempfile.mkdtemp(prefix="hga_smoke_")
     paths = {}
     try:
@@ -2632,27 +3082,47 @@ def main() -> int:
                 args.genome_len, MC, workdir)
             done("4")
         if "8" in ph:
-            paths["phase 8 config 3"], _ = phase_config3(args.genome_len,
-                                                         MC, AC)
+            paths["phase 8 config 3"], _ = phase_config3(
+                CONFIG3_GENOME, MC, AC)
             paths["phase 8 config 3, 300 bp reads"], _ = phase_config3(
                 MISEQ_GENOME, MC, AC, read_len=300, seed=44)
             done("8")
         if "a" in ph:
-            paths.update(phase_genomes(args.genome_len, kinds, MC, workdir))
+            paths.update(phase_genomes(args.phase10_len, kinds, MC,
+                                       workdir))
             done("10")
         if "c" in ph:
             c_paths, _ = phase_distributed(args.genome_len, workdir, p4)
             paths.update(c_paths)
             done("c")
-        if "d" in ph:
-            paths.update(phase_scripts(args.genome_len, workdir, p4, MC))
-            done("d")
-        if "5" in ph:
-            phase_cpu_equal(workdir, AC)
-            done("5")
         if "b" in ph:
             paths.update(phase_b(args.genome_len, workdir, MC, AC))
             done("b")
+        # the CPU side of phases 5, b and e, each run in a process of its
+        # own, beside phase d (whose scripts run beside processes of their
+        # own already) and phase 5's card side: no timed pipeline runs
+        # beside them
+        twins = (P5_TWINS if "5" in ph else ()) + \
+            (B_TWINS if "b" in ph else ()) + (E_TWINS if "e" in ph else ())
+        with cpu_twins(twins, workdir) as jobs:
+            log(f"  started the CPU side of {len(jobs)} card == CPU runs")
+            if "d" in ph:
+                paths.update(phase_scripts(args.genome_len, workdir, p4, MC))
+                done("d (beside the CPU runs)")
+            if "5" in ph:
+                phase_cpu_equal(workdir, MC, AC)
+            early = [j for j in jobs if j[0] not in E_TWINS]
+            twins_equal(early, workdir)
+            if "5" in ph:
+                done("5")
+            if "e" in ph:
+                e_jobs = [j for j in jobs if j[0] in E_TWINS]
+                twins_wait(e_jobs)
+                e_paths, err_e = phase_wide(workdir, MC, AC, A, e_jobs)
+                paths.update(e_paths)
+                err["banded_sw_batch_cuda"] = max(
+                    err["banded_sw_batch_cuda"] or 0, err_e)
+                done("e")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -8,9 +8,10 @@
 // gate (config 3).  Its planes-storing sibling K2 stays in myers.cu.
 //
 // Design: one pair on a group of G lanes (G = 1, or the smallest power of
-// two >= W), 32 / G pairs a warp, 128 threads a block.  Lane w of a group
-// holds the WL = ceil(W / G) query words w * WL .. w * WL + WL - 1 (one word
-// when G >= W, all W when G = 1); lanes past the last word idle.
+// two >= W up to a warp's 32), 32 / G pairs a warp, 128 threads a block.
+// Lane w of a group holds the WL = ceil(W / G) query words w * WL ..
+// w * WL + WL - 1 (one word when G >= W, two at W 33-34, all W when G = 1);
+// lanes past the last word idle.
 //   - Query planes in the kernel: each lane reads its words' 31 codes from
 //     the caller's row-major (N, Lq) codes and builds q0, q1 (the code's low
 //     and high bit) and vq (position < qlen and code < 4, the rule of
@@ -56,7 +57,13 @@
 //     column come from lane w - 1 on that same column, as inside a chunk.
 // G = 1 is one thread per pair with every word in registers, the previous
 // K1 layout with the planes built in the kernel; the wrapper picks G per W
-// from a table its chip measurement filled in (ops/myers_cuda.py).
+// from a table its chip measurement filled in (ops/myers_cuda.py).  W 25-34
+// (queries of 745-1054 bases, the short-read route's pads up to 1024) exist
+// in the split design only, on the warp's one pair (G = 32): one word a lane
+// up to W 32, two a lane (A = 17) at W 33 and 34, where the last lane of W
+// 33 holds a spare word past the query (empty planes, no effect on the
+// words below it, never loaded or stored as state).  G = 1 would hold 6 W
+// words a thread there.  The wrapper raises past 34 words.
 //
 // What bounds it: about 20 int32 operations per word, column and pair
 // (integer issue rate).  The previous K1 (one thread per pair) ran a serial
@@ -92,7 +99,6 @@ struct Geo {
   static constexpr int P = 32 / G;                  // pairs a warp
   static constexpr int SPAN = kChunk + A - 1;       // columns a staged row
   static constexpr int ROW = ((SPAN + 3) / 4 | 1) * 4;  // bytes, odd words
-  static_assert(W % WL == 0, "every lane that holds words holds WL");
 };
 
 template <int W, int G>
@@ -147,7 +153,7 @@ myers_gate_kernel(const int32_t* __restrict__ q,      // (N, Lq)
     q1[k] = b1;
     vq[k] = bv;
     mend[k] = me;
-    const bool mine = carry && live && w < A;
+    const bool mine = carry && live && w < A && wi < W;
     pv[k] = mine ? static_cast<uint32_t>(st[wi]) : M31;
     mv[k] = mine ? static_cast<uint32_t>(st[W + wi]) : 0u;
   }
@@ -258,8 +264,10 @@ myers_gate_kernel(const int32_t* __restrict__ q,      // (N, Lq)
     if (w < A) {
 #pragma unroll
       for (int k = 0; k < WL; ++k) {
-        so[w * WL + k] = static_cast<int32_t>(pv[k]);
-        so[W + w * WL + k] = static_cast<int32_t>(mv[k]);
+        if (w * WL + k < W) {
+          so[w * WL + k] = static_cast<int32_t>(pv[k]);
+          so[W + w * WL + k] = static_cast<int32_t>(mv[k]);
+        }
       }
     }
     if (w == writer) {
@@ -282,9 +290,13 @@ cudaError_t launch_g(const int32_t* q, const int32_t* t, const int32_t* ql,
   return cudaGetLastError();
 }
 
+// W with both designs (G = 1 holds 6 W words a thread: at most 24), and W
+// with the split design alone (G = 32: one word a lane, two past 32)
 #define HGA_WORD_CASES(X) \
   X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) \
   X(13) X(14) X(15) X(16) X(17) X(18) X(19) X(20) X(21) X(22) X(23) X(24)
+#define HGA_SPLIT_CASES(X) \
+  X(25) X(26) X(27) X(28) X(29) X(30) X(31) X(32) X(33) X(34)
 
 int launch(const void* q, const void* t, const void* qlen, const void* tlen,
            int N, int Lq, int Lt, int W, int G, int shared, int j0,
@@ -314,6 +326,16 @@ int launch(const void* q, const void* t, const void* qlen, const void* tlen,
     break;
     HGA_WORD_CASES(HGA_CASE)
 #undef HGA_CASE
+#define HGA_CASE(w)                                                          \
+  case w:                                                                    \
+    if (G == 32) {                                                           \
+      return static_cast<int>(launch_g<w, 32>(                               \
+          c(q), c(t), c(qlen), c(tlen), N, Lq, Lt, shared, j0, c(st_in),     \
+          m(st_out), m(dist), m(tend), s));                                  \
+    }                                                                        \
+    break;
+    HGA_SPLIT_CASES(HGA_CASE)
+#undef HGA_CASE
     default:
       break;
   }
@@ -326,9 +348,10 @@ extern "C" {
 
 // Launches K1' on `stream`: q, t int32 (N, Lq), (N, Lt) row-major — or,
 // with shared = 1, t one row (1, Lt) that every pair runs against —
-// W = ceil(Lq / 31) words (1..24), G = 1 or the smallest power of two >= W
-// lanes a pair.  Returns the launch's cudaGetLastError() (0 = cudaSuccess),
-// or cudaErrorInvalidValue without launching.
+// W = ceil(Lq / 31) words (1..34), G = the smallest power of two >= W lanes
+// a pair (32 past 16 words), or G = 1 at W <= 24.  Returns the launch's
+// cudaGetLastError() (0 = cudaSuccess), or cudaErrorInvalidValue without
+// launching.
 int hga_myers_gate_launch(const void* q, const void* t, const void* qlen,
                           const void* tlen, int N, int Lq, int Lt, int W,
                           int G, int shared, void* dist, void* tend,
@@ -366,6 +389,12 @@ int hga_myers_gate_attrs(int W, int G, int* regs, int* local_bytes) {
     }                                                                   \
     break;
     HGA_WORD_CASES(HGA_CASE)
+#undef HGA_CASE
+#define HGA_CASE(w)                                                     \
+  case w:                                                               \
+    if (G == 32) e = cudaFuncGetAttributes(&a, myers_gate_kernel<w, 32>); \
+    break;
+    HGA_SPLIT_CASES(HGA_CASE)
 #undef HGA_CASE
     default:
       break;

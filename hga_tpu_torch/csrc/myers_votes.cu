@@ -21,20 +21,28 @@
 //      so the moves the reference takes after it cast nothing.
 //
 // Design: one warp a block, one pair on a group of G lanes (the smallest
-// power of two >= W), 32 / G pairs a warp; lane w holds query word w.
+// power of two >= W, at most 32), 32 / G pairs a warp; lane w holds query
+// words w * WL .. w * WL + WL - 1: one word (WL = 1) up to W 32, two at W 33
+// and 34 (the short-read route's pads up to 1024), on A = ceil(W / WL)
+// lanes; a spare word past W (the last lane at W 33) computes on empty
+// planes and stores nothing.
 //   - The DP is K1''s split layout (csrc/myers_gate.cu): the query planes
 //     are built in the kernel from the row-major (N, Lq) codes by
 //     ops/myers.query_planes' rule bit for bit; at step s lane w runs target
-//     column s - w with the three carries lane w - 1 left at step s - 1 (one
-//     packed __shfl_up_sync); targets are staged per warp as int8 codes.
+//     column s - w for its words with the three carries lane w - 1 left at
+//     step s - 1 (one packed __shfl_up_sync); targets are staged per warp
+//     as int8 codes.
 //   - Each column's (Pv, Mv) word pair goes to a plane row of the pair,
-//     (column, word) major, in shared memory (SMEM) — never to device
-//     memory.  Pair rows are a multiple of 32 words plus 2 G apart, so the
-//     groups of a warp store to distinct banks at W 1, 2 and 4.  Where one
-//     warp's planes do not fit a block's shared memory (a large band), the
-//     same kernel takes them in a device scratch (!SMEM), chosen by shape.
+//     (column, word) major, in shared memory (SMEM), or in a device
+//     scratch (!SMEM), the same kernel, chosen by shape: shared memory only
+//     where it holds 4 such blocks an SM or more (the correction shape; at
+//     band 64 W 1-6 and 9); with fewer, each step's dependent chain is left
+//     bare, and the scratch, at 32 warps an SM, ran 1.6-3.2x faster
+//     (ops/myers_cuda.votes_route).  Pair rows are a multiple of 32 words
+//     plus 2 G apart, so the groups of a warp store to distinct banks at W
+//     1, 2 and 4.
 //   - The traceback runs on all G lanes of the pair in lockstep: lane w
-//     takes the masked popcounts of word w of column j - 1, a butterfly of
+//     takes the masked popcounts of its words of column j - 1, a butterfly of
 //     __shfl_xor_sync sums them (D(i, j - 1)), every lane reads the two
 //     vertical-delta bits and derives the same move; lane 0 of the group
 //     casts the votes.  The warp loops while any of its pairs is active.
@@ -55,7 +63,7 @@ namespace {
 constexpr uint32_t M31 = 0x7fffffffu;
 constexpr int kPayload = 31;
 constexpr int kChunk = 128;             // target columns staged at a time
-constexpr int kMaxWords = 24;
+constexpr int kMaxWords = 34;
 constexpr int kPerMax = (kChunk + kMaxWords - 1 + 31) / 32;  // rounds a row
 constexpr int kNSym = 6;                // column vote symbols (ops/pileup)
 constexpr unsigned kFull = 0xffffffffu;
@@ -71,7 +79,7 @@ __host__ __device__ inline int stage_row(int W) {
   return ((kChunk + W - 1 + 3) / 4 | 1) * 4;
 }
 
-template <int G, bool SMEM>
+template <int G, int WL, bool SMEM>
 __global__ void __launch_bounds__(32)
 myers_votes_kernel(const int32_t* __restrict__ q,      // (N, Lq)
                    const int32_t* __restrict__ t,      // (N, Lt)
@@ -91,11 +99,12 @@ myers_votes_kernel(const int32_t* __restrict__ q,      // (N, Lq)
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
   const int g = lane / G;                  // the warp's pair of this lane
-  const int w = lane % G;                  // this lane's word
+  const int w = lane % G;                  // this lane's place in its group
   const int n = blockIdx.x * P + g;
   const bool live = n < N;
+  const int A = (W + WL - 1) / WL;         // lanes that hold words
   const int ROW = stage_row(W);
-  const int SPAN = kChunk + W - 1;
+  const int SPAN = kChunk + A - 1;
   uint2* planes;                           // this pair's (column, word) row
   int8_t* rows;                            // the warp's staged targets
   if constexpr (SMEM) {
@@ -111,36 +120,46 @@ myers_votes_kernel(const int32_t* __restrict__ q,      // (N, Lq)
   const int ql = live ? qlen[n] : 0;
   const int tl = live ? tlen[n] : 0;
 
-  // ---- query word w: ops/myers.query_planes' rule, bit for bit
-  uint32_t q0 = 0u, q1 = 0u, vq = 0u, mend = 0u;
-  if (live && w < W) {
-    const int32_t* row = q + static_cast<size_t>(n) * Lq;
+  // ---- this lane's query words: ops/myers.query_planes' rule, bit for bit
+  uint32_t q0[WL], q1[WL], vq[WL], mend[WL], pv[WL], mv[WL];
 #pragma unroll
-    for (int b = 0; b < kPayload; ++b) {        // 31 loads in flight
-      const int pos = w * kPayload + b;
-      const int code = pos < Lq ? row[pos] : 4;
-      if (pos < ql && code < 4) {
-        q0 |= static_cast<uint32_t>(code & 1) << b;
-        q1 |= static_cast<uint32_t>((code >> 1) & 1) << b;
-        vq |= 1u << b;
+  for (int k = 0; k < WL; ++k) {
+    const int wi = w * WL + k;
+    uint32_t b0 = 0u, b1 = 0u, bv = 0u, me = 0u;
+    if (live && wi < W) {
+      const int32_t* row = q + static_cast<size_t>(n) * Lq;
+#pragma unroll
+      for (int b = 0; b < kPayload; ++b) {      // 31 loads in flight
+        const int pos = wi * kPayload + b;
+        const int code = pos < Lq ? row[pos] : 4;
+        if (pos < ql && code < 4) {
+          b0 |= static_cast<uint32_t>(code & 1) << b;
+          b1 |= static_cast<uint32_t>((code >> 1) & 1) << b;
+          bv |= 1u << b;
+        }
+      }
+      if (ql > 0 && (ql - 1) / kPayload == wi) {
+        me = 1u << ((ql - 1) % kPayload);
       }
     }
-    if (ql > 0 && (ql - 1) / kPayload == w) {
-      mend = 1u << ((ql - 1) % kPayload);
-    }
+    q0[k] = b0;
+    q1[k] = b1;
+    vq[k] = bv;
+    mend[k] = me;
+    pv[k] = M31;
+    mv[k] = 0u;
   }
 
-  // ---- the DP: word w on column s - w at step s
-  uint32_t pv = M31, mv = 0u;
+  // ---- the DP: lane w's words on column s - w at step s
   int score = ql, best = ql, bj = 0;
-  uint32_t out = 0u;           // carries out of this lane's word
-  const int dp_steps = Lt + W - 1;
-  const int8_t* mine = rows + g * ROW + (W - 1 - w);
+  uint32_t out = 0u;           // carries out of this lane's last word
+  const int dp_steps = Lt + A - 1;
+  const int8_t* mine = rows + g * ROW + (A - 1 - w);
   for (int s0 = 0; s0 < dp_steps; s0 += kChunk) {
-    // stage columns s0 - (W - 1) .. s0 + kChunk - 1 of the warp's pairs,
+    // stage columns s0 - (A - 1) .. s0 + kChunk - 1 of the warp's pairs,
     // 32 neighbouring columns of one row a round, many rounds in flight
     __syncwarp();
-    const int c0 = s0 - (W - 1);
+    const int c0 = s0 - (A - 1);
 #pragma unroll 16
     for (int it = 0; it < P * kPerMax; ++it) {
       const int pp = it / kPerMax, c = (it % kPerMax) * 32 + lane;
@@ -158,34 +177,41 @@ myers_votes_kernel(const int32_t* __restrict__ q,      // (N, Lq)
       uint32_t in = 0u;
       if constexpr (G > 1) in = __shfl_up_sync(kFull, out, 1, G);
       const int j = s0 + s - w;
-      if (w < W && j >= 0 && j < Lt) {
+      if (w < A && j >= 0 && j < Lt) {
         const int tc = mine[s];           // column j
         const uint32_t t0 = 0u - static_cast<uint32_t>(tc & 1);
         const uint32_t t1 = 0u - static_cast<uint32_t>((tc >> 1) & 1);
         const uint32_t tvm = tc < 4 ? 0xffffffffu : 0u;
-        uint32_t cin = 0u, cp = 0u, cm = 0u;
+        uint32_t cin = 0u, cp = 0u, cm = 0u, pb = 0u, mb = 0u;
         if (w > 0) {
           cin = in & 1u;
           cp = (in >> 1) & 1u;
           cm = (in >> 2) & 1u;
         }
-        const uint32_t eq = (vq & ~((q0 ^ t0) | (q1 ^ t1))) & tvm;
-        const uint32_t xv = eq | mv;
-        const uint32_t sw = (eq & pv) + pv + cin;
-        cin = sw >> 31;                       // adder carry out of bit 31
-        const uint32_t xh = ((sw & M31) ^ pv) | eq;
-        uint32_t ph = mv | ~(xh | pv);
-        uint32_t mh = pv & xh;
-        const int pb = (ph & mend) != 0u, mb = (mh & mend) != 0u;
-        const uint32_t ncp = (ph >> 30) & 1u;  // shift carries out of bit 30
-        const uint32_t ncm = (mh >> 30) & 1u;
-        ph = ((ph << 1) & M31) | cp;
-        mh = ((mh << 1) & M31) | cm;
-        pv = (mh | ~(xv | ph)) & M31;
-        mv = ph & xv;
-        planes[j * W + w] = make_uint2(pv, mv);
-        out = cin | (ncp << 1) | (ncm << 2);
-        score += pb - mb;
+#pragma unroll
+        for (int k = 0; k < WL; ++k) {
+          const uint32_t eq = (vq[k] & ~((q0[k] ^ t0) | (q1[k] ^ t1))) & tvm;
+          const uint32_t xv = eq | mv[k];
+          const uint32_t sw = (eq & pv[k]) + pv[k] + cin;
+          cin = sw >> 31;                       // adder carry out of bit 31
+          const uint32_t xh = ((sw & M31) ^ pv[k]) | eq;
+          uint32_t ph = mv[k] | ~(xh | pv[k]);
+          uint32_t mh = pv[k] & xh;
+          pb |= ph & mend[k];
+          mb |= mh & mend[k];
+          const uint32_t ncp = (ph >> 30) & 1u;  // shift carries out of bit 30
+          const uint32_t ncm = (mh >> 30) & 1u;
+          ph = ((ph << 1) & M31) | cp;
+          mh = ((mh << 1) & M31) | cm;
+          cp = ncp;
+          cm = ncm;
+          pv[k] = (mh | ~(xv | ph)) & M31;
+          mv[k] = ph & xv;
+          const int wi = w * WL + k;
+          if (wi < W) planes[j * W + wi] = make_uint2(pv[k], mv[k]);
+        }
+        out = cin | (cp << 1) | (cm << 2);
+        score += (pb != 0u ? 1 : 0) - (mb != 0u ? 1 : 0);
         if (score < best && j < tl) {
           best = score;
           bj = j + 1;
@@ -197,7 +223,7 @@ myers_votes_kernel(const int32_t* __restrict__ q,      // (N, Lq)
 
   // ---- dist and tend from the lane whose word holds the end bit
   const int e = ql > 0 ? (ql - 1) / kPayload : 0;
-  const int writer = (ql > 0 && e < W) ? e : 0;
+  const int writer = (ql > 0 && e < W) ? e / WL : 0;
   const int d_best = __shfl_sync(kFull, best, g * G + writer);
   const int d_bj = __shfl_sync(kFull, bj, g * G + writer);
   const int dres = ql == 0 ? 0 : d_best;
@@ -226,11 +252,15 @@ myers_votes_kernel(const int32_t* __restrict__ q,      // (N, Lq)
     const int jm2 = min(max(j - 2, 0), Lt - 1);
     // D(i, j - 1): this lane's share of the prefix popcount of column j - 1
     int part = 0;
-    if (w < W) {
-      const int nbits = min(max(i - kPayload * w, 0), kPayload);
-      const uint32_t mask = (1u << nbits) - 1u;
-      const uint2 c = planes[jm2 * W + w];
-      part = __popc(c.x & mask) - __popc(c.y & mask);
+#pragma unroll
+    for (int k = 0; k < WL; ++k) {
+      const int wi = w * WL + k;
+      if (wi < W) {
+        const int nbits = min(max(i - kPayload * wi, 0), kPayload);
+        const uint32_t mask = (1u << nbits) - 1u;
+        const uint2 c = planes[jm2 * W + wi];
+        part += __popc(c.x & mask) - __popc(c.y & mask);
+      }
     }
 #pragma unroll
     for (int o = G / 2; o > 0; o >>= 1) {
@@ -282,7 +312,7 @@ myers_votes_kernel(const int32_t* __restrict__ q,      // (N, Lq)
   }
 }
 
-template <int G, bool SMEM>
+template <int G, int WL, bool SMEM>
 cudaError_t launch_g(const int32_t* const* in, int N, int Lq, int Lt, int W,
                      int stride, int steps, int ins_slots, int smem,
                      long long lpad, long long size_v, long long size_all,
@@ -290,20 +320,21 @@ cudaError_t launch_g(const int32_t* const* in, int N, int Lq, int Lt, int W,
                      int32_t* merged, uint32_t* scratch, cudaStream_t s) {
   constexpr int P = 32 / G;
   cudaError_t e = cudaFuncSetAttribute(
-      myers_votes_kernel<G, SMEM>,
+      myers_votes_kernel<G, WL, SMEM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  myers_votes_kernel<G, SMEM><<<(N + P - 1) / P, 32, smem, s>>>(
+  myers_votes_kernel<G, WL, SMEM><<<(N + P - 1) / P, 32, smem, s>>>(
       in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], N, Lq, Lt, W,
       stride, steps, ins_slots, lpad, size_v, size_all, frac, dist, tend,
       merged, scratch);
   return cudaGetLastError();
 }
 
-template <int G, bool SMEM>
+template <int G, int WL, bool SMEM>
 cudaError_t attrs_g(int* regs, int* local_bytes) {
   cudaFuncAttributes a{};
-  const cudaError_t e = cudaFuncGetAttributes(&a, myers_votes_kernel<G, SMEM>);
+  const cudaError_t e =
+      cudaFuncGetAttributes(&a, myers_votes_kernel<G, WL, SMEM>);
   if (e == cudaSuccess) {
     *regs = a.numRegs;
     *local_bytes = static_cast<int>(a.localSizeBytes);
@@ -311,17 +342,25 @@ cudaError_t attrs_g(int* regs, int* local_bytes) {
   return e;
 }
 
-template <int G, bool SMEM>
+template <int G, int WL, bool SMEM>
 cudaError_t occupancy_g(int smem, int* blocks) {
   const cudaError_t e = cudaFuncSetAttribute(
-      myers_votes_kernel<G, SMEM>,
+      myers_votes_kernel<G, WL, SMEM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, myers_votes_kernel<G, SMEM>, 32, smem);
+      blocks, myers_votes_kernel<G, WL, SMEM>, 32, smem);
 }
 
-#define HGA_GROUP_CASES(X) X(1) X(2) X(4) X(8) X(16) X(32)
+// the instantiations (G, WL): (group_of(W), 1) up to W 32, (32, 2) at W
+// 33-34; each with its planes in shared memory and in the scratch
+#define HGA_INSTANCES(X) X(1, 1) X(2, 1) X(4, 1) X(8, 1) X(16, 1) X(32, 1) \
+  X(32, 2)
+
+inline int words_a_lane(int W) {
+  const int G = group_of(W);
+  return (W + G - 1) / G;
+}
 
 }  // namespace
 
@@ -330,7 +369,7 @@ extern "C" {
 // Launches K2' on `stream`: q, t int32 (N, Lq), (N, Lt) row-major; qlen,
 // tlen, bb, off, lb int32 (N,); qw int32 (N, Lq) or null; merged int32
 // (size_all + 1,) updated in place (the last slot, the sink, untouched).
-// W = ceil(Lq / 31) words (1..24), G = group_of(W); `stride` words (even,
+// W = ceil(Lq / 31) words (1..34), G = group_of(W); `stride` words (even,
 // >= 2 W Lt) a pair's plane row; `smem` dynamic bytes a block, at least
 // what the route needs (32 / G rows and the stage, or the stage alone with
 // a scratch of (N rounded up to 32 / G) x stride words).  Returns the
@@ -362,52 +401,50 @@ int hga_myers_votes_launch(const void* q, const void* t, const void* qlen,
   auto* te = static_cast<int32_t*>(tend);
   auto* m = static_cast<int32_t*>(merged);
   auto* sc = static_cast<uint32_t*>(scratch);
-  switch (G) {
-#define HGA_CASE(g)                                                         \
-  case g:                                                                   \
-    return static_cast<int>(                                                \
-        sc == nullptr                                                       \
-            ? launch_g<g, true>(in, N, Lq, Lt, W, stride, steps, ins_slots, \
-                                smem, lpad, size_v, size_all, frac, d, te,  \
-                                m, sc, s)                                   \
-            : launch_g<g, false>(in, N, Lq, Lt, W, stride, steps,           \
-                                 ins_slots, smem, lpad, size_v, size_all,   \
-                                 frac, d, te, m, sc, s));
-    HGA_GROUP_CASES(HGA_CASE)
-#undef HGA_CASE
-    default:
-      break;
+  const int wl = words_a_lane(W);
+#define HGA_CASE(g, l)                                                       \
+  if (G == g && wl == l) {                                                   \
+    return static_cast<int>(                                                 \
+        sc == nullptr                                                        \
+            ? launch_g<g, l, true>(in, N, Lq, Lt, W, stride, steps,          \
+                                   ins_slots, smem, lpad, size_v, size_all,  \
+                                   frac, d, te, m, sc, s)                    \
+            : launch_g<g, l, false>(in, N, Lq, Lt, W, stride, steps,         \
+                                    ins_slots, smem, lpad, size_v, size_all, \
+                                    frac, d, te, m, sc, s));                 \
   }
+  HGA_INSTANCES(HGA_CASE)
+#undef HGA_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Registers per thread and local (spill) bytes per thread of one
-// instantiation (G lanes a pair; scratch 0 = planes in shared memory).
-int hga_myers_votes_attrs(int G, int scratch, int* regs, int* local_bytes) {
-  switch (G) {
-#define HGA_CASE(g)                                                   \
-  case g:                                                             \
-    return static_cast<int>(scratch ? attrs_g<g, false>(regs, local_bytes) \
-                                    : attrs_g<g, true>(regs, local_bytes));
-    HGA_GROUP_CASES(HGA_CASE)
-#undef HGA_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+// Registers per thread and local (spill) bytes per thread of W's
+// instantiation (scratch 0 = planes in shared memory).
+int hga_myers_votes_attrs(int W, int scratch, int* regs, int* local_bytes) {
+  if (W < 1 || W > kMaxWords) return static_cast<int>(cudaErrorInvalidValue);
+  const int G = group_of(W), wl = words_a_lane(W);
+#define HGA_CASE(g, l)                                                    \
+  if (G == g && wl == l) {                                                \
+    return static_cast<int>(scratch ? attrs_g<g, l, false>(regs, local_bytes) \
+                                    : attrs_g<g, l, true>(regs, local_bytes)); \
   }
+  HGA_INSTANCES(HGA_CASE)
+#undef HGA_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Blocks (one warp each) resident on an SM at `smem` dynamic bytes a block.
-int hga_myers_votes_occupancy(int G, int scratch, int smem, int* blocks) {
-  switch (G) {
-#define HGA_CASE(g)                                                    \
-  case g:                                                              \
-    return static_cast<int>(scratch ? occupancy_g<g, false>(smem, blocks) \
-                                    : occupancy_g<g, true>(smem, blocks));
-    HGA_GROUP_CASES(HGA_CASE)
-#undef HGA_CASE
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+int hga_myers_votes_occupancy(int W, int scratch, int smem, int* blocks) {
+  if (W < 1 || W > kMaxWords) return static_cast<int>(cudaErrorInvalidValue);
+  const int G = group_of(W), wl = words_a_lane(W);
+#define HGA_CASE(g, l)                                                     \
+  if (G == g && wl == l) {                                                 \
+    return static_cast<int>(scratch ? occupancy_g<g, l, false>(smem, blocks) \
+                                    : occupancy_g<g, l, true>(smem, blocks)); \
   }
+  HGA_INSTANCES(HGA_CASE)
+#undef HGA_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from hga_tpu_torch.ops import cuda_build
-from hga_tpu_torch.ops.myers import (MAX_WORDS, MyersResult, myers_batch,
+from hga_tpu_torch.ops.myers import (MyersResult, myers_batch,
                                      myers_batch_from_planes, n_words,
                                      query_planes)
 from hga_tpu_torch.ops import myers_cuda as MC
@@ -47,6 +47,7 @@ LAUNCHES: Dict[str, int] = {"run_b_cuda": 0}
 
 SMEM_MAX = 232448            # shared memory a block may opt in to (227 KB)
 MAX_THREADS = 1024
+MAX_WORDS = 24               # W csrc/myers_micro.cu instantiates (1..24)
 
 _LIB: Optional[ctypes.CDLL] = None
 

@@ -35,8 +35,9 @@ import torch
 
 PAYLOAD = 31
 M31 = (1 << 31) - 1          # payload mask (bit 31 clear)
-MAX_WORDS = 24               # the CUDA kernels' unrolled word capacity
-MAX_QUERY_LEN = MAX_WORDS * PAYLOAD
+# query words K1' and K2' take (ops/myers_cuda.py): queries up to 1054
+# bases, the short-read route's pads up to 1024 (W 34) among them
+MAX_WORDS = 34
 
 
 class MyersResult(NamedTuple):

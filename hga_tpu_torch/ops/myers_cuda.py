@@ -43,10 +43,14 @@ batch) to device memory.  See csrc/*.cu and PERF.md for what each design
 does about it.
 
 Each wrapper checks dtype, shape and contiguity and raises on anything
-else.  On a CUDA tensor it launches its kernel (or raises); on a CPU tensor
-it returns its plain version (ops/myers.py, ops/pileup.py) — only because
-the tensor lies on the CPU, which is how the CPU tests run the port.  There
-is no fallback from a CUDA tensor to the plain version.
+else.  On a CPU tensor it returns its plain version (ops/myers.py,
+ops/pileup.py) — only because the tensor lies on the CPU, which is how the
+CPU tests run the port.  On a CUDA tensor it launches its kernel or
+raises; there is no fallback from a CUDA tensor to the plain version.
+K1' and K2' take W 1-34 query words (``MAX_WORDS``: queries up to 1054
+bases, which covers the short-read route's pads up to LONG_READ_PAD 1024);
+K2 takes 1-24 (``PLANES_MAX_WORDS``).  Past its cap each operand function
+raises.
 
 The kernels are built at first use with nvcc (``-gencode
 arch=compute_90a,code=sm_90a``) from ``csrc/myers_gate.cu``,
@@ -80,21 +84,30 @@ LAUNCHES: Dict[str, int] = {"myers_batch_cuda": 0,
                             "myers_batch_planes_cuda": 0}
 
 THREADS = 128              # threads a block, K1' and K2
+PLANES_MAX_WORDS = 24      # W K2 unrolls into one thread's registers
+SINGLE_MAX_WORDS = 24      # W K1' takes at one thread a pair (G 1)
 SMEM_MAX = 232448          # shared memory a block may opt in to (227 KB)
+SMEM_SM = 233472           # shared memory of an SM (228 KB) ...
+SMEM_RESERVED = 1024       # ... of which each resident block reserves 1 KB
 STAGE_COLUMNS = 128        # K2' target columns a warp stages at a time
+# K2' keeps its planes in shared memory only where an SM holds at least
+# this many such blocks: with 1-3 the device scratch ran 1.6-3.2x faster,
+# with 4 (the correction shape) shared memory ran 1.4x faster (NVIDIA H100
+# 80GB HBM3 at 700 W, chip_smoke.py phase 6's two-home rows, PERF.md)
+VOTES_SMEM_MIN_BLOCKS = 4
 
 
 def group_width(W: int) -> int:
-    """K1' lanes a pair in the split design: the smallest power of two
-    >= W."""
-    return 1 << (W - 1).bit_length()
+    """K1' and K2' lanes a pair in the split design: the smallest power of
+    two >= W, at most a warp's 32 (two words a lane past 32 words)."""
+    return min(1 << (W - 1).bit_length(), 32)
 
 
 # K1' lanes a pair (G) by query words W: 1 (a thread per pair) or
 # group_width(W).  chip_smoke.py phase 6 times both at W 4, 5 and 14 (W 1
 # has one design): the split design ran 1.6-2.4x faster at each on an H100
 # (PERF.md), so every W takes it; each W between takes the choice of the
-# nearest measured W.
+# nearest measured W.  W 25-34 exist in the split design only.
 GATE_GROUP: Dict[int, int] = {W: group_width(W)
                               for W in range(1, MAX_WORDS + 1)}
 
@@ -174,6 +187,14 @@ def kernel_attrs(W: int, planes: bool = False,
     return regs.value, local.value
 
 
+def gate_designs(W: int) -> Tuple[int, ...]:
+    """K1''s instantiations at W words, in lanes a pair: 1 and
+    group_width(W), or group_width(W) alone past SINGLE_MAX_WORDS."""
+    if W <= SINGLE_MAX_WORDS:
+        return tuple(sorted({1, group_width(W)}))
+    return (group_width(W),)
+
+
 def gate_blocks(N: int, G: int) -> int:
     """K1' blocks for N pairs: THREADS / G pairs a block."""
     return -(-N // (THREADS // G))
@@ -199,10 +220,7 @@ def _check(q, t, qlen, tlen, shared_ok: bool = False
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, t "
                          f"{tuple(t.shape)}, qlen {tuple(qlen.shape)}, "
                          f"tlen {tuple(tlen.shape)}")
-    W = n_words(Lq)
-    if W > MAX_WORDS:
-        raise ValueError(f"Lq={Lq} needs {W} words > {MAX_WORDS}")
-    return N, W, t.shape[1]
+    return N, n_words(Lq), t.shape[1]
 
 
 def is_shared(q, t) -> bool:
@@ -216,10 +234,14 @@ def kernel_operands(q, t, qlen, tlen, group: Optional[int] = None):
     names 1 or group_width(W), which timing comparisons do), the
     shared-target flag and fresh outputs."""
     N, W, _ = _check(q, t, qlen, tlen, shared_ok=True)
+    if W > MAX_WORDS:
+        raise ValueError(f"K1' takes at most {MAX_WORDS} query words, got "
+                         f"W={W}")
     G = GATE_GROUP[W] if group is None else group
-    if G not in (1, group_width(W)):
-        raise ValueError(f"group={G}: K1' runs 1 or {group_width(W)} lanes "
-                         f"a pair at W={W}")
+    if G not in gate_designs(W):
+        raise ValueError(f"group={G}: K1' runs "
+                         f"{' or '.join(map(str, gate_designs(W)))} lanes a "
+                         f"pair at W={W}")
     outs = tuple(torch.empty(N, dtype=torch.int32, device=q.device)
                  for _ in range(2))
     return q, t, qlen, tlen, W, G, is_shared(q, t), outs
@@ -245,6 +267,9 @@ def planes_operands(q, t, qlen, tlen):
     transposed targets (Lt, N), lengths, and fresh outputs (dist, tend and
     the (Lt, N, W) Pv/Mv planes)."""
     N, W, Lt = _check(q, t, qlen, tlen)
+    if W > PLANES_MAX_WORDS:
+        raise ValueError(f"K2 takes at most {PLANES_MAX_WORDS} query words, "
+                         f"got W={W}")
     dev = q.device
     qp = tuple(x.t().contiguous() for x in query_planes(q, qlen, W))
     outs = [torch.empty(N, dtype=torch.int32, device=dev) for _ in range(2)]
@@ -286,11 +311,9 @@ def myers_batch_cuda(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
     return MyersResult(*outs)
 
 
-def carry_operands(q, t, qlen, tlen, state, j0: int = 0):
-    """K1''s carried-state launch for one chunk: the caller's codes and
-    lengths as they are, W, GATE_GROUP's lanes a pair, the shared-target
-    flag, j0, the packed input state (int32 (N, 2 W + 3)) and fresh outputs
-    (the state, dist, tend)."""
+def _check_carry(q, t, qlen, tlen, state, j0: int):
+    """The carried-state mode's operand checks; returns (N, W, the packed
+    input state int32 (N, 2 W + 3))."""
     N, W, _ = _check(q, t, qlen, tlen, shared_ok=True)
     st_in = pack_state(state)
     if st_in.shape != (N, 2 * W + 3) or st_in.device != q.device:
@@ -298,6 +321,18 @@ def carry_operands(q, t, qlen, tlen, state, j0: int = 0):
                          f"on {q.device}")
     if j0 < 0:
         raise ValueError(f"j0={j0} must be >= 0")
+    return N, W, st_in
+
+
+def carry_operands(q, t, qlen, tlen, state, j0: int = 0):
+    """K1''s carried-state launch for one chunk: the caller's codes and
+    lengths as they are, W, GATE_GROUP's lanes a pair, the shared-target
+    flag, j0, the packed input state (int32 (N, 2 W + 3)) and fresh outputs
+    (the state, dist, tend)."""
+    N, W, st_in = _check_carry(q, t, qlen, tlen, state, j0)
+    if W > MAX_WORDS:
+        raise ValueError(f"K1' takes at most {MAX_WORDS} query words, got "
+                         f"W={W}")
     outs = (torch.empty_like(st_in),) + tuple(
         torch.empty(N, dtype=torch.int32, device=q.device) for _ in range(2))
     return (q, t, qlen, tlen, W, GATE_GROUP[W], is_shared(q, t), j0, st_in,
@@ -329,15 +364,15 @@ def myers_cols_cuda(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
     ops/myers.myers_init_state makes it).  Returns (the state after t's
     last column, MyersResult of that state).  Bit-exact with
     ops.myers.myers_cols (CPU tensors: that plain version)."""
-    *ops, outs = carry_operands(q, t, qlen, tlen, state, j0)
+    N, W, _ = _check_carry(q, t, qlen, tlen, state, j0)
     if not q.is_cuda:
-        W = ops[4]
         st = myers_cols(*query_planes(q, qlen, W), t, tlen, state, j0)
         return st, state_result(qlen, st)
-    if q.shape[0]:
+    *ops, outs = carry_operands(q, t, qlen, tlen, state, j0)
+    if N:
         run_carry_kernel(*ops, outs)
         LAUNCHES["myers_batch_cuda_carry"] += 1
-    return unpack_state(outs[0], ops[4]), MyersResult(*outs[1:])
+    return unpack_state(outs[0], W), MyersResult(*outs[1:])
 
 
 def myers_batch_planes_cuda(q: torch.Tensor, t: torch.Tensor,
@@ -359,7 +394,7 @@ def myers_batch_planes_cuda(q: torch.Tensor, t: torch.Tensor,
 
 class VotesRoute(NamedTuple):
     W: int          # query words
-    G: int          # lanes a pair (group_width(W))
+    G: int          # lanes a pair (group_width(W); two words a lane past 32)
     pairs: int      # pairs a warp (a block), 32 / G
     stride: int     # uint32 words of a pair's plane row (even, >= 2 W Lt)
     smem: int       # dynamic shared memory a block, bytes
@@ -371,15 +406,17 @@ def votes_route(Lq: int, Lt: int, scratch: bool = False) -> VotesRoute:
     each (column, word), rounded up to 32 words plus 2 G (the groups of a
     warp then store to distinct banks); a block is one warp, its planes and
     its staged targets (odd words a row) in shared memory, or the staged
-    targets alone with the planes in a device scratch when they do not fit
-    (or when `scratch` asks for it, which timing comparisons do)."""
+    targets alone with the planes in a device scratch when shared memory
+    would hold fewer than VOTES_SMEM_MIN_BLOCKS such blocks an SM (or when
+    `scratch` asks for it, which timing comparisons do)."""
     W = n_words(Lq)
     G = group_width(W)
     pairs = 32 // G
     stride = -(-2 * W * Lt // 32) * 32 + 2 * G
     row = ((STAGE_COLUMNS + W - 1 + 3) // 4 | 1) * 4
     smem = pairs * stride * 4 + pairs * row
-    if scratch or smem > SMEM_MAX:
+    blocks = SMEM_SM // (smem + SMEM_RESERVED)
+    if scratch or blocks < VOTES_SMEM_MIN_BLOCKS:
         return VotesRoute(W, G, pairs, stride, pairs * row, True)
     return VotesRoute(W, G, pairs, stride, smem, False)
 
@@ -393,9 +430,9 @@ def votes_attrs(r: VotesRoute) -> Tuple[int, int, int]:
     SM) of the route's instantiation at its shared memory."""
     regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     lib = _votes_lib()
-    err = lib.hga_myers_votes_attrs(r.G, int(r.scratch), ctypes.byref(regs),
+    err = lib.hga_myers_votes_attrs(r.W, int(r.scratch), ctypes.byref(regs),
                                     ctypes.byref(local))
-    err = err or lib.hga_myers_votes_occupancy(r.G, int(r.scratch), r.smem,
+    err = err or lib.hga_myers_votes_occupancy(r.W, int(r.scratch), r.smem,
                                                ctypes.byref(blocks))
     if err:
         raise RuntimeError(f"K2' attributes failed with CUDA error {err}")
@@ -403,10 +440,10 @@ def votes_attrs(r: VotesRoute) -> Tuple[int, int, int]:
 
 
 def _check_votes(merged, q, t, qlen, tlen, bb, off, lb, qw, size_v, lpad,
-                 ins_slots) -> int:
+                 ins_slots) -> Tuple[int, int, int]:
     """K1's operand checks plus the batch's placement and the vote buffer;
-    returns size_all (the buffer's last slot is the sink)."""
-    N, _, _ = _check(q, t, qlen, tlen)
+    returns (size_all (the buffer's last slot is the sink), N, W)."""
+    N, W, _ = _check(q, t, qlen, tlen)
     named = [("bb", bb), ("off", off), ("lb", lb), ("merged", merged)]
     if qw is not None:
         named.append(("qw", qw))
@@ -428,7 +465,7 @@ def _check_votes(merged, q, t, qlen, tlen, bb, off, lb, qw, size_v, lpad,
     if not 0 <= size_v <= size_all or lpad < 0 or ins_slots < 1:
         raise ValueError(f"size_v {size_v}, lpad {lpad}, ins_slots "
                          f"{ins_slots} do not fit a buffer of {size_all}")
-    return size_all
+    return size_all, N, W
 
 
 def votes_operands(merged, q, t, qlen, tlen, bb, off, lb, qw=None, *,
@@ -439,9 +476,12 @@ def votes_operands(merged, q, t, qlen, tlen, bb, off, lb, qw=None, *,
     when `scratch`), the caller's tensors as they are, the walk's step
     bound min(Lq + Lt, max_steps), the scalars, the device scratch (else
     None) and fresh dist/tend."""
-    size_all = _check_votes(merged, q, t, qlen, tlen, bb, off, lb, qw,
-                            size_v, lpad, ins_slots)
-    (N, Lq), Lt = q.shape, t.shape[1]
+    size_all, N, W = _check_votes(merged, q, t, qlen, tlen, bb, off, lb,
+                                  qw, size_v, lpad, ins_slots)
+    if W > MAX_WORDS:
+        raise ValueError(f"K2' takes at most {MAX_WORDS} query words, got "
+                         f"W={W}")
+    Lq, Lt = q.shape[1], t.shape[1]
     r = votes_route(Lq, Lt, scratch)
     steps = Lq + Lt if max_steps is None else min(Lq + Lt, max_steps)
     planes = None

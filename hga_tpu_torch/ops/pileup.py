@@ -19,7 +19,9 @@ identity gate, traceback, votes): the plain version of the CUDA kernel K2'
 ``traceback_columns`` and ``accumulate_backbone_votes_merged`` walk the
 direction codes of ops/align.banded_sw_batch_dirs (the scored-SW engine,
 corr_engine="sw"): copies of the reference's functions of those names,
-plain XLA there and plain PyTorch here.
+plain XLA there and plain PyTorch here; ``accumulate_backbone_votes`` is
+its two-buffer convenience, and ``consensus_votes`` a scatter of single
+votes into (length, N_SYM), as in the reference.
 """
 
 from __future__ import annotations
@@ -31,6 +33,24 @@ import torch
 from hga_tpu_torch.ops.myers import MyersResult, myers_batch_planes
 
 N_SYM = 6
+
+
+def consensus_votes(cols: torch.Tensor, syms: torch.Tensor,
+                    valid: torch.Tensor, length: int) -> torch.Tensor:
+    """Scatter votes into an int32 (length, N_SYM) tensor
+    (``hga_tpu.ops.pileup.consensus_votes``): cols int32 (N,) backbone
+    columns, syms (N,) symbols (clipped to 0..N_SYM - 1), valid bool (N,).
+    Invalid rows are sent past the end and dropped; as in the reference's
+    scatter, a flat index in [-size, 0) counts from the end and any other
+    index outside [0, size) is dropped (size = length * N_SYM)."""
+    size = length * N_SYM
+    flat = (torch.where(valid, cols.to(torch.int64), length) * N_SYM
+            + torch.clamp(syms.to(torch.int64), 0, N_SYM - 1))
+    flat = torch.where(flat < 0, flat + size, flat)
+    keep = (flat >= 0) & (flat < size)
+    votes = torch.zeros(size, dtype=torch.int32, device=cols.device)
+    votes.index_add_(0, flat[keep], valid[keep].to(torch.int32))
+    return votes.reshape(length, N_SYM)
 
 
 def _popcount(x: torch.Tensor) -> torch.Tensor:
@@ -267,6 +287,25 @@ def accumulate_backbone_votes_merged(
         merged.index_add_(0, idx, torch.ones(idx.shape[0], dtype=merged.dtype,
                                              device=merged.device))
     return merged
+
+
+def accumulate_backbone_votes(
+    votes: torch.Tensor,      # int32 (NB * lpad * N_SYM,) flat
+    ins_votes: torch.Tensor,  # int32 (NB * lpad * ins_slots * 4,) flat
+    dirs: torch.Tensor, qend: torch.Tensor, tend: torch.Tensor,
+    q: torch.Tensor, bb: torch.Tensor, off: torch.Tensor, lb: torch.Tensor,
+    lpad: int, band: int, Lt: int, ins_slots: int = 3
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-buffer convenience over accumulate_backbone_votes_merged
+    (``hga_tpu.ops.pileup.accumulate_backbone_votes``): returns new
+    (votes, ins_votes) with one batch's dirs-traceback votes added; the
+    inputs are left as they are."""
+    size_v = votes.shape[0]
+    merged = torch.cat([votes, ins_votes, votes.new_zeros(1)])
+    accumulate_backbone_votes_merged(
+        merged, dirs, qend, tend, q, bb, off, lb, size_v=size_v, lpad=lpad,
+        band=band, Lt=Lt, ins_slots=ins_slots)
+    return merged[:size_v], merged[size_v:-1]
 
 
 def gate_max_ed(qlen: torch.Tensor, min_identity: float) -> torch.Tensor:

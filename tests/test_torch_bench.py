@@ -130,3 +130,71 @@ def test_cpu_timer_measures_calls():
     # one warm-up call per input set, then reps calls a pass, cycling
     assert calls == [1, 2, 1, 2, 1, 1, 2, 1]
     assert np.isfinite(ms)
+
+
+def _root_bench_keys(monkeypatch, capsys):
+    """The keys of the repo root's bench.py line, in its order, its JAX
+    benchmarks replaced by fixed results (nothing of JAX runs)."""
+    import bench as root_bench
+
+    monkeypatch.setattr(JB, "bench_myers", lambda n_pairs: {"gcups": 1.0})
+    monkeypatch.setattr(JB, "bench_sw",
+                        lambda n_pairs: {"gcups": 2.0, "impl": "pallas"})
+    assert root_bench.main() == 0
+    return list(json.loads(capsys.readouterr().out.strip().splitlines()[-1]))
+
+
+def test_bench_entry_prints_the_root_bench_line(monkeypatch, capsys):
+    """`python -m hga_tpu_torch.bench --device cpu` (its main(), here at 8
+    pairs a benchmark): one JSON line with the root bench.py's keys in its
+    order, from bench_myers(n_pairs=8192) and bench_sw(n_pairs=4096),
+    vs_baseline = value / baseline_gcups (0.7 of the H100 roofline)."""
+    from hga_tpu_torch import bench as TBENCH
+
+    keys = _root_bench_keys(monkeypatch, capsys)
+    asked, results = {}, {}
+
+    def small(name, fn):
+        def f(n_pairs, device):
+            asked[name] = n_pairs
+            results[name] = fn(n_pairs=8, device=device)
+            return results[name]
+        return f
+
+    monkeypatch.setattr(TBENCH, "bench_myers", small("myers", TB.bench_myers))
+    monkeypatch.setattr(TBENCH, "bench_sw", small("sw", TB.bench_sw))
+    assert TBENCH.main(["--device", "cpu"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1                      # no card line on the CPU
+    line = json.loads(out[0])
+    assert list(line) == keys == ["metric", "value", "unit", "vs_baseline",
+                                  "scored_sw_gcups", "scored_sw_impl"]
+    assert asked == {"myers": 8192, "sw": 4096}
+    my = results["myers"]
+    assert line["metric"] == "overlap_dp_gcups_per_chip"
+    assert line["unit"] == "GCUPS" and line["scored_sw_impl"] == "plain"
+    assert line["value"] == round(my["gcups"], 3) > 0
+    assert line["vs_baseline"] == round(my["gcups"] / my["baseline_gcups"],
+                                        4)
+    assert my["baseline_gcups"] == pytest.approx(0.7 * my["roofline_gcups"])
+    assert line["scored_sw_gcups"] == round(results["sw"]["gcups"], 3)
+
+
+def test_bench_entry_keeps_the_headline_when_sw_fails(monkeypatch, capsys):
+    """A secondary engine that raises becomes scored_sw_error, as in the
+    root bench.py; vs_baseline divides by the result's baseline_gcups."""
+    from hga_tpu_torch import bench as TBENCH
+
+    keys = _root_bench_keys(monkeypatch, capsys)
+
+    def broken(n_pairs, device):
+        raise RuntimeError("no scored SW here")
+
+    monkeypatch.setattr(TBENCH, "bench_myers", lambda n_pairs, device: {
+        "gcups": 700.0, "baseline_gcups": 1400.0})
+    monkeypatch.setattr(TBENCH, "bench_sw", broken)
+    assert TBENCH.main(["--device", "cpu"]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert list(line) == keys[:4] + ["scored_sw_error"]
+    assert (line["value"], line["vs_baseline"]) == (700.0, 0.5)
+    assert "no scored SW here" in line["scored_sw_error"]

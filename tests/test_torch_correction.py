@@ -106,6 +106,26 @@ def test_consensus_and_insertions_match_jax():
     np.testing.assert_array_equal(gdep.numpy(), np.asarray(rdep))
 
 
+def test_consensus_votes_match_jax():
+    """consensus_votes: invalid rows dropped, symbols clipped to 0..5,
+    columns past the end dropped and negative flat indices counted from
+    the end, as the reference's scatter does."""
+    rng = np.random.default_rng(13)
+    N, length = 400, 50
+    cols = rng.integers(-3, length + 3, N).astype(np.int32)
+    syms = rng.integers(-2, 8, N).astype(np.int32)
+    valid = rng.random(N) < 0.8
+    cols[:4], syms[:4], valid[:4] = [0, length - 1, -1, length], \
+        [0, 5, 2, 1], True
+    ref = JPU.consensus_votes(jnp.asarray(cols), jnp.asarray(syms),
+                              jnp.asarray(valid), length)
+    got = TPU.consensus_votes(*map(torch.from_numpy, (cols, syms, valid)),
+                              length)
+    assert got.dtype == torch.int32 and got.shape == (length, TPU.N_SYM)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert int(got.sum()) > N // 2
+
+
 @pytest.fixture(scope="module")
 def data():
     ds = sim.make_dataset(genome_len=7000, short_cov=25, long_cov=5,

@@ -40,7 +40,8 @@ def test_importing_the_port_loads_no_jax():
               "hga_tpu_torch.parallel.hostpart",
               "hga_tpu_torch.parallel.collectives",
               "hga_tpu_torch.parallel.ring_myers",
-              "hga_tpu_torch.parallel.launch",
+              "hga_tpu_torch.parallel.launch", "hga_tpu_torch.bench",
+              "hga_tpu_torch.graft_entry",
               *(f"hga_tpu_torch.exp.{n}" for n in (
                   "common", "scale_run", "count_scale", "reoverlap",
                   "polish_retry", "asm_sweep", "bench_corr_tb",

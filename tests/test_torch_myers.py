@@ -150,9 +150,16 @@ def test_wrappers_reject_bad_operands():
         TMC.myers_batch_planes_cuda(q, t[:10], ql, tl)
     with pytest.raises(ValueError):
         TMC.myers_batch_cuda(q[:, ::2], t, ql, tl)
-    wide = torch.zeros((4, 25 * 31), dtype=torch.int32)
-    with pytest.raises(ValueError):
-        TMC.myers_batch_cuda(wide, wide, ql[:4], tl[:4])
+    # past a kernel's word cap its operand functions refuse the shape (a
+    # CUDA batch then raises; CPU tensors take the plain version)
+    w35, w25 = (torch.zeros((4, W * 31), dtype=torch.int32)
+                for W in (35, 25))
+    with pytest.raises(ValueError, match="at most 34 query words"):
+        TMC.kernel_operands(w35, w35, ql[:4], tl[:4])
+    with pytest.raises(ValueError, match="at most 24 query words"):
+        TMC.planes_operands(w25, w25, ql[:4], tl[:4])
+    with pytest.raises(ValueError, match="lanes"):       # G 1 stops at W 24
+        TMC.kernel_operands(w25, w25, ql[:4], tl[:4], group=1)
 
 
 @pytest.mark.cuda
@@ -167,3 +174,66 @@ def test_cuda_kernels_match_plain(cuda):
         gp, gpv, gmv = TMC.myers_batch_planes_cuda(q, t, ql, tl)
         assert torch.equal(gp.dist, rp.dist) and torch.equal(gpv, rpv)
         assert torch.equal(gmv, rmv)
+
+
+def test_word_caps_by_kernel():
+    """K1' and K2' take W 1-34 (the short-read route's pads up to 1024), K2
+    takes 1-24: each operand function accepts W up to its kernel's cap and
+    refuses past it, by shape alone; no plain route is counted."""
+    assert TM.MAX_WORDS == 34 and TMC.PLANES_MAX_WORDS == 24
+    one = torch.ones(1, dtype=torch.int32)
+    merged = torch.zeros(2, dtype=torch.int32)
+    for W in range(1, 40):
+        q = torch.zeros((1, 31 * W), dtype=torch.int32)
+        assert TMC._check(q, q, one, one) == (1, W, 31 * W)   # every W
+        for name, build, cap in (
+                ("K1'", lambda: TMC.kernel_operands(q, q, one, one),
+                 TM.MAX_WORDS),
+                ("K1' carried state", lambda: TMC.carry_operands(
+                    q, q, one, one, TM.myers_init_state(one, W)),
+                 TM.MAX_WORDS),
+                ("K2", lambda: TMC.planes_operands(q, q, one, one),
+                 TMC.PLANES_MAX_WORDS),
+                ("K2'", lambda: TMC.votes_operands(
+                    merged, q, q, one, one, one, one, one, min_identity=0.75,
+                    size_v=0, lpad=0), TM.MAX_WORDS)):
+            if W <= cap:
+                build()
+            else:
+                with pytest.raises(ValueError, match="query words"):
+                    build()
+    assert sorted(TMC.LAUNCHES) == sorted([
+        "myers_batch_cuda", "myers_batch_cuda_shared",
+        "myers_batch_cuda_carry", "myers_votes_cuda",
+        "myers_votes_cuda_scratch", "myers_batch_planes_cuda"])
+    # W 17-34 run on a warp's 32 lanes a pair: one word a lane up to W 32,
+    # two at W 33-34; W 25-34 in the split design alone
+    assert all(TMC.GATE_GROUP[W] == 32 for W in range(17, 35))
+    assert TMC.group_width(33) == TMC.group_width(34) == 32
+    assert all(TMC.gate_designs(W) == (32,) for W in range(25, 35))
+    assert TMC.gate_designs(24) == (1, 32)
+
+
+@pytest.mark.parametrize("Lq", [800, 992, 1024])   # W 26, 32, 34
+def test_wide_queries_match_jax(Lq):
+    """On CPU tensors K1''s, its carried-state mode's and K2's wrappers give
+    the JAX engine's results at W 26, 32 and 34 (short reads padded to
+    800-1024)."""
+    rng = np.random.default_rng(Lq)
+    N, Lt = 6, Lq + 72
+    q = rng.integers(0, 4, (N, Lq)).astype(np.int32)
+    t = rng.integers(0, 4, (N, Lt)).astype(np.int32)
+    t[::2, 30:30 + Lq - 40] = q[::2, :Lq - 40]
+    ql = np.array([Lq, Lq - 1, 744, 745, 0, 1], np.int32)
+    tl = np.array([Lt, Lt, Lt - 5, Lt, Lt, 7], np.int32)
+    ref = JM.myers_batch(*_j(q, t, ql, tl))
+    n = dict(TMC.LAUNCHES)
+    got = TMC.myers_batch_cuda(*_t(q, t, ql, tl))
+    st, carry = TMC.myers_cols_cuda(*_t(q, t, ql, tl), TM.myers_init_state(
+        torch.from_numpy(ql), TM.n_words(Lq)))
+    planes, _, _ = TMC.myers_batch_planes_cuda(*_t(q, t, ql, tl))
+    assert TMC.LAUNCHES == n                 # CPU tensors: no counter moves
+    for res in (got, carry, planes):
+        np.testing.assert_array_equal(res.dist.numpy(), np.asarray(ref.dist))
+        np.testing.assert_array_equal(res.tend.numpy(), np.asarray(ref.tend))
+    assert int(np.asarray(ref.dist)[0]) < Lq // 4     # a planted overlap

@@ -128,6 +128,25 @@ def test_compute_overlaps_matches_jax(short_set, refine):
     assert got.to_paf(names, names) == ref.to_paf(names, names)
 
 
+def test_compute_overlaps_at_pad_800_matches_jax():
+    """780-base short reads padded to 800 (W 26, 6 kb genome, 8x): the
+    candidates, records and PAF equal the JAX package's."""
+    genome = sim.random_genome(6000, seed=3)
+    seqs, names = sim.simulate_short_reads(genome, coverage=8, read_len=780,
+                                           error_rate=0.005, seed=4)
+    kw = dict(KW, min_overlap_score=40)
+    jpr, tpr = (p(seqs, names=names, pad_len=800) for p in (jpack, tpack))
+    jc = JS.find_candidates(jpr, JCfg(**kw))
+    tc = TS.find_candidates(tpr, TCfg(**kw), device="cpu")
+    for f in CAND:
+        np.testing.assert_array_equal(getattr(tc, f), getattr(jc, f))
+    ref = JO.compute_overlaps(jpr, jc, JCfg(**kw))
+    got = TO.compute_overlaps(tpr, tc, TCfg(**kw), device="cpu")
+    assert ref.n > 400
+    _assert_records_equal(got, ref)
+    assert got.to_paf(names, names) == ref.to_paf(names, names)
+
+
 @pytest.mark.parametrize("refine", ["myers", "sw"])
 def test_golden_overlaps_paf(refine):
     """tests/test_golden.py's fixture: the default refine must give the

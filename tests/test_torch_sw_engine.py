@@ -166,6 +166,31 @@ def test_merged_votes_match_jax(band):
         assert int(mt[:size_all].sum()) > 0
 
 
+def test_two_buffer_votes_match_jax():
+    """accumulate_backbone_votes, the two-buffer convenience over the merged
+    scatter, on buffers that already hold votes: == the JAX function."""
+    band = 16
+    q, (rj, dj), (rt, dt) = _dirs_both(band, seed=5)
+    rng = np.random.default_rng(55)
+    nb, lpad = 3, 96
+    bb = rng.integers(0, nb, P).astype(np.int32)
+    off = rng.integers(-12, lpad - LT + 12, P).astype(np.int32)
+    lb = rng.integers(lpad // 2, lpad + 1, P).astype(np.int32)
+    votes = rng.integers(0, 3, nb * lpad * JPU.N_SYM).astype(np.int32)
+    ins = rng.integers(0, 2, nb * lpad * 3 * 4).astype(np.int32)
+    rv, ri = JPU.accumulate_backbone_votes(
+        jnp.asarray(votes), jnp.asarray(ins), dj, rj.qend, rj.tend,
+        jnp.asarray(q), jnp.asarray(bb), jnp.asarray(off), jnp.asarray(lb),
+        lpad=lpad, band=band, Lt=LT)
+    tv, ti = TPU.accumulate_backbone_votes(
+        *map(torch.from_numpy, (votes, ins)), dt, rt.qend, rt.tend,
+        torch.from_numpy(q), *map(torch.from_numpy, (bb, off, lb)),
+        lpad=lpad, band=band, Lt=LT)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(rv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ri))
+    assert int(tv.sum()) > int(votes.sum())             # votes were cast
+
+
 def test_min_score_gates_votes_like_jax():
     """One correction batch through the engine's step at three score
     gates: the port's _votes_into equals the reference's

@@ -264,6 +264,50 @@ def test_wrapper_rejects_bad_operands():
         TMC.myers_votes_cuda(merged[:size_v - 1], *args, **kw)
 
 
+@pytest.mark.parametrize("Lq", [800, 1024])     # W 26 and W 34
+def test_votes_match_jax_past_24_words(Lq):
+    """Correction batches of short reads padded to 800 and 1024 (W 26 and
+    W 34: K2' on the card, one and two words a lane): the wrapper's plain
+    version == the reference's votes_into."""
+    b = batch(50 + Lq % 7, P=16, Lq=Lq, band=64, lpad=1280)
+    mi = 0.75
+    ref = jax_votes(b, mi, True)
+    got, dist, _ = port_votes(b, mi, True, steps_for(Lq, mi))
+    assert int(ref.sum()) > 5000
+    np.testing.assert_array_equal(got, ref)
+    assert (dist[:10] > 0).any()
+
+
+def test_correct_long_reads_at_short_pad_800():
+    """One correct_long_reads batch with 780-base short reads padded to 800
+    (W 26): the corrected long reads equal the JAX package's."""
+    from hga_tpu.io.encode import pack_reads as jpack
+    from hga_tpu_torch.io.encode import pack_reads as tpack
+    from hga_tpu_torch.utils import sim
+
+    kw = dict(k=15, w=5, band=24, max_seed_freq=64, min_shared_minimizers=2,
+              batch_reads=128, min_overlap_score=30, min_pileup_depth=2,
+              corr_batch_pairs=512, min_identity=0.75)
+    g = sim.random_genome(4000, seed=91)
+    ss, sn = sim.simulate_short_reads(g, coverage=10, read_len=780,
+                                      error_rate=0.005, seed=92)
+    ls, ln = sim.simulate_long_reads(g, coverage=3, mean_len=2000,
+                                     error_rate=0.06, seed=93)
+    pad_l = ((max(len(s) for s in ls) + 31) // 32) * 32
+    reads = {tag: (pack(ss, names=sn, pad_len=800),
+                   pack(ls, names=ln, category=[1] * len(ls), pad_len=pad_l))
+             for tag, pack in (("j", jpack), ("t", tpack))}
+    ref = JCR.correct_long_reads(*reads["j"], JCfg(**kw))
+    got = TCR.correct_long_reads(*reads["t"], TCfg(**kw), device="cpu")
+    assert TCR.LAST_TIMINGS["n_batches"] == 1
+    assert TCR.LAST_TIMINGS["n_pairs"] > 100
+    assert got.names == ref.names and got.pad_len == ref.pad_len
+    for f in ("packed", "bad", "length", "category"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(ref, f),
+                                      err_msg=f)
+    assert (got.packed != reads["t"][1].packed).any()   # reads corrected
+
+
 # ------------------------------------------------------------------ K2''s work
 
 def word_planes(q, qlen, w):
@@ -461,12 +505,26 @@ def test_votes_routes_and_banks():
     # 300 bp reads (pad 320): W 11 on 16 lanes, 2 pairs a warp
     assert TMC.votes_route(320, 392)[:3] == (11, 16, 2)
     # copy arbitration's chunks (pad 400 at k 15): W 13 on 16 lanes, 2
-    # pairs a warp, 98,840 B a block (2 blocks an SM)
+    # pairs a warp; in shared memory 98,840 B a block, 2 blocks an SM, fewer
+    # than VOTES_SMEM_MIN_BLOCKS (4), so the planes go to the device scratch
+    # (1.9x faster there on the card); the correction shape holds 4 blocks
+    assert TMC.VOTES_SMEM_MIN_BLOCKS == 4
     assert TMC.votes_route(400, 472) == TMC.VotesRoute(
-        13, 16, 2, 12320, 2 * 12320 * 4 + 2 * 140, False)
-    # W 24: band 64 fits one pair's planes (157 KB), band 960 (329 KB) does
-    # not and takes the device scratch
-    assert TMC.votes_route(744, 816).scratch is False
+        13, 16, 2, 12320, 2 * 140, True)
+    assert TMC.SMEM_SM // (2 * 12320 * 4 + 2 * 140 + TMC.SMEM_RESERVED) == 2
+    assert TMC.SMEM_SM // (8 * 1480 * 4 + 8 * 132 + TMC.SMEM_RESERVED) == 4
+    # W 11 (3 blocks an SM), W 20 (2), W 24 (one block of 157 KB), W 26
+    # (pad 800), band 960 (329 KB, no fit): the scratch; W 1 and 2 at band
+    # 64 stay in shared memory
+    for lq in (320, 620, 744, 800):
+        assert TMC.votes_route(lq, lq + 72).scratch is True, lq
+    for lq in (31, 62):
+        assert TMC.votes_route(lq, lq + 72).scratch is False, lq
+    # W 33 and 34 (pads 1023 and 1024): two words a lane of the warp's one
+    # pair, on the scratch
+    for lq, W in ((1023, 33), (1024, 34)):
+        r = TMC.votes_route(lq, lq + 72)
+        assert (r.W, r.G, r.pairs, r.scratch) == (W, 32, 1, True)
     big = TMC.votes_route(744, 744 + 960 + 8)
     assert big.scratch and big.smem == 156 and big.pairs == 1
     assert TMC.votes_counter(big) == "myers_votes_cuda_scratch"

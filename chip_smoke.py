@@ -17,14 +17,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      14, 16, 24 with qlen 0, 1, 31, 32, 62, Lq - 1, ragged tlen and codes
      -1, 4, 9; at W 25, 26, 32-34 (N 4096, Lt = Lq + 72, the split design
      alone, two words a lane at 33-34) with qlen 0, 1, 744, 745, 775, 992,
-     993, 1023, 1024; past each kernel's word cap (K1' and K2' at W 35, K2
-     at W 25) the wrapper raises and counts nothing; then K1''s
-     shared-target mode (one target row for every pair, counted as
-     myers_batch_cuda_shared) at segment_identity's shape (segments of 384,
-     W 13, against genome . sentinel . revcomp of a 4 kb genome: Lt 8001)
-     and at W 4, W 1, W 26 and W 34 with qlen 0, 1, 31, 32 and target codes
-     -1, 4, 9; and the carried-state mode at W 26 and W 33 (one chunk, 2,
-     3, 8 chunks)
+     993, 1023, 1024 (the wide route forced at W 26 and 34); on the wide
+     route (myers_batch_cuda_wide must move) at W 35, 48, 64, 65 (its words
+     also in the device scratch) and 100 with qlen 0, 1, 31, 31 W - 1,
+     31 W, and at the long reads' gate shapes (N 128, Lq 8,192; N 64,
+     Lq 31,000); past K2's word cap (W 25) its wrapper raises and counts
+     nothing; then K1''s shared-target mode (one target row for every
+     pair, counted as myers_batch_cuda_shared; target windows by shape)
+     at segment_identity's shape (segments of 384, W 13, against genome .
+     sentinel . revcomp of a 4 kb genome: Lt 8001) and at W 4, W 1, W 26,
+     W 34 and W 40 (the wide route) with qlen 0, 1, 31, 32 and target
+     codes -1, 4, 9, each also at forced windows of one halo and at one
+     window (the single sweep); and the carried-state mode at W 26, 33, 48
+     (wide) and W 40 on a shared row (one chunk, 2, 3, 8 chunks, and
+     forced windows of one halo over 1, 2 and 3 chunks)
   3. K2 (myers_batch_planes_cuda) == its plain version (dist, tend, Pv, Mv)
      at the correction shape (N 4096, Lq 112, Lt 184), and the traceback
      votes made from each set of planes are equal; then K2'
@@ -36,8 +42,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      shape (Lq 400, W 13, Lt 472), each on the home its shape takes (the
      device scratch from W 11: shared memory would hold fewer than 4
      blocks an SM), W 13 and 17 also forced into shared memory, band 960 and
-     the correction shape on the scratch, and at W 26, 32, 33 and 34 (pads
-     800, 992, 1023, 1024, the scratch by shape); each route's counter
+     the correction shape on the scratch, at W 26, 32, 33 and 34 (pads
+     800, 992, 1023, 1024, the scratch by shape), and on the wide route
+     (myers_votes_cuda_wide) at W 35, 48, 64, 65 and 100, W 65 also cut
+     into 4 sub-batches by a small scratch budget; each route's counter
      must move
   4. the port's main path, run_pipeline(device="cuda") with the judged
      config (copy arbitration on), on a simulated genome with the judged
@@ -52,14 +60,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   6. CUDA-event times of each kernel (wrapper and kernel alone) and of its
      plain version, GCUPS, bounds and the share of them, registers: K1' in
      both designs at W 14, 4, 5 and 1 and the split design at W 26, 32 and
-     34,
+     34, its wide route at N 4096 and Lq 31,000, 8,192, 3,100 and 1,085
+     (and the register route beside it at W 34),
      K2, K3' at the refine's shapes
      beside K3'' and K3's kernels on the same inputs, K3'' at the 300 bp
      refine's shapes (Lq 320, forward band 64 and reverse band 128) with
      its in-band share, K and shared memory, beside K3's kernel on the same
      inputs (K3's row, forced there); K2' on real correction batches
      (_prep's output) on both plane homes, its shared memory and blocks an
-     SM, and on planted batches at W 26 (the scratch); K2''s two homes at
+     SM, and on planted batches at W 26 (the scratch) and W 100 (the wide
+     route); K2''s two homes at
      W 13 (arbitration), 11, 17, 20, 22, 24 and 26 (band 64), kernel alone, with
      the blocks an SM shared memory holds (votes_route's cutoff); and the
      correction batch split (_prep / K2')
@@ -98,7 +108,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      .myers_cols bit-exact at segment_identity's shape (W 13, shared row)
      and the long-overlap shape (W 14, per-pair rows) with qlen 0, 1, 31,
      32, ragged tlen and codes -1, 4, 9, and chained over 2, 3 and 8 chunks
-     == one chunk == one-shot K1'; then, after phase 10, two ranks sharing
+     == one chunk == one-shot K1', windows by shape and forced windows of
+     one halo (over 1, 2 and 3 chunks); then, after phase 10, two ranks sharing
      the card (gloo, parallel/launch.py): run_pipeline with phase 4's reads
      and config, its FASTA byte-identical to phase 4's, corrected.npz and
      overlaps.npz array-equal, spectrum.npz's histogram, threshold and
@@ -143,7 +154,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      26); at 20 kb (short reads at 12x) the hybrid pipeline, config 3 and
      the short-read-only pipeline at pad 800 and the short-read-only
      pipeline at pad 1024 (W 34: K1' and K2' on the scratch move) on cuda
-     and on cpu, artifacts byte-identical; hga_tpu_torch.bench.main()
+     and on cpu, artifacts byte-identical; `hga-torch overlap --long`
+     through cli.main on the first 10 judged long reads of a 20 kb genome
+     (phase 4's seed; pad ~20 kb, W ~645: K1''s wide route must move) and
+     correct_long_reads at 20 kb with 1,100-base short reads padded to
+     1,120 (W 37: K2''s wide route must move) on cuda and on cpu,
+     overlaps.npz and the PAF, corrected.npz byte-identical;
+     hga_tpu_torch.bench.main()
      (bench.py's keys; K1' and K3' move); graft_entry.entry() == K3''s
      plain version, bit-exact, and dryrun_multichip(1), a world of one on
      NCCL
@@ -158,7 +175,8 @@ starts once they have all ended, so no timed pipeline but phase d's
 scripts (which run beside processes of their own anyway) shares the host
 with them.  Phase 6 also times K2' at the arbitration shape, K1''s
 shared-target mode at segment_identity's shape and its carried-state mode
-at the ring's step shape on 2 ranks.
+at the ring's step shape on 2 ranks, each at its windows by shape, at
+twice as many and at one window (the single sweep).
 
 The last three lines of standard output are the `kernels` JSON line, the
 card's `name, power.limit`, and {"ok": true, "device": {...}}.
@@ -182,6 +200,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 KERNELS = {
     "myers_batch_cuda": ("hga_tpu_torch/csrc/myers_gate.cu",
                          "hga_tpu/ops/myers_pallas.py:47"),
+    "myers_batch_cuda_wide": ("hga_tpu_torch/csrc/myers_gate.cu",
+                              "hga_tpu/ops/myers_pallas.py:47"),
     "myers_batch_cuda_shared": ("hga_tpu_torch/csrc/myers_gate.cu",
                                 "hga_tpu/ops/myers_pallas.py:47"),
     "myers_batch_cuda_carry": ("hga_tpu_torch/csrc/myers_gate.cu",
@@ -190,6 +210,8 @@ KERNELS = {
                          "hga_tpu/ops/myers_pallas.py:106"),
     "myers_votes_cuda_scratch": ("hga_tpu_torch/csrc/myers_votes.cu",
                                  "hga_tpu/ops/myers_pallas.py:106"),
+    "myers_votes_cuda_wide": ("hga_tpu_torch/csrc/myers_votes.cu",
+                              "hga_tpu/ops/myers_pallas.py:106"),
     "myers_batch_planes_cuda": ("hga_tpu_torch/csrc/myers.cu",
                                 "hga_tpu/ops/myers_pallas.py:106"),
     "banded_sw_batch_cuda": ("hga_tpu_torch/csrc/sw.cu",
@@ -356,8 +378,8 @@ def myers_edges(rng, N, Lq, Lt, edges=(0, 1, 31, 32, 62)):
     ql[:len(edge)] = edge
     q[np.arange(Lq)[None, :] >= ql[:, None]] = 4
     tl[N // 2:] = rng.integers(0, Lt + 1, N - N // 2)   # ragged targets
-    t[8:72, :8] = rng.choice([-1, 4, 9], size=(64, 8))
-    q[72:136, :6] = rng.choice([-1, 4, 9], size=(64, 6))
+    t[8:72, :8] = rng.choice([-1, 4, 9], size=t[8:72, :8].shape)
+    q[72:136, :6] = rng.choice([-1, 4, 9], size=q[72:136, :6].shape)
     t[9, Lt // 4:Lt // 2] = 4
     return q, t, ql, tl
 
@@ -416,10 +438,19 @@ def shared_edges(rng, N, Lq, Lt):
     return q, t, ql, tl
 
 
+def window_cases(M, W: int, Lt: int):
+    """K1''s forced windows at one shape: the smallest legal window (one
+    halo) where it splits the target, and one window (the single sweep)."""
+    H = M.window_halo(W)
+    return ([H] if Lt > H else []) + [max(Lt, 1)]
+
+
 def phase_k1_shared(rng, MC, M):
     """K1''s shared-target mode through its wrapper (its own counter must
-    move) and, kernel alone, in the other design, against the plain version
-    on the same (1, Lt) row."""
+    move; windows by shape) and, kernel alone, in the other design and at
+    forced windows (one halo, and one window: the single sweep), against
+    the one-sweep plain version on the same (1, Lt) row; the wide route at
+    W 40."""
     import torch
 
     errs = []
@@ -432,34 +463,45 @@ def phase_k1_shared(rng, MC, M):
              ("shared target W 26 (N 1000, Lq 800, Lt 3000)",
               shared_edges(rng, 1000, 800, 3000)),
              ("shared target W 34 (N 500, Lq 1024, Lt 3000)",
-              shared_edges(rng, 500, 1024, 3000))]
+              shared_edges(rng, 500, 1024, 3000)),
+             ("shared target W 40, wide route (N 200, Lq 1240, Lt 6000)",
+              shared_edges(rng, 200, 1240, 6000))]
     for label, x in cases:
         args = to_dev(*x)
         t0 = time.perf_counter()
         ref = M.myers_batch(*args)
         torch.cuda.synchronize()
         log(f"  plain version ({label}): {time.perf_counter() - t0:.1f} s")
-        W = M.n_words(x[0].shape[1])
+        W, Lt = M.n_words(x[0].shape[1]), x[1].shape[1]
         before = MC.LAUNCHES["myers_batch_cuda_shared"]
         got = MC.myers_batch_cuda(*args)
         if MC.LAUNCHES["myers_batch_cuda_shared"] != before + 1:
             fail(f"K1' {label}: myers_batch_cuda_shared did not count")
-        errs += [eq(f"K1' {label} G {MC.GATE_GROUP[W]} {f}",
-                    getattr(got, f), getattr(ref, f))
-                 for f in ("dist", "tend")]
-        for other in set(MC.gate_designs(W)) - {MC.GATE_GROUP[W]}:
-            *ops, outs = MC.kernel_operands(*args, group=other)
+        r = MC.kernel_operands(*args)[4]
+        errs += [eq(f"K1' {label} G {r.G} S {r.S} {f}", getattr(got, f),
+                    getattr(ref, f)) for f in ("dist", "tend")]
+        runs = [(f"G {g} S by shape", dict(group=g))
+                for g in set(MC.gate_designs(W)) - {r.G}]
+        runs += [(f"window {w}", dict(window=w))
+                 for w in window_cases(M, W, Lt)]
+        for tag, kw in runs:
+            *ops, outs = MC.kernel_operands(*args, **kw)
             MC.run_kernel(*ops, outs)
-            errs += [eq(f"K1' {label} G {other} {f}", o, getattr(ref, f))
+            errs += [eq(f"K1' {label} {tag} (S {ops[4].S}) {f}", o,
+                        getattr(ref, f))
                      for f, o in zip(("dist", "tend"), outs)]
     return max(errs)
 
 
 def phase_k1(rng, MC, M):
-    """K1' through its wrapper (GATE_GROUP's lanes a pair) and through the
-    other design at each shape, against the plain version."""
-    log("phase 2: K1' myers_batch_cuda vs plain, bit-exact, both designs")
-    errs = []
+    """K1' through its wrapper (GATE_GROUP's lanes a pair, the wide route
+    past 34 words, whose counter must move) and through the other design at
+    each shape, against the plain version."""
+    import torch
+
+    log("phase 2: K1' myers_batch_cuda vs plain, bit-exact, both designs and "
+        "the wide route")
+    errs = {"myers_batch_cuda": [], "myers_batch_cuda_wide": []}
     cases = [("long-overlap shape (N 4096, Lq 414, Lt 478)",
               myers_edges(rng, 4096, 414, 478)),
              ("config-3 gate shape (N 4096, Lq 112, Lt 184)",
@@ -476,56 +518,67 @@ def phase_k1(rng, MC, M):
                       myers_edges(rng, 4096, lq, lq + 72,
                                   edges=(0, 1, 744, 745, 775, 992, 993,
                                          1023, 1024))))
+    # the wide route: W 35, 48, 64, 65, 100 (Lq 31 W), then long-read gate
+    # shapes (the long reads' pad: ~8 kb, and ~31 kb as a 4.6 Mb judged run
+    # pads them), N small where the plain version's column loop is slow
+    for n, W in ((1024, 35), (1024, 48), (512, 64), (512, 65), (256, 100)):
+        lq = 31 * W
+        cases.append((f"W {W} (N {n}, Lq {lq}, Lt {lq + 72})",
+                      myers_edges(rng, n, lq, lq + 72,
+                                  edges=(0, 1, 31, lq - 1, lq))))
+    for n, lq in ((128, 8192), (64, 31_000)):
+        cases.append((f"long-read gate W {M.n_words(lq)} (N {n}, Lq {lq}, "
+                      f"Lt {lq + 72})", myers_edges(rng, n, lq, lq + 72)))
     for label, x in cases:
         args = to_dev(*x)
+        t0 = time.perf_counter()
         ref = M.myers_batch(*args)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
         W = M.n_words(x[0].shape[1])
-        before = MC.LAUNCHES["myers_batch_cuda"]
+        r = MC.kernel_operands(*args)[4]
+        key = MC.gate_counter(r, False)
+        before = MC.LAUNCHES[key]
         got = MC.myers_batch_cuda(*args)
-        if MC.LAUNCHES["myers_batch_cuda"] != before + 1:
-            fail(f"K1' {label}: myers_batch_cuda did not count")
-        G = MC.GATE_GROUP[W]
-        errs += [eq(f"K1' {label} G {G} {f}", getattr(got, f),
-                    getattr(ref, f)) for f in ("dist", "tend")]
-        for other in set(MC.gate_designs(W)) - {G}:
-            *ops, outs = MC.kernel_operands(*args, group=other)
+        if MC.LAUNCHES[key] != before + 1:
+            fail(f"K1' {label}: {key} did not count")
+        if (W > MC.REGISTER_MAX_WORDS) != (key == "myers_batch_cuda_wide"):
+            fail(f"K1' {label} took {key}")
+        errs[key] += [eq(f"K1' {label} G {r.G} ({key}; plain {dt:.1f} s) "
+                         f"{f}", getattr(got, f), getattr(ref, f))
+                      for f in ("dist", "tend")]
+        runs = [(f"G {g}", dict(group=g))
+                for g in set(MC.gate_designs(W)) - {r.G}]
+        if W in (26, 34):          # the wide route forced below its W
+            runs.append(("wide route forced", dict(wide=True)))
+        if W == 65:                # its words in the device scratch
+            runs.append(("words in the scratch", dict(words_scratch=True)))
+        for tag, kw in runs:
+            *ops, outs = MC.kernel_operands(*args, **kw)
             MC.run_kernel(*ops, outs)
-            errs += [eq(f"K1' {label} G {other} {f}", o, getattr(ref, f))
-                     for f, o in zip(("dist", "tend"), outs)]
+            errs[MC.gate_counter(ops[4], False)] += [
+                eq(f"K1' {label} {tag} {f}", o, getattr(ref, f))
+                for f, o in zip(("dist", "tend"), outs)]
     cap_check(rng, MC, M)
-    return max(errs)
+    return {k: max(v) for k, v in errs.items()}
 
 
 def cap_check(rng, MC, M):
-    """Past each kernel's word cap a CUDA batch raises and launches
-    nothing: K1' and K2' at W 35 (Lq 1055), K2 at W 25 (Lq 775)."""
-    import torch
-
-    from hga_tpu_torch.ops import pileup as PU
-
-    def refused(label, fn, *a, **kw):
-        before = dict(MC.LAUNCHES)
-        try:
-            fn(*a, **kw)
-        except ValueError as e:
-            if "query words" not in str(e):
-                raise
-            if moved(before, MC.LAUNCHES):
-                fail(f"{label}: counted a launch before raising")
-            return
-        fail(f"{label} did not raise past its kernel's word cap")
-
-    lq, lq2 = MC.MAX_WORDS * 31 + 1, MC.PLANES_MAX_WORDS * 31 + 1
-    wide = to_dev(*myers_edges(rng, 256, lq, lq + 72))
-    refused("myers_batch_cuda at W 35", MC.myers_batch_cuda, *wide)
-    refused("myers_batch_planes_cuda at W 25", MC.myers_batch_planes_cuda,
-            *to_dev(*myers_edges(rng, 256, lq2, lq2 + 72)))
-    ops, nb, lpad = votes_inputs(rng, 256, lq, 64)
-    size_v = nb * lpad * PU.N_SYM
-    merged = torch.zeros(size_v + nb * lpad * 12 + 1, dtype=torch.int32,
-                         device="cuda")
-    refused("myers_votes_cuda at W 35", MC.myers_votes_cuda, merged,
-            *to_dev(*ops), min_identity=0.75, size_v=size_v, lpad=lpad)
+    """Past K2's word cap a CUDA batch raises and launches nothing (W 25,
+    Lq 775); K1' and K2' take every W (phase 2's and 3's wide cases)."""
+    before = dict(MC.LAUNCHES)
+    lq = MC.PLANES_MAX_WORDS * 31 + 1
+    try:
+        MC.myers_batch_planes_cuda(*to_dev(*myers_edges(rng, 256, lq,
+                                                        lq + 72)))
+    except ValueError as e:
+        if "query words" not in str(e):
+            raise
+        if moved(before, MC.LAUNCHES):
+            fail("myers_batch_planes_cuda at W 25: counted a launch before "
+                 "raising")
+        return
+    fail("myers_batch_planes_cuda at W 25 did not raise past K2's word cap")
 
 
 def phase_k2(rng, MC, M, PU):
@@ -594,12 +647,13 @@ def votes_inputs(rng, N, Lq, band, nb=8):
 
 
 def votes_check(label, MC, PU, ops, nb, lpad, min_identity, weighted,
-                scratch=False, smem=False):
+                scratch=False, smem=False, budget=0):
     """K2' through its wrapper (the route by shape, whose counter must move
     by one), or forced onto the scratch route or into shared memory (where
-    the shape's block fits), against myers_votes on the
-    same inputs: dist, tend and the vote buffer less its sink, which the
-    kernel never writes."""
+    the shape's block fits), or cut into sub-batches by a scratch `budget`
+    of bytes (at least two launches), against myers_votes on the same
+    inputs: dist, tend and the vote buffer less its sink, which the kernel
+    never writes."""
     import torch
 
     args = to_dev(*ops)
@@ -613,14 +667,20 @@ def votes_check(label, MC, PU, ops, nb, lpad, min_identity, weighted,
     ref_m = torch.zeros(size_all + 1, dtype=torch.int32, device="cuda")
     ref, _ = PU.myers_votes(ref_m, *args, **kw)
     got_m = torch.zeros_like(ref_m)
-    if scratch or smem:
-        r, ins, scalars, planes, _, outs = MC.votes_operands(
-            got_m, *args, scratch=True, **kw)
+    if scratch or smem or budget:
+        r, ins, scalars, sc, _, outs = MC.votes_operands(
+            got_m, *args, scratch=scratch or smem,
+            budget=budget or MC.VOTES_SCRATCH_BYTES, **kw)
         if smem:
             r = r._replace(smem=r.smem + r.pairs * r.stride * 4,
                            scratch=False)
-            planes = None
-        MC.run_votes_kernel(r, ins, scalars, planes, got_m, outs)
+            sc = (None, None, ins[0].shape[0])
+        n = MC.run_votes_kernel(r, ins, scalars, sc, got_m, outs)
+        if budget and n < 2:
+            fail(f"K2' {label}: a budget of {budget} B made {n} launch")
+        if budget:
+            log(f"  K2' {label}: {n} launches of {sc[2]} pairs under a "
+                f"scratch budget of {budget} B")
         got = MC.MyersResult(*outs)
     else:
         r = MC.votes_route(Lq, ops[1].shape[1])
@@ -629,7 +689,8 @@ def votes_check(label, MC, PU, ops, nb, lpad, min_identity, weighted,
         got, _ = MC.myers_votes_cuda(got_m, *args, **kw)
         if MC.LAUNCHES[key] != before + 1:
             fail(f"K2' {label}: {key} did not count its launch")
-    name = (f"K2' {label} ({'scratch' if r.scratch else 'smem'}, "
+    name = (f"K2' {label} ({'wide, ' if r.wl else ''}"
+            f"{'scratch' if r.scratch else 'smem'}, "
             f"{'weighted' if weighted else 'unweighted'}, min_identity "
             f"{min_identity})")
     if int(ref_m[:size_all].sum()) <= 0:
@@ -648,7 +709,8 @@ def phase_k2v(rng, MC, PU):
     the home the shape takes (W 13 and 17 also forced into the shared
     memory the route declines), band 960 and the correction shape on the scratch
     route, then W 26, 32, 33 and 34 (pads 800, 992, 1023 and 1024) on it
-    by shape."""
+    by shape, and W 35-100 on the wide route (one batch cut into
+    sub-batches)."""
     log("phase 3: K2' myers_votes_cuda vs plain, bit-exact")
     errs = {"myers_votes_cuda": [], "myers_votes_cuda_scratch": []}
     ops, nb, lpad = votes_inputs(rng, 4096, 112, 64)
@@ -688,6 +750,26 @@ def phase_k2v(rng, MC, PU):
             errs[MC.votes_counter(r)].append(votes_check(
                 f"W {r.W} (N {n}, Lq {lq}, Lt {lq + 72})", MC, PU, ops, nb,
                 lpad, 0.75, weighted))
+    # the wide route: W 35, 48, 64, 65 and 100 (pads 1085 .. 3100) at the
+    # correction band, through the wrapper (weighted, and at W 35
+    # unweighted too); at W 65 the batch forced into 4 sub-batches by a
+    # small scratch budget, the same votes
+    errs["myers_votes_cuda_wide"] = []
+    for n, W in ((1024, 35), (512, 48), (512, 64), (512, 65), (256, 100)):
+        lq = 31 * W
+        ops, nb, lpad = votes_inputs(rng, n, lq, 64)
+        r = MC.votes_route(lq, lq + 72)
+        if MC.votes_counter(r) != "myers_votes_cuda_wide":
+            fail(f"K2' at W {W} took {MC.votes_counter(r)}")
+        label = f"W {W} (N {n}, Lq {lq}, Lt {lq + 72})"
+        if W == 65:
+            errs["myers_votes_cuda_wide"].append(votes_check(
+                label, MC, PU, ops, nb, lpad, 0.75, True,
+                budget=-(-n // 4) * MC.votes_scratch_bytes(r)))
+            continue
+        for weighted in ((False, True) if W == 35 else (True,)):
+            errs["myers_votes_cuda_wide"].append(votes_check(
+                label, MC, PU, ops, nb, lpad, 0.75, weighted))
     return {k: max(v) for k, v in errs.items()}
 
 
@@ -1044,7 +1126,8 @@ TWINS = {"p5_hybrid": _HYBRID, "p5_config3": _CROSS,
          "p5_config3_300": _CROSS, "p5_short": _SHORT,
          "b_sw_correct": ((), ("corrected.npz",)), "b_sw_hybrid": _HYBRID,
          "e_hybrid": _HYBRID, "e_cross": _CROSS, "e_short": _SHORT,
-         "e_short1024": _SHORT}
+         "e_short1024": _SHORT, "e_overlap_long": _CROSS,
+         "e_correct1120": ((), ("corrected.npz",))}
 
 
 def _twin_spec(name: str):
@@ -1052,7 +1135,9 @@ def _twin_spec(name: str):
     5's hybrid pipeline (20 kb), config 3 with 100 and 300 bp reads and
     the short-read-only pipeline (8 kb); phase b's scored-SW correction
     engine (correct_long_reads at 8 kb, the 20 kb pipeline); phase e's
-    four runs at E_CUT (pads 800 and 1024)."""
+    four runs at E_CUT (pads 800 and 1024), correct_long_reads with short
+    reads padded to 1120 (W 37) and `hga-torch overlap --long` on E_CUT's
+    judged long reads (phase 4's seed)."""
     from hga_tpu_torch.exp.scale_run import judged_cfg
 
     sw = lambda: judged_cfg().replace(corr_engine="sw")
@@ -1076,6 +1161,9 @@ def _twin_spec(name: str):
         "e_cross": ("cross", wide(780), e3),
         "e_short": ("short", wide(780), es),
         "e_short1024": ("short", wide(1000), es),
+        "e_overlap_long": ("overlap_long", lambda: simulate(E_CUT, 42),
+                           None),
+        "e_correct1120": ("correct", wide(1100), judged_cfg),
     }[name]
 
 
@@ -1089,6 +1177,8 @@ def twin_run(name: str, outdir: str, device: str) -> int:
     kind, reads, cfg = _twin_spec(name)
     _, pr_s, pr_l = reads()
     d = os.path.join(outdir, name)
+    if kind == "overlap_long":
+        return overlap_long(pr_l, d, device)
     if kind in ("pipeline", "short"):
         return len(run_pipeline(pr_s, pr_l if kind == "pipeline" else None,
                                 cfg(), d, device=device).polished)
@@ -1104,12 +1194,40 @@ def twin_run(name: str, outdir: str, device: str) -> int:
     return ov.n
 
 
+def overlap_long(pr_l, d: str, device: str) -> int:
+    """`hga-torch overlap --long` through cli.main with the judged seeding
+    (-k 15 -w 5) on the first E_LONG_READS reads of `pr_l`, written as
+    FASTA; returns the overlaps it found."""
+    import numpy as np
+
+    from hga_tpu_torch import cli
+    from hga_tpu_torch.io.encode import unpack_codes
+
+    os.makedirs(d)
+    fa = os.path.join(d, "long.fa")
+    codes = unpack_codes(pr_l.packed[:E_LONG_READS])
+    with open(fa, "w") as fh:
+        for name, row, n in zip(pr_l.names, codes, pr_l.length):
+            fh.write(f">{name}\n"
+                     f"{np.frombuffer(b'ACGT', np.uint8)[row[:n]].tobytes().decode()}\n")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["overlap", "--long", fa, "-o", d, "-k", "15", "-w",
+                       "5", "--device", device])
+    if rc:
+        fail(f"hga-torch overlap --long on {device} returned {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])["overlaps"]
+
+
 P5_TWINS = ("p5_hybrid", "p5_config3", "p5_config3_300", "p5_short")
 B_TWINS = ("b_sw_correct", "b_sw_hybrid")
-E_TWINS = ("e_hybrid", "e_cross", "e_short", "e_short1024")
-# torch threads of a CPU twin run: one, or more for the two longest (the
-# plain SW refine at Lq 320 and the sw engine; ~110 s on one thread)
-TWIN_THREADS = {"p5_config3_300": 3, "b_sw_hybrid": 2}
+E_TWINS = ("e_hybrid", "e_cross", "e_short", "e_short1024",
+           "e_overlap_long", "e_correct1120")
+# torch threads of a CPU twin run: one, or more for the four longest (the
+# plain SW refine at Lq 320 and the sw engine, ~110 s on one thread; the
+# plain K1' at the long reads' pad, W ~645; the plain K2' at W 37)
+TWIN_THREADS = {"p5_config3_300": 3, "b_sw_hybrid": 2, "e_overlap_long": 2,
+                "e_correct1120": 2}
 
 
 @contextlib.contextmanager
@@ -1205,6 +1323,10 @@ def phase_cpu_equal(workdir: str, MC, AC):
 E_GENOME = 100_000
 E_CUT = 20_000
 E_CPU_COV = 12.0
+# `hga-torch overlap --long` takes the first this many of E_CUT's judged
+# long reads (~4x of its 20x): the plain K1' on the CPU side (W ~645,
+# ~20,000 columns) then stays near a minute
+E_LONG_READS = 10
 
 
 def e_reads(genome_len: int, read_len: int, seed: int,
@@ -1363,7 +1485,8 @@ def phase_wide(workdir: str, MC, AC, A, jobs):
     runs, ended before it starts); returns its paths' launches and K3''s
     error on graft_entry's step."""
     log("phase e: short reads past 24 words (pads 800 and 1024), "
-        "hga_tpu_torch.bench and graft_entry")
+        "`hga-torch overlap --long` (the wide route), hga_tpu_torch.bench "
+        "and graft_entry")
     te = time.perf_counter()
     paths = {}
     paths["phase e hybrid, pad 800"], pr_s, pr_l = e_hybrid(MC, workdir)
@@ -1376,6 +1499,12 @@ def phase_wide(workdir: str, MC, AC, A, jobs):
                 and launches["myers_votes_cuda_scratch"] > 0):
             fail(f"{name}: K1' and K2' (scratch) did not both move at W 34: "
                  f"{launches}")
+        if name == "e_overlap_long" and \
+                launches["myers_batch_cuda_wide"] <= 0:
+            fail(f"{name}: K1''s wide route did not move: {launches}")
+        if name == "e_correct1120" and \
+                launches["myers_votes_cuda_wide"] <= 0:
+            fail(f"{name}: K2''s wide route did not move: {launches}")
         paths[f"phase e {name}, {E_CUT} bp"] = launches
     MC.reset_launches()
     AC.reset_launches()
@@ -1613,15 +1742,24 @@ def phase_b(genome_len: int, workdir: str, MC, AC):
 
 # ---------------------------------------------------------------- phase c
 
-def carry_chain(MC, M, args, cuts):
+def carry_chain(MC, M, args, cuts, window=None):
     """K1''s carried-state mode over consecutive column chunks of widths
-    `cuts` from a fresh state; returns (state, MyersResult)."""
+    `cuts` from a fresh state, through its wrapper (windows by shape) or,
+    kernel alone, at windows of `window` owned columns where a chunk is
+    longer; returns (state, MyersResult)."""
     q, t, ql, tl = args
-    st = M.myers_init_state(ql, M.n_words(q.shape[1]))
+    W = M.n_words(q.shape[1])
+    st = M.myers_init_state(ql, W)
     j0, res = 0, None
     for c in cuts:
-        st, res = MC.myers_cols_cuda(q, t[:, j0:j0 + c].contiguous(), ql, tl,
-                                     st, j0)
+        chunk = t[:, j0:j0 + c].contiguous()
+        if window is None:
+            st, res = MC.myers_cols_cuda(q, chunk, ql, tl, st, j0)
+        else:
+            *ops, outs = MC.carry_operands(q, chunk, ql, tl, st, j0,
+                                           window=window)
+            MC.run_carry_kernel(*ops, outs)
+            st, res = M.unpack_state(outs[0], W), MC.MyersResult(*outs[1:])
         j0 += c
     return st, res
 
@@ -1681,6 +1819,8 @@ def carry_case(rng, MC, M, label, x):
     log(f"  plain myers_cols ({label}): {time.perf_counter() - t0:.1f} s")
     one = MC.myers_batch_cuda(*args)
     st, res = MC.myers_cols_cuda(*args, M.myers_init_state(ql, W))
+    log(f"  carry {label}: {MC.carry_operands(*args, st)[4].S} windows by "
+        "shape")
     for f, a, b in zip(("pv", "mv", "score", "best", "bj"), st, ref):
         errs.append(eq(f"carry {label}: {f}", a, b))
     ref_res = M.state_result(ql, ref)
@@ -1692,9 +1832,15 @@ def carry_case(rng, MC, M, label, x):
     splits = [chunk_cuts(Lt, n, rng) for n in (2, 3, 8)]
     if Lt > 2113:
         splits.append([1, 31, 32, 1024, 1025, Lt - 2113])
-    for cuts in splits:
-        st_c, res_c = carry_chain(MC, M, args, cuts)
-        tag = f"carry {label} over {len(cuts)} chunks"
+    H = M.window_halo(W)
+    runs = [(cuts, None) for cuts in splits]
+    if Lt > H:
+        # forced windows of one halo: one chunk, and chained over 2 and 3
+        runs += [([Lt], H), (splits[0], H), (splits[1], H)]
+    for cuts, window in runs:
+        st_c, res_c = carry_chain(MC, M, args, cuts, window)
+        tag = (f"carry {label} over {len(cuts)} chunks"
+               + (f" at windows of {window}" if window else ""))
         errs += [eq(f"{tag}: state", torch.stack([x.flatten() for x in
                                                   st_c[2:]]),
                     torch.stack([x.flatten() for x in st[2:]])),
@@ -1707,18 +1853,21 @@ def carry_case(rng, MC, M, label, x):
 
 def phase_carry_wide(rng, MC, M):
     """Phase 2's carried-state cases at W 26 and W 33 (the last lane's
-    spare word past the query: per-pair rows, N 2048, Lt = Lq + 72);
-    myers_batch_cuda_carry must move."""
+    spare word past the query: per-pair rows, N 2048, Lt = Lq + 72), and
+    on the wide route at W 48 (per-pair rows) and W 40 (a shared row of
+    6,000 columns: windows); myers_batch_cuda_carry must move."""
     before = MC.LAUNCHES["myers_batch_cuda_carry"]
     errs = []
-    for lq in (800, 1023):
+    for lq in (800, 1023, 1488):
         errs += carry_case(
             rng, MC, M, f"W {M.n_words(lq)} (per-pair rows: N 2048, Lq {lq}, "
             f"Lt {lq + 72})", myers_edges(rng, 2048, lq, lq + 72,
                                           edges=(0, 1, 744, 745, 775, 993,
-                                                 1023)))
+                                                 1023, lq)))
+    errs += carry_case(rng, MC, M, "W 40 (shared row: N 200, Lq 1240, "
+                       "Lt 6000)", shared_edges(rng, 200, 1240, 6000))
     if MC.LAUNCHES["myers_batch_cuda_carry"] <= before:
-        fail("myers_batch_cuda_carry did not count at W 26 and 33")
+        fail("myers_batch_cuda_carry did not count at W 26, 33, 40, 48")
     return max(errs)
 
 
@@ -2221,18 +2370,20 @@ def phase_config3(genome_len: int, MC, AC, read_len: int = 100,
 
 
 def time_row(shape, wrapper, sets, kernel, kernel_sets, plain, cells, ops,
-             nbytes, counters):
+             nbytes, counters, plain_ms=None):
     """CUDA-event times of a wrapper and of its kernel alone (20 calls over
-    distinct input sets, warm) and of the plain version (one call), the
-    bound from `ops` int32 operations and `nbytes` bytes and the kernel's
-    share of it, GCUPS on `cells`.  Launches made here are no path's: the
-    counters are restored."""
+    distinct input sets, warm) and of the plain version (one call, or
+    `plain_ms` where the caller timed that call), the bound from `ops`
+    int32 operations and `nbytes` bytes and the kernel's share of it, GCUPS
+    on `cells`.  Launches made here are no path's: the counters are
+    restored."""
     from hga_tpu_torch.utils import benchmarks as B
 
     before = [dict(c) for c in counters]
     ms = B.cuda_ms(wrapper, sets, 20)
     kern_ms = B.cuda_ms(kernel, kernel_sets, 20)
-    plain_ms = B.cuda_ms(plain, sets[:1], 1)
+    if plain_ms is None:
+        plain_ms = one_call_ms(plain, sets[0])
     for c, b in zip(counters, before):
         c.update(b)
     bound, by = B.bound_ms(ops, nbytes)
@@ -2243,6 +2394,17 @@ def time_row(shape, wrapper, sets, kernel, kernel_sets, plain, cells, ops,
         row.update(cells=int(cells), gcups=cells / (ms * 1e-3) / 1e9,
                    kernel_gcups=cells / (kern_ms * 1e-3) / 1e9)
     return row
+
+
+def one_call_ms(fn, args) -> float:
+    """One call of a plain version on the host clock, to a synchronize (it
+    is host-bound: a few torch operations a target column)."""
+    import torch
+
+    t0 = time.perf_counter()
+    fn(*args)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
 
 
 def myers_cost(N, Lq, Lt, planes):
@@ -2311,18 +2473,12 @@ def shared_row(rng, MC, M, genome_len: int):
     shape, ops, nbytes = cost(full)
     before = dict(MC.LAUNCHES)
     ms = B.cuda_ms(MC.myers_batch_cuda, full, 3)
-    kern_ms = B.cuda_ms(MC.run_kernel, [MC.kernel_operands(*a) for a in full],
-                        3)
     MC.LAUNCHES.update(before)
-    bound, by = B.bound_ms(ops, nbytes)
-    regs, local = MC.kernel_attrs(shape["W"])
-    return dict(shape=shape, ms=ms, kernel_ms=kern_ms,
-                plain_ms=cut_row["plain_ms"], plain_shape=cut_row["shape"],
-                bound_ms=bound, bound_by=by,
-                pct_of_bound=100 * bound / kern_ms, registers=regs,
-                local_bytes=local, blocks=MC.gate_blocks(shape["N"],
-                                                         shape["G"]),
-                cut_shape=cut_row)
+    row = dict(shape=shape, ms=ms, plain_ms=cut_row["plain_ms"],
+               plain_shape=cut_row["shape"], cut_shape=cut_row)
+    row.update(window_times(MC, M, full, ops, nbytes, MC.kernel_operands,
+                            MC.run_kernel, lambda a: dict(window=a)))
+    return row
 
 
 def carry_row(rng, MC, M, genome_len: int, P: int = 2):
@@ -2366,18 +2522,120 @@ def carry_row(rng, MC, M, genome_len: int, P: int = 2):
     shape, ops, nbytes = cost(full)
     before = dict(MC.LAUNCHES)
     ms = B.cuda_ms(MC.myers_cols_cuda, full, 3)
-    kern_ms = B.cuda_ms(MC.run_carry_kernel,
-                        [MC.carry_operands(*a) for a in full], 3)
     MC.LAUNCHES.update(before)
+    row = dict(shape=shape, ms=ms, plain_ms=cut_row["plain_ms"],
+               plain_shape=cut_row["shape"], cut_shape=cut_row)
+    row.update(window_times(MC, M, full, ops, nbytes, MC.carry_operands,
+                            MC.run_carry_kernel,
+                            lambda a: dict(j0=0, window=a)))
+    return row
+
+
+def window_times(MC, M, sets, ops, nbytes, operands, run, kw):
+    """K1''s kernel alone on `sets` at the wrapper's windows (by shape), at
+    twice as many, and at one window (the single sweep, S 1: the kernel
+    before it had windows), 3 launches each after a warm-up; each one's
+    S, warps launched an SM, share of the bound; kernel_ms is the
+    wrapper's windows'.  The bound counts no halo: it is overhead, not
+    work."""
+    from hga_tpu_torch.utils import benchmarks as B
+
     bound, by = B.bound_ms(ops, nbytes)
-    regs, local = MC.kernel_attrs(shape["W"])
-    return dict(shape=shape, ms=ms, kernel_ms=kern_ms,
-                plain_ms=cut_row["plain_ms"], plain_shape=cut_row["shape"],
-                bound_ms=bound, bound_by=by,
-                pct_of_bound=100 * bound / kern_ms, registers=regs,
-                local_bytes=local, blocks=MC.gate_blocks(shape["N"],
-                                                         shape["G"]),
-                cut_shape=cut_row)
+    N, Lt = sets[0][0].shape[0], sets[0][1].shape[1]
+    r = operands(*sets[0])[4]
+    sms = MC._sms(sets[0][0].device)
+    out = dict(bound_ms=bound, bound_by=by, windows={})
+    for tag, window in (("by shape", None), ("twice the windows",
+                                             max(-(-r.window // 2),
+                                                 r.halo)),
+                        ("one window (S 1)", Lt)):
+        ops_sets = [operands(*a, **kw(window)) for a in sets]
+        g = ops_sets[0][4]
+        k_ms = B.cuda_ms(run, ops_sets, 3)
+        out["windows"][tag] = dict(
+            S=g.S, window=g.window, halo=g.halo, kernel_ms=k_ms,
+            pct_of_bound=100 * bound / k_ms,
+            warps_per_sm=g.S * -(-N // (32 // g.G)) / sms)
+    main = out["windows"]["by shape"]
+    regs, local = MC.kernel_attrs(r.W, windows=main["S"] > 1)
+    out.update(kernel_ms=main["kernel_ms"], pct_of_bound=main["pct_of_bound"],
+               S=main["S"], warps_per_sm=main["warps_per_sm"],
+               registers=regs, local_bytes=local,
+               blocks=MC.gate_blocks(N, r.G) * main["S"])
+    return out
+
+
+def wide_rows(rng, MC, M, PU):
+    """K1''s wide route at the long reads' gate (N 4096 random pairs at Lq
+    8,192 and 31,000, the pad a 4.6 Mb judged run gives its long reads,
+    and W 35 and 100), wrapper and kernel alone (3 launches after a
+    warm-up), its words in shared memory and (W 100) in the device scratch,
+    the register route forced beside it at W 34; the plain version at a
+    cut (N 16; Lq 31,000 takes Lq 8,192's); then K2''s wide route on
+    planted correction batches at W 100 (pad 3,100, N 1,024: two launches
+    under VOTES_SCRATCH_BYTES)."""
+    import torch
+
+    from hga_tpu_torch.exp.scale_run import judged_cfg
+    from hga_tpu_torch.utils import benchmarks as B
+
+    def sets_of(N, Lq, n=2):
+        Lt = Lq + 72
+        return [(torch.randint(0, 4, (N, Lq), dtype=torch.int32,
+                               device="cuda"),
+                 torch.randint(0, 4, (N, Lt), dtype=torch.int32,
+                               device="cuda"),
+                 torch.full((N,), Lq, dtype=torch.int32, device="cuda"),
+                 torch.full((N,), Lt, dtype=torch.int32, device="cuda"))
+                for _ in range(n)]
+
+    rows = {}
+    for name, Lq in (("Lq31000", 31_000), ("Lq8192", 8192), ("W100", 3100),
+                     ("W35", 1085), ("W34", 1054)):
+        sets = sets_of(4096, Lq)
+        N, Lt = 4096, Lq + 72
+        cells, ops, nbytes = myers_cost(N, Lq, Lt, False)
+        before = dict(MC.LAUNCHES)
+        reps = 3 if Lq > 4000 else 20
+        ms = B.cuda_ms(MC.myers_batch_cuda, sets, reps)
+        MC.LAUNCHES.update(before)
+        variants = [("wide", dict(wide=True))]
+        if name == "W100":
+            variants.append(("wide, words in the scratch",
+                             dict(words_scratch=True)))
+        if name == "W34":
+            variants.append(("register route", {}))
+        bound, by = B.bound_ms(ops, nbytes)
+        row = dict(shape=dict(N=N, Lq=Lq, Lt=Lt, W=M.n_words(Lq)), ms=ms,
+                   bound_ms=bound, bound_by=by, cells=cells,
+                   gcups=cells / (ms * 1e-3) / 1e9, variants={})
+        for tag, kw in variants:
+            ops_sets = [MC.kernel_operands(*a, **kw) for a in sets]
+            k_ms = B.cuda_ms(MC.run_kernel, ops_sets, reps)
+            r = ops_sets[0][4]
+            row["variants"][tag] = dict(kernel_ms=k_ms,
+                                        pct_of_bound=100 * bound / k_ms,
+                                        wl=r.wl, smem=r.smem,
+                                        scratch_words=r.words)
+        row.update(kernel_ms=row["variants"]["wide"]["kernel_ms"],
+                   pct_of_bound=row["variants"]["wide"]["pct_of_bound"])
+        if Lq < 30_000:       # ~23 s a call at Lq 31,000: its cut's below
+            row["plain_ms"] = one_call_ms(M.myers_batch,
+                                          sets_of(16, Lq, 1)[0])
+            row["plain_shape"] = dict(N=16, Lq=Lq, Lt=Lt)
+        rows[name] = row
+        log(f"  K1' wide route {name}: {json.dumps(row)}")
+    main = rows.pop("Lq31000")
+    main.update(plain_ms=rows["Lq8192"]["plain_ms"],
+                plain_shape=rows["Lq8192"]["plain_shape"])
+    main.update(zip(("registers", "local_bytes"),
+                    MC.kernel_attrs(1000, wide=True)))
+    main.update(rows)
+    wide = [votes_inputs(rng, 1024, 3100, 64) for _ in range(2)]
+    vrow, _, _ = votes_row(MC, PU, [to_dev(*ops)[:7] for ops, _, _ in wide],
+                           wide[0][1], wide[0][2], judged_cfg().min_identity,
+                           plain_sets=1)
+    return main, vrow
 
 
 def phase_times(rng, MC, M, PU, genome_len: int):
@@ -2426,6 +2684,8 @@ def phase_times(rng, MC, M, PU, genome_len: int):
     rows["myers_votes_cuda_scratch"], _, _ = votes_row(
         MC, PU, sets, wide[0][1], wide[0][2], judged_cfg().min_identity)
     rows["myers_votes_cuda"]["homes"] = votes_homes(rng, MC, PU)
+    rows["myers_batch_cuda_wide"], rows["myers_votes_cuda_wide"] = \
+        wide_rows(rng, MC, M, PU)
     for name, r in rows.items():
         log(f"  {name}: {json.dumps(r)}")
     log(f"  correction batch (N 4096, Lq 112, Lt 184): {json.dumps(split)}")
@@ -2464,7 +2724,8 @@ def votes_homes(rng, MC, PU):
             row["smem_blocks_per_sm"] = MC.votes_attrs(smem)[2]
             row["smem_ms"] = B.cuda_ms(
                 MC.run_votes_kernel,
-                [(smem, *o[1:3], None, *o[4:]) for o in ops], 20, passes=3)
+                [(smem, *o[1:3], (None, None, o[1][0].shape[0]), *o[4:])
+                 for o in ops], 20, passes=3)
         row["scratch_ms"] = B.cuda_ms(MC.run_votes_kernel, ops, 20, passes=3)
         rows.append(row)
         log(f"  K2' homes: {json.dumps(row)}")
@@ -2525,13 +2786,16 @@ def correction_batches(rng, n_sets=4, N=4096, nb=64, L=8192):
     return sets, L
 
 
-def votes_row(MC, PU, sets, nb, lpad, min_identity):
+def votes_row(MC, PU, sets, nb, lpad, min_identity, plain_sets=None):
     """K2' on batches (q, t, qlen, tlen, bb, off, lb), unweighted: the
-    wrapper, the kernel alone and the plain version; the bound counts this
-    run's work — the DP's N Lt W words, each gated pair's walk (its qlen
-    diag/up moves and at most dist left moves) and one 4-byte atomic per
-    vote cast — and the route's registers, shared memory a block and blocks
-    resident an SM."""
+    wrapper, the kernel alone and the plain version (its time from its
+    call on the first set); the bound counts this run's work — the DP's N
+    Lt W words, each gated pair's walk (its qlen diag/up moves and at most
+    dist left moves) and one 4-byte atomic per vote cast — read from the
+    plain version's results on the first `plain_sets` sets (all by
+    default) and from the kernel's past them, which must then equal the
+    plain version's (dist, tend, votes) on the first set; and the route's
+    registers, shared memory a block and blocks resident an SM."""
     import torch
 
     from hga_tpu_torch.utils import benchmarks as B
@@ -2542,16 +2806,37 @@ def votes_row(MC, PU, sets, nb, lpad, min_identity):
     size_all = size_v + nb * lpad * 3 * 4
     kw = dict(min_identity=min_identity, size_v=size_v, lpad=lpad,
               ins_slots=3, max_steps=Lq + int((1.0 - min_identity) * Lq) + 2)
+    held = len(sets) if plain_sets is None else plain_sets
     steps = votes = gated = 0
-    for a in sets:
+    plain_ms = None
+    before = dict(MC.LAUNCHES)
+    for i, a in enumerate(sets):      # the work of this run's data
         m = torch.zeros(size_all + 1, dtype=torch.int32, device="cuda")
-        res, _ = PU.myers_votes(m, *a, **kw)
+        if i < held:
+            t0 = time.perf_counter()
+            res, _ = PU.myers_votes(m, *a, **kw)
+            torch.cuda.synchronize()
+            if i == 0:
+                plain_ms = 1e3 * (time.perf_counter() - t0)
+        else:
+            res, _ = MC.myers_votes_cuda(m, *a, **kw)
+        if i == 0 and held < len(sets):
+            # the kernel's counts stand for the plain version's past set 0
+            mk = torch.zeros_like(m)
+            rk, _ = MC.myers_votes_cuda(mk, *a, **kw)
+            for what, x, y in (("dist", rk.dist, res.dist),
+                               ("tend", rk.tend, res.tend),
+                               ("votes", mk[:size_all], m[:size_all])):
+                if not torch.equal(x, y):
+                    fail(f"K2' W {MC.n_words(Lq)} timing set: the kernel's "
+                         f"{what} differ from the plain version's")
         ql = a[2]
         ok = (res.dist <= PU.gate_max_ed(ql, min_identity)) & (ql > 0) \
             & (res.tend > 0)
         gated += int(ok.sum()) / len(sets)
         steps += int((ql.long() + res.dist)[ok].sum()) / len(sets)
         votes += int(m[:size_all].sum()) / len(sets)
+    MC.LAUNCHES.update(before)
     cells, ops, nbytes = myers_cost(N, Lq, Lt, False)
     ops += steps * B.OPS_PER_WALK_STEP
     nbytes += 4 * 3 * N + 4 * votes
@@ -2560,12 +2845,13 @@ def votes_row(MC, PU, sets, nb, lpad, min_identity):
     row = time_row(
         dict(N=N, Lq=Lq, Lt=Lt, W=r.W, G=r.G, min_identity=min_identity,
              gated=gated, walk_steps=steps, votes=votes,
-             route="scratch" if r.scratch else "smem"),
+             route=("wide, " if r.wl else "") + (
+                 "scratch" if r.scratch else "smem"),
+             launch_pairs=MC.votes_launch_pairs(r, N)),
         lambda *a: MC.myers_votes_cuda(merged, *a, **kw), sets,
         MC.run_votes_kernel, [MC.votes_operands(merged, *a, **kw)
                               for a in sets],
-        lambda *a: PU.myers_votes(merged.clone(), *a, **kw), cells, ops,
-        nbytes, [MC.LAUNCHES])
+        None, cells, ops, nbytes, [MC.LAUNCHES], plain_ms=plain_ms)
     regs, local, blocks = MC.votes_attrs(r)
     row.update(registers=regs, local_bytes=local, smem_per_block=r.smem,
                blocks_per_sm=blocks, pairs_per_block=r.pairs,
@@ -3023,9 +3309,11 @@ def main() -> int:
             f"{os.path.relpath(p, HERE)} {built[n]['seconds']:.1f} s"
             for n, p in libs.items()))
     report = ptxas_report("".join(str(b["ptxas"]) for b in built.values()))
+    # K1': both designs to 24 words, the split design to 34, the wide
+    # route; K2; K2': 7 register instances on both homes, the wide route
     expect = ((2 * MC.SINGLE_MAX_WORDS - 1)
-              + (M.MAX_WORDS - MC.SINGLE_MAX_WORDS) + MC.PLANES_MAX_WORDS
-              + 2 * 7 + len(AC.DIAG_SLOTS) + len(AC.BAND_SLOTS) + 2
+              + (MC.REGISTER_MAX_WORDS - MC.SINGLE_MAX_WORDS) + 1
+              + MC.PLANES_MAX_WORDS + 2 * 7 + 1 + len(AC.DIAG_SLOTS) + len(AC.BAND_SLOTS) + 2
               + MM.MAX_WORDS + sum(len(k) for k in SV.BUILT.values())
               + len(VM.BUILT))
     log(f"  ptxas report: {len(report)} of {expect} kernel instantiations "
@@ -3050,7 +3338,7 @@ def main() -> int:
     rng = np.random.default_rng(7)
     err = dict.fromkeys(KERNELS)     # None: the kernel's check did not run
     if "2" in ph:
-        err["myers_batch_cuda"] = phase_k1(rng, MC, M)
+        err.update(phase_k1(rng, MC, M))
         err["myers_batch_cuda_shared"] = phase_k1_shared(rng, MC, M)
         err["myers_batch_cuda_carry"] = phase_carry_wide(rng, MC, M)
         done("2")

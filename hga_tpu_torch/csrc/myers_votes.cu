@@ -1,7 +1,7 @@
 // One correction batch in one launch, for Hopper (sm_90a): the Myers planes
 // DP, the identity gate, the plane traceback and the vote scatter.
 //
-// K2' (myers_votes_kernel<G, SMEM>) replaces the Pallas kernel
+// K2' (myers_votes_kernel<G, WL, SMEM>) replaces the Pallas kernel
 // `_myers_planes_kernel` (hga_tpu/ops/myers_pallas.py:106) on the
 // correction and polish paths, together with what consumed its planes
 // there: the gate and the lockstep traceback of
@@ -22,10 +22,16 @@
 //
 // Design: one warp a block, one pair on a group of G lanes (the smallest
 // power of two >= W, at most 32), 32 / G pairs a warp; lane w holds query
-// words w * WL .. w * WL + WL - 1: one word (WL = 1) up to W 32, two at W 33
-// and 34 (the short-read route's pads up to 1024), on A = ceil(W / WL)
-// lanes; a spare word past W (the last lane at W 33) computes on empty
-// planes and stores nothing.
+// words w * WL .. w * WL + WL - 1 on the A = ceil(W / WL) lanes that hold
+// words; a spare word past W (where WL does not divide W) computes on empty
+// planes and stores nothing.  Two routes: the register route (W 1-34, WL
+// compiled in: one word a lane up to W 32, two at W 33 and 34, the
+// short-read route's pads up to 1024) keeps a lane's words in registers;
+// the wide route (WL = 0 in the template: any W at run time, G = 32, WL =
+// ceil(W / 32)) keeps each lane's q0, q1, vq, pv and mv words in memory,
+// lane-interleaved (word k of lane w at k * 32 + w), in the block's dynamic
+// shared memory after its staged targets where they fit, else in a device
+// scratch; its planes live on the device scratch.
 //   - The DP is K1''s split layout (csrc/myers_gate.cu): the query planes
 //     are built in the kernel from the row-major (N, Lq) codes by
 //     ops/myers.query_planes' rule bit for bit; at step s lane w runs target
@@ -40,7 +46,9 @@
 //     bare, and the scratch, at 32 warps an SM, ran 1.6-3.2x faster
 //     (ops/myers_cuda.votes_route).  Pair rows are a multiple of 32 words
 //     plus 2 G apart, so the groups of a warp store to distinct banks at W
-//     1, 2 and 4.
+//     1, 2 and 4.  The wrapper cuts a batch whose scratch planes pass its
+//     memory budget into sub-batches, one launch each (the votes are int32
+//     atomic adds, so the cut changes no vote).
 //   - The traceback runs on all G lanes of the pair in lockstep: lane w
 //     takes the masked popcounts of its words of column j - 1, a butterfly of
 //     __shfl_xor_sync sums them (D(i, j - 1)), every lane reads the two
@@ -63,8 +71,9 @@ namespace {
 constexpr uint32_t M31 = 0x7fffffffu;
 constexpr int kPayload = 31;
 constexpr int kChunk = 128;             // target columns staged at a time
-constexpr int kMaxWords = 34;
-constexpr int kPerMax = (kChunk + kMaxWords - 1 + 31) / 32;  // rounds a row
+constexpr int kRegMaxWords = 34;        // the register route's W
+constexpr int kPerMax = (kChunk + 31 + 31) / 32;  // rounds a row (A <= 32)
+constexpr int kPlanes = 5;              // q0, q1, vq, pv, mv: a word's state
 constexpr int kNSym = 6;                // column vote symbols (ops/pileup)
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -73,13 +82,36 @@ constexpr int group_of(int W) {         // the smallest power of two >= W
                                                                      : 32;
 }
 
-// bytes of a staged target row: kChunk + W - 1 columns, an odd number of
-// 4-byte words so that the groups read distinct banks
-__host__ __device__ inline int stage_row(int W) {
-  return ((kChunk + W - 1 + 3) / 4 | 1) * 4;
+// bytes of a staged target row: kChunk + A - 1 columns (A lanes hold
+// words), an odd number of 4-byte words so that the groups read distinct
+// banks
+__host__ __device__ inline int stage_row(int A) {
+  return ((kChunk + A - 1 + 3) / 4 | 1) * 4;
 }
 
-template <int G, int WL, bool SMEM>
+__host__ __device__ inline int lanes_of(int W, int WL) {
+  return (W + WL - 1) / WL;
+}
+
+// A lane's words (plane p: 0 q0, 1 q1, 2 vq, 3 pv, 4 mv): registers on the
+// register route ...
+template <int WL>
+struct Words {
+  uint32_t v[kPlanes][WL];
+  __device__ __forceinline__ uint32_t& at(int p, int k) { return v[p][k]; }
+};
+
+// ... or memory on the wide route: `base` is this lane's first word
+template <>
+struct Words<0> {
+  uint32_t* base;
+  int wl;
+  __device__ __forceinline__ uint32_t& at(int p, int k) {
+    return base[(p * wl + k) * 32];
+  }
+};
+
+template <int G, int WL_, bool SMEM>
 __global__ void __launch_bounds__(32)
 myers_votes_kernel(const int32_t* __restrict__ q,      // (N, Lq)
                    const int32_t* __restrict__ t,      // (N, Lt)
@@ -89,21 +121,23 @@ myers_votes_kernel(const int32_t* __restrict__ q,      // (N, Lq)
                    const int32_t* __restrict__ off,
                    const int32_t* __restrict__ lb,     // (N,)
                    const int32_t* __restrict__ qw,     // (N, Lq) or null
-                   int N, int Lq, int Lt, int W, int stride, int steps,
-                   int ins_slots, long long lpad, long long size_v,
+                   int N, int Lq, int Lt, int W, int wl, int stride,
+                   int steps, int ins_slots, long long lpad, long long size_v,
                    long long size_all, float frac,
                    int32_t* __restrict__ dist, int32_t* __restrict__ tend,
                    int32_t* __restrict__ merged,
-                   uint32_t* __restrict__ scratch) {
+                   uint32_t* __restrict__ scratch,
+                   uint32_t* __restrict__ words) {
   constexpr int P = 32 / G;                // pairs a warp
   extern __shared__ __align__(16) unsigned char smem[];
+  const int WL = WL_ > 0 ? WL_ : wl;       // words a lane
   const int lane = threadIdx.x;
   const int g = lane / G;                  // the warp's pair of this lane
   const int w = lane % G;                  // this lane's place in its group
   const int n = blockIdx.x * P + g;
   const bool live = n < N;
-  const int A = (W + WL - 1) / WL;         // lanes that hold words
-  const int ROW = stage_row(W);
+  const int A = lanes_of(W, WL);           // lanes that hold words
+  const int ROW = stage_row(A);
   const int SPAN = kChunk + A - 1;
   uint2* planes;                           // this pair's (column, word) row
   int8_t* rows;                            // the warp's staged targets
@@ -121,11 +155,20 @@ myers_votes_kernel(const int32_t* __restrict__ q,      // (N, Lq)
   const int tl = live ? tlen[n] : 0;
 
   // ---- this lane's query words: ops/myers.query_planes' rule, bit for bit
-  uint32_t q0[WL], q1[WL], vq[WL], mend[WL], pv[WL], mv[WL];
+  Words<WL_> ws;
+  if constexpr (WL_ == 0) {
+    // P = 1: after the staged row (a multiple of 4 bytes), or the scratch
+    ws.wl = WL;
+    ws.base = (words != nullptr
+                   ? words + static_cast<size_t>(blockIdx.x) * kPlanes * WL * 32
+                   : reinterpret_cast<uint32_t*>(smem + ROW)) + lane;
+  }
+  int ek = -1;                             // the end bit's word on this lane
+  uint32_t ebit = 0u;
 #pragma unroll
   for (int k = 0; k < WL; ++k) {
     const int wi = w * WL + k;
-    uint32_t b0 = 0u, b1 = 0u, bv = 0u, me = 0u;
+    uint32_t b0 = 0u, b1 = 0u, bv = 0u;
     if (live && wi < W) {
       const int32_t* row = q + static_cast<size_t>(n) * Lq;
 #pragma unroll
@@ -139,15 +182,15 @@ myers_votes_kernel(const int32_t* __restrict__ q,      // (N, Lq)
         }
       }
       if (ql > 0 && (ql - 1) / kPayload == wi) {
-        me = 1u << ((ql - 1) % kPayload);
+        ek = k;
+        ebit = 1u << ((ql - 1) % kPayload);
       }
     }
-    q0[k] = b0;
-    q1[k] = b1;
-    vq[k] = bv;
-    mend[k] = me;
-    pv[k] = M31;
-    mv[k] = 0u;
+    ws.at(0, k) = b0;
+    ws.at(1, k) = b1;
+    ws.at(2, k) = bv;
+    ws.at(3, k) = M31;
+    ws.at(4, k) = 0u;
   }
 
   // ---- the DP: lane w's words on column s - w at step s
@@ -190,25 +233,32 @@ myers_votes_kernel(const int32_t* __restrict__ q,      // (N, Lq)
         }
 #pragma unroll
         for (int k = 0; k < WL; ++k) {
-          const uint32_t eq = (vq[k] & ~((q0[k] ^ t0) | (q1[k] ^ t1))) & tvm;
-          const uint32_t xv = eq | mv[k];
-          const uint32_t sw = (eq & pv[k]) + pv[k] + cin;
+          const uint32_t pv = ws.at(3, k), mv = ws.at(4, k);
+          const uint32_t eq =
+              (ws.at(2, k) & ~((ws.at(0, k) ^ t0) | (ws.at(1, k) ^ t1))) &
+              tvm;
+          const uint32_t xv = eq | mv;
+          const uint32_t sw = (eq & pv) + pv + cin;
           cin = sw >> 31;                       // adder carry out of bit 31
-          const uint32_t xh = ((sw & M31) ^ pv[k]) | eq;
-          uint32_t ph = mv[k] | ~(xh | pv[k]);
-          uint32_t mh = pv[k] & xh;
-          pb |= ph & mend[k];
-          mb |= mh & mend[k];
+          const uint32_t xh = ((sw & M31) ^ pv) | eq;
+          uint32_t ph = mv | ~(xh | pv);
+          uint32_t mh = pv & xh;
+          if (k == ek) {
+            pb = ph & ebit;
+            mb = mh & ebit;
+          }
           const uint32_t ncp = (ph >> 30) & 1u;  // shift carries out of bit 30
           const uint32_t ncm = (mh >> 30) & 1u;
           ph = ((ph << 1) & M31) | cp;
           mh = ((mh << 1) & M31) | cm;
           cp = ncp;
           cm = ncm;
-          pv[k] = (mh | ~(xv | ph)) & M31;
-          mv[k] = ph & xv;
+          const uint32_t npv = (mh | ~(xv | ph)) & M31, nmv = ph & xv;
+          ws.at(3, k) = npv;
+          ws.at(4, k) = nmv;
           const int wi = w * WL + k;
-          if (wi < W) planes[j * W + wi] = make_uint2(pv[k], mv[k]);
+          if (wi < W) planes[static_cast<size_t>(j) * W + wi] =
+                          make_uint2(npv, nmv);
         }
         out = cin | (cp << 1) | (cm << 2);
         score += (pb != 0u ? 1 : 0) - (mb != 0u ? 1 : 0);
@@ -248,8 +298,8 @@ myers_votes_kernel(const int32_t* __restrict__ q,      // (N, Lq)
   const long long base_i = bbn * (lpad * ins_slots * 4) + size_v;
   for (int step = 0; step < steps; ++step) {
     if (!__any_sync(kFull, active)) break;
-    const int jm1 = min(max(j - 1, 0), Lt - 1);
-    const int jm2 = min(max(j - 2, 0), Lt - 1);
+    const size_t jm1 = min(max(j - 1, 0), Lt - 1);
+    const size_t jm2 = min(max(j - 2, 0), Lt - 1);
     // D(i, j - 1): this lane's share of the prefix popcount of column j - 1
     int part = 0;
 #pragma unroll
@@ -312,54 +362,37 @@ myers_votes_kernel(const int32_t* __restrict__ q,      // (N, Lq)
   }
 }
 
-template <int G, int WL, bool SMEM>
-cudaError_t launch_g(const int32_t* const* in, int N, int Lq, int Lt, int W,
-                     int stride, int steps, int ins_slots, int smem,
-                     long long lpad, long long size_v, long long size_all,
-                     float frac, int32_t* dist, int32_t* tend,
-                     int32_t* merged, uint32_t* scratch, cudaStream_t s) {
-  constexpr int P = 32 / G;
-  cudaError_t e = cudaFuncSetAttribute(
-      myers_votes_kernel<G, WL, SMEM>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  myers_votes_kernel<G, WL, SMEM><<<(N + P - 1) / P, 32, smem, s>>>(
-      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], N, Lq, Lt, W,
-      stride, steps, ins_slots, lpad, size_v, size_all, frac, dist, tend,
-      merged, scratch);
-  return cudaGetLastError();
-}
-
-template <int G, int WL, bool SMEM>
-cudaError_t attrs_g(int* regs, int* local_bytes) {
-  cudaFuncAttributes a{};
-  const cudaError_t e =
-      cudaFuncGetAttributes(&a, myers_votes_kernel<G, WL, SMEM>);
-  if (e == cudaSuccess) {
-    *regs = a.numRegs;
-    *local_bytes = static_cast<int>(a.localSizeBytes);
-  }
-  return e;
-}
-
-template <int G, int WL, bool SMEM>
-cudaError_t occupancy_g(int smem, int* blocks) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      myers_votes_kernel<G, WL, SMEM>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, myers_votes_kernel<G, WL, SMEM>, 32, smem);
-}
-
 // the instantiations (G, WL): (group_of(W), 1) up to W 32, (32, 2) at W
-// 33-34; each with its planes in shared memory and in the scratch
+// 33-34, each with its planes in shared memory and in the scratch; the wide
+// route (32, 0), planes in the scratch
 #define HGA_INSTANCES(X) X(1, 1) X(2, 1) X(4, 1) X(8, 1) X(16, 1) X(32, 1) \
   X(32, 2)
 
 inline int words_a_lane(int W) {
   const int G = group_of(W);
   return (W + G - 1) / G;
+}
+
+// Calls f(the instantiation for W, the plane home and the route (wl > 0:
+// the wide route)).
+template <class F>
+cudaError_t dispatch(int W, int wl, bool scratch, F&& f) {
+  if (wl > 0) {
+    if (W < 1 || wl != (W + 31) / 32 || !scratch) {
+      return cudaErrorInvalidValue;
+    }
+    return f(myers_votes_kernel<32, 0, false>);
+  }
+  if (W < 1 || W > kRegMaxWords) return cudaErrorInvalidValue;
+  const int G = group_of(W), l = words_a_lane(W);
+#define HGA_CASE(g, k)                                                 \
+  if (G == g && l == k) {                                              \
+    return scratch ? f(myers_votes_kernel<g, k, false>)                \
+                   : f(myers_votes_kernel<g, k, true>);                \
+  }
+  HGA_INSTANCES(HGA_CASE)
+#undef HGA_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -369,82 +402,79 @@ extern "C" {
 // Launches K2' on `stream`: q, t int32 (N, Lq), (N, Lt) row-major; qlen,
 // tlen, bb, off, lb int32 (N,); qw int32 (N, Lq) or null; merged int32
 // (size_all + 1,) updated in place (the last slot, the sink, untouched).
-// W = ceil(Lq / 31) words (1..34), G = group_of(W); `stride` words (even,
-// >= 2 W Lt) a pair's plane row; `smem` dynamic bytes a block, at least
-// what the route needs (32 / G rows and the stage, or the stage alone with
-// a scratch of (N rounded up to 32 / G) x stride words).  Returns the
+// W = ceil(Lq / 31) words, G = group_of(W); the register route (wl = 0) at
+// W 1-34, the wide route (wl = ceil(W / 32), planes in the scratch) at any
+// W.  `stride` words (even, >= 2 W Lt) a pair's plane row; `smem` dynamic
+// bytes a block, at least what the route needs: 32 / G rows and the stage,
+// or the stage alone with a scratch of (N rounded up to 32 / G) x stride
+// words, and on the wide route with words = null the stage and 5 x wl x 32
+// words (else `words` is a scratch of N x 5 x wl x 32).  Returns the
 // launch's cudaGetLastError() (0 = cudaSuccess), or cudaErrorInvalidValue
 // without launching.
 int hga_myers_votes_launch(const void* q, const void* t, const void* qlen,
                            const void* tlen, const void* bb, const void* off,
                            const void* lb, const void* qw, int N, int Lq,
-                           int Lt, int W, int G, int stride, int steps,
-                           int ins_slots, int smem, long long lpad,
-                           long long size_v, long long size_all, float frac,
-                           void* dist, void* tend, void* merged,
-                           void* scratch, void* stream) {
-  const int P = G > 0 ? 32 / G : 0;
+                           int Lt, int W, int G, int wl, int stride,
+                           int steps, int ins_slots, int smem,
+                           long long lpad, long long size_v,
+                           long long size_all, float frac, void* dist,
+                           void* tend, void* merged, void* scratch,
+                           void* words, void* stream) {
+  if (W < 1 || G != group_of(W) || wl < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int P = 32 / G;
+  const int A = lanes_of(W, wl > 0 ? wl : words_a_lane(W));
   const long long need =
       (scratch == nullptr ? static_cast<long long>(P) * stride * 4 : 0) +
-      static_cast<long long>(P) * stage_row(W);
-  if (N <= 0 || Lq < 0 || Lt < 0 || W < 1 || W > kMaxWords ||
-      Lq > W * kPayload || G != group_of(W) || stride % 2 != 0 ||
+      static_cast<long long>(P) * stage_row(A) +
+      (wl > 0 && words == nullptr ? 4LL * kPlanes * wl * 32 : 0);
+  if (N <= 0 || Lq < 0 || Lt < 0 || Lq > W * kPayload || stride % 2 != 0 ||
       static_cast<long long>(stride) < 2LL * W * Lt || steps < 0 ||
       ins_slots < 1 || smem < need || size_all < size_v || size_v < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  auto in = [](const void* p) { return static_cast<const int32_t*>(p); };
   auto* s = static_cast<cudaStream_t>(stream);
-  const int32_t* in[8];
-  const void* src[8] = {q, t, qlen, tlen, bb, off, lb, qw};
-  for (int k = 0; k < 8; ++k) in[k] = static_cast<const int32_t*>(src[k]);
-  auto* d = static_cast<int32_t*>(dist);
-  auto* te = static_cast<int32_t*>(tend);
-  auto* m = static_cast<int32_t*>(merged);
-  auto* sc = static_cast<uint32_t*>(scratch);
-  const int wl = words_a_lane(W);
-#define HGA_CASE(g, l)                                                       \
-  if (G == g && wl == l) {                                                   \
-    return static_cast<int>(                                                 \
-        sc == nullptr                                                        \
-            ? launch_g<g, l, true>(in, N, Lq, Lt, W, stride, steps,          \
-                                   ins_slots, smem, lpad, size_v, size_all,  \
-                                   frac, d, te, m, sc, s)                    \
-            : launch_g<g, l, false>(in, N, Lq, Lt, W, stride, steps,         \
-                                    ins_slots, smem, lpad, size_v, size_all, \
-                                    frac, d, te, m, sc, s));                 \
-  }
-  HGA_INSTANCES(HGA_CASE)
-#undef HGA_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch(W, wl, scratch != nullptr, [&](auto k) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    k<<<(N + P - 1) / P, 32, smem, s>>>(
+        in(q), in(t), in(qlen), in(tlen), in(bb), in(off), in(lb), in(qw), N,
+        Lq, Lt, W, wl, stride, steps, ins_slots, lpad, size_v, size_all, frac,
+        static_cast<int32_t*>(dist), static_cast<int32_t*>(tend),
+        static_cast<int32_t*>(merged), static_cast<uint32_t*>(scratch),
+        static_cast<uint32_t*>(words));
+    return cudaGetLastError();
+  }));
 }
 
 // Registers per thread and local (spill) bytes per thread of W's
-// instantiation (scratch 0 = planes in shared memory).
-int hga_myers_votes_attrs(int W, int scratch, int* regs, int* local_bytes) {
-  if (W < 1 || W > kMaxWords) return static_cast<int>(cudaErrorInvalidValue);
-  const int G = group_of(W), wl = words_a_lane(W);
-#define HGA_CASE(g, l)                                                    \
-  if (G == g && wl == l) {                                                \
-    return static_cast<int>(scratch ? attrs_g<g, l, false>(regs, local_bytes) \
-                                    : attrs_g<g, l, true>(regs, local_bytes)); \
+// instantiation (scratch 0 = planes in shared memory; wl > 0 the wide
+// route).
+int hga_myers_votes_attrs(int W, int wl, int scratch, int* regs,
+                          int* local_bytes) {
+  cudaFuncAttributes fa{};
+  const cudaError_t e = dispatch(W, wl, scratch != 0, [&](auto k) {
+    return cudaFuncGetAttributes(&fa, k);
+  });
+  if (e == cudaSuccess) {
+    *regs = fa.numRegs;
+    *local_bytes = static_cast<int>(fa.localSizeBytes);
   }
-  HGA_INSTANCES(HGA_CASE)
-#undef HGA_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(e);
 }
 
 // Blocks (one warp each) resident on an SM at `smem` dynamic bytes a block.
-int hga_myers_votes_occupancy(int W, int scratch, int smem, int* blocks) {
-  if (W < 1 || W > kMaxWords) return static_cast<int>(cudaErrorInvalidValue);
-  const int G = group_of(W), wl = words_a_lane(W);
-#define HGA_CASE(g, l)                                                     \
-  if (G == g && wl == l) {                                                 \
-    return static_cast<int>(scratch ? occupancy_g<g, l, false>(smem, blocks) \
-                                    : occupancy_g<g, l, true>(smem, blocks)); \
-  }
-  HGA_INSTANCES(HGA_CASE)
-#undef HGA_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+int hga_myers_votes_occupancy(int W, int wl, int scratch, int smem,
+                              int* blocks) {
+  return static_cast<int>(dispatch(W, wl, scratch != 0, [&](auto k) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, 32, smem);
+  }));
 }
 
 }  // extern "C"

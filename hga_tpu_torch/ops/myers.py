@@ -3,7 +3,11 @@
 Counterpart of ``hga_tpu.ops.myers`` and the plain version of the CUDA
 kernels in ops/myers_cuda.py (``myers_cols`` that of K1''s carried-state
 mode): the CPU path of the port, and the yardstick each kernel is held
-against on the card.
+against on the card, at any number of query words.  ``myers_cols_windowed``
+splits the target's columns into windows as K1' does on the card (a fresh
+DP a halo before each window, a lexicographic reduction of the windows'
+bests); only the tests call it: it shows on the CPU that the windows equal
+the one sweep.
 
 Semantics (utils/oracle.edit_distance_hw): infix / "HW" mode — the query
 aligns fully, target start and end are free: D[i][0] = i, D[0][j] = 0, the
@@ -35,9 +39,7 @@ import torch
 
 PAYLOAD = 31
 M31 = (1 << 31) - 1          # payload mask (bit 31 clear)
-# query words K1' and K2' take (ops/myers_cuda.py): queries up to 1054
-# bases, the short-read route's pads up to 1024 (W 34) among them
-MAX_WORDS = 34
+INT32_MAX = (1 << 31) - 1    # a window's best before its first owned column
 
 
 class MyersResult(NamedTuple):
@@ -47,6 +49,15 @@ class MyersResult(NamedTuple):
 
 def n_words(Lq: int) -> int:
     return max(1, -(-Lq // PAYLOAD))
+
+
+def window_halo(W: int) -> int:
+    """Columns a target window k >= 1 runs before its own: 2 x 31 x W.  An
+    optimal semi-global alignment of a query row i <= 31 W ending at column
+    j starts at or after column j - 2 i (D[i][j] <= i, and a span of L
+    columns costs at least L - i), so a fresh DP started that far back
+    reproduces every D[i][j] of the window's columns."""
+    return 2 * PAYLOAD * W
 
 
 def query_planes(q: torch.Tensor, qlen: torch.Tensor, W: int):
@@ -131,6 +142,7 @@ def _cols(qp, t, tlen, state, j0: int, planes: bool):
     tl = tlen.to(torch.int64)
     tt = t.to(torch.int64)
     zero = torch.zeros((N, 1), dtype=torch.int64, device=dev)
+    col = torch.arange(W, dtype=torch.int64, device=dev).expand(N, W)
     pvp = mvp = None
     if planes:
         pvp = torch.empty((Lt, N, W), dtype=torch.int32, device=dev)
@@ -144,13 +156,15 @@ def _cols(qp, t, tlen, state, j0: int, planes: bool):
         tvm = -((tc >= 0) & (tc < 4)).to(torch.int64)
         eq = (vq & ~((q0 ^ t0) | (q1 ^ t1))) & tvm
         xv = eq | mv
-        a = eq & pv
-        s = torch.empty_like(pv)
-        c = zero
-        for w in range(W):
-            sw = a[:, w:w + 1] + pv[:, w:w + 1] + c
-            c = (sw >> 31) & 1
-            s[:, w:w + 1] = sw & M31
+        # the W-word sum (eq & pv) + pv with carries through bit 31: the
+        # carry into word w is the carry out of the last word below it that
+        # does not pass a carry on (its 31 bits not all ones), 0 if none
+        sw = (eq & pv) + pv
+        gen = sw >> 31
+        stop = torch.where((sw & M31) == M31, -1, col)
+        last = torch.cummax(stop, dim=1).values[:, :-1]
+        c = torch.where(last >= 0, gen.gather(1, last.clamp(min=0)), 0)
+        s = (sw + torch.cat([zero, c], dim=1)) & M31
         xh = (s ^ pv) | eq
         ph = mv | ~(xh | pv)
         mh = pv & xh
@@ -173,6 +187,38 @@ def _cols(qp, t, tlen, state, j0: int, planes: bool):
         best = torch.where(take, score, best)
     out = tuple(x.to(torch.int32) for x in (pv, mv, score, best, bj))
     return out, pvp, mvp
+
+
+def myers_cols_windowed(q0, q1, vq, mend, t, qlen, tlen, state,
+                        j0: int = 0, window: int = 0):
+    """myers_cols over target windows of `window` owned columns, as K1'
+    runs them on the card (csrc/myers_gate.cu): window 0 runs from `state`;
+    window k >= 1 owns columns [k window, (k + 1) window) and runs a fresh
+    DP (myers_init_state, best INT32_MAX) from window_halo(W) columns
+    before them, counting no column of that halo; the result is the last
+    window's pv, mv and score with the lexicographically least (best, bj)
+    over the windows.  Equal to myers_cols bit for bit (window_halo's span
+    bound); `window` must be at least the halo where it splits the target
+    (0: one window)."""
+    W, Lt = q0.shape[1], t.shape[1]
+    H = window_halo(W)
+    if window <= 0 or window >= Lt:
+        return myers_cols(q0, q1, vq, mend, t, tlen, state, j0)
+    if window < H:
+        raise ValueError(f"a window of {window} columns is shorter than its "
+                         f"halo ({H} at W={W})")
+    qp, none = (q0, q1, vq, mend), torch.zeros_like(tlen)
+    out = myers_cols(*qp, t[:, :window], tlen, state, j0)
+    best, bj = out[3], out[4]
+    for c in range(window, Lt, window):
+        st = myers_init_state(qlen, W)
+        st = st[:3] + (torch.full_like(st[3], INT32_MAX), st[4])
+        st = myers_cols(*qp, t[:, c - H:c], none, st, j0 + c - H)
+        out = myers_cols(*qp, t[:, c:c + window], tlen, st, j0 + c)
+        take = (out[3] < best) | ((out[3] == best) & (out[4] < bj))
+        best = torch.where(take, out[3], best)
+        bj = torch.where(take, out[4], bj)
+    return out[:3] + (best, bj)
 
 
 def state_result(qlen: torch.Tensor, state) -> MyersResult:

@@ -3,33 +3,43 @@
 Counterpart of ``hga_tpu.ops.myers_pallas``:
 
 * ``myers_batch_cuda`` launches K1' (``csrc/myers_gate.cu``
-  ``myers_gate_kernel<W, G>``), which replaces the Pallas kernel
+  ``myers_gate_kernel<W, G, WIN>``), which replaces the Pallas kernel
   ``_myers_kernel`` (hga_tpu/ops/myers_pallas.py:47) — the overlap gate of
   the long-read and short-read routes.  One pair runs on a group of G lanes,
-  lane w owning query word w and taking target column s - w at step s (a
-  pipeline across words), or on one thread (G = 1); the query bit-planes
-  are built in the kernel from the caller's row-major (N, Lq) codes, and
-  each warp stages its pairs' target rows in shared memory.  G comes from
-  ``GATE_GROUP`` by W, a fixed table that the chip measurement filled in
-  (chip_smoke.py phase 6, PERF.md).  A one-row target (1, Lt) for N > 1
+  lane w owning query words w * WL .. and taking target column s - w at
+  step s (a pipeline across words), or on one thread (G = 1); the query
+  bit-planes are built in the kernel from the caller's row-major (N, Lq)
+  codes, and each warp stages its pairs' target rows in shared memory.  Two
+  routes by W (``gate_route``): the register route up to
+  ``REGISTER_MAX_WORDS`` (34: queries up to 1054 bases), W compiled in and
+  G from ``GATE_GROUP``, a fixed table that the chip measurement filled in
+  (chip_smoke.py phase 6, PERF.md); the wide route past it at any W (one
+  pair a warp, the words in shared memory or a device scratch; counted
+  apart, ``myers_batch_cuda_wide``).  A one-row target (1, Lt) for N > 1
   pairs is the shared-target mode (utils/evalx.segment_identity): every
   pair runs against that row, which each block stages once; it counts
-  apart (``myers_batch_cuda_shared``).
+  apart (``myers_batch_cuda_shared``).  Where few pairs meet many columns
+  the launch splits the target's columns into S windows (``gate_window``),
+  each restarting the DP a halo before its own columns, exact by the span
+  bound of ops/myers.window_halo.
 * ``myers_cols_cuda`` launches K1''s carried-state mode (the same kernel
-  with ``carry`` = 1; counted as ``myers_batch_cuda_carry``): it starts
-  from a given column state (pv, mv, score, best, bj) and returns the state
-  it ends in, over a target chunk whose first column is global column j0 —
-  each step of the ring engine (parallel/ring_myers.py).  Its plain version
-  is ``ops/myers.myers_cols``.
+  with ``carry`` = 1, windows too; counted as ``myers_batch_cuda_carry``):
+  it starts from a given column state (pv, mv, score, best, bj) and returns
+  the state it ends in, over a target chunk whose first column is global
+  column j0 — each step of the ring engine (parallel/ring_myers.py).  Its
+  plain version is ``ops/myers.myers_cols``.
 * ``myers_votes_cuda`` launches K2' (``csrc/myers_votes.cu``
-  ``myers_votes_kernel<G, SMEM>``), which replaces ``_myers_planes_kernel``
-  (hga_tpu/ops/myers_pallas.py:106) on the correction and polish paths:
-  one launch per batch runs K1''s split DP with the Pv/Mv planes kept in
-  shared memory, the float32 identity gate, the plane traceback and the
-  vote atomics into the flat vote buffer.  Its plain version is
-  ``ops/pileup.myers_votes``.  ``votes_route`` picks the planes' home by
-  shape: shared memory where a warp's planes fit a block, else a device
-  scratch (counted apart, ``myers_votes_cuda_scratch``).
+  ``myers_votes_kernel<G, WL, SMEM>``), which replaces
+  ``_myers_planes_kernel`` (hga_tpu/ops/myers_pallas.py:106) on the
+  correction and polish paths: one launch per batch runs K1''s split DP
+  with the Pv/Mv planes kept on chip, the float32 identity gate, the plane
+  traceback and the vote atomics into the flat vote buffer.  Its plain
+  version is ``ops/pileup.myers_votes``.  ``votes_route`` picks the planes'
+  home by shape: shared memory where a warp's planes fit a block, else a
+  device scratch (counted apart, ``myers_votes_cuda_scratch``); past
+  REGISTER_MAX_WORDS the wide route (``myers_votes_cuda_wide``), planes on
+  the scratch.  A batch whose scratch passes ``VOTES_SCRATCH_BYTES`` runs
+  in sub-batches, one launch each.
 * ``myers_batch_planes_cuda`` launches K2 (``csrc/myers.cu``
   ``myers_kernel<W>``), the port of the public planes function
   ``myers_batch_planes_pallas``: one thread per pair from query planes
@@ -47,10 +57,11 @@ else.  On a CPU tensor it returns its plain version (ops/myers.py,
 ops/pileup.py) — only because the tensor lies on the CPU, which is how the
 CPU tests run the port.  On a CUDA tensor it launches its kernel or
 raises; there is no fallback from a CUDA tensor to the plain version.
-K1' and K2' take W 1-34 query words (``MAX_WORDS``: queries up to 1054
-bases, which covers the short-read route's pads up to LONG_READ_PAD 1024);
-K2 takes 1-24 (``PLANES_MAX_WORDS``).  Past its cap each operand function
-raises.
+K1' and K2' take any number of query words; the only raise left is a K2'
+scratch that device memory cannot hold (torch's out-of-memory error, with
+its byte count).  K2
+takes 1-24 (``PLANES_MAX_WORDS``; only exp/bench_corr_tb runs it) and
+raises past it.
 
 The kernels are built at first use with nvcc (``-gencode
 arch=compute_90a,code=sm_90a``) from ``csrc/myers_gate.cu``,
@@ -68,52 +79,79 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from hga_tpu_torch.ops import cuda_build
-from hga_tpu_torch.ops.myers import (MAX_WORDS, MyersResult, myers_batch,
+from hga_tpu_torch.ops.myers import (MyersResult, myers_batch,
                                      myers_batch_planes, myers_cols, n_words,
                                      pack_state, query_planes, state_result,
-                                     unpack_state)
+                                     unpack_state, window_halo)
 from hga_tpu_torch.ops.pileup import myers_votes
 
-# launches of each kernel by its wrapper (reset with reset_launches()); K2'
-# counts its two plane homes apart
+# launches of each kernel by its wrapper (reset with reset_launches()); K1'
+# counts its wide route and its two modes apart, K2' its plane homes and
+# its wide route
 LAUNCHES: Dict[str, int] = {"myers_batch_cuda": 0,
+                            "myers_batch_cuda_wide": 0,
                             "myers_batch_cuda_shared": 0,
                             "myers_batch_cuda_carry": 0,
                             "myers_votes_cuda": 0,
                             "myers_votes_cuda_scratch": 0,
+                            "myers_votes_cuda_wide": 0,
                             "myers_batch_planes_cuda": 0}
 
 THREADS = 128              # threads a block, K1' and K2
+GATE_WARPS = THREADS // 32
 PLANES_MAX_WORDS = 24      # W K2 unrolls into one thread's registers
 SINGLE_MAX_WORDS = 24      # W K1' takes at one thread a pair (G 1)
+# W K1' and K2' compile into registers (the register route: one word a
+# lane up to 32, two at 33-34); past it both take the wide route, W at run
+# time with each lane's words in memory
+REGISTER_MAX_WORDS = 34
+WORD_PLANES = 5            # uint32 words of a query word on the wide route
 SMEM_MAX = 232448          # shared memory a block may opt in to (227 KB)
 SMEM_SM = 233472           # shared memory of an SM (228 KB) ...
 SMEM_RESERVED = 1024       # ... of which each resident block reserves 1 KB
+# dynamic shared memory K1''s wide route may take a block for its words (the
+# rest of SMEM_MAX holds the staged targets); past it they go to a scratch
+GATE_WIDE_SMEM = SMEM_MAX - 4096
 STAGE_COLUMNS = 128        # K2' target columns a warp stages at a time
 # K2' keeps its planes in shared memory only where an SM holds at least
 # this many such blocks: with 1-3 the device scratch ran 1.6-3.2x faster,
 # with 4 (the correction shape) shared memory ran 1.4x faster (NVIDIA H100
 # 80GB HBM3 at 700 W, chip_smoke.py phase 6's two-home rows, PERF.md)
 VOTES_SMEM_MIN_BLOCKS = 4
+# device scratch one K2' launch may take for its planes (and words); a
+# batch that needs more runs in sub-batches of whole warps, one launch each
+VOTES_SCRATCH_BYTES = 2 << 30
+# K1''s target windows aim at this many warps launched on each SM.  At the
+# shared-row modes' 1 Mb shapes (NVIDIA H100 80GB HBM3 at 700 W,
+# chip_smoke.py phase 6's window rows, PERF.md) 32, 64 and 128 ran: the
+# carried-state step 35.26, 32.63 and 31.80 ms (S 13, 26, 52), the
+# shared-target mode 250.64, 251.33 and 241.02 ms (S 4, 7, 14); 128 was the
+# fastest of the three in both modes.  With windows compiled out of S 1
+# (WIN), 128 ran 30.48 / 234.68 ms and 256 30.96 / 230.28
+WINDOW_WARPS_SM = 128
+SMS = 132                  # SMs of an H100 SXM: the windows of CPU shapes
 
 
 def group_width(W: int) -> int:
     """K1' and K2' lanes a pair in the split design: the smallest power of
-    two >= W, at most a warp's 32 (two words a lane past 32 words)."""
+    two >= W, at most a warp's 32 (two words a lane at W 33-34, more on the
+    wide route)."""
     return min(1 << (W - 1).bit_length(), 32)
 
 
-# K1' lanes a pair (G) by query words W: 1 (a thread per pair) or
-# group_width(W).  chip_smoke.py phase 6 times both at W 4, 5 and 14 (W 1
-# has one design): the split design ran 1.6-2.4x faster at each on an H100
-# (PERF.md), so every W takes it; each W between takes the choice of the
-# nearest measured W.  W 25-34 exist in the split design only.
+# K1' lanes a pair (G) by query words W on the register route: 1 (a thread
+# per pair) or group_width(W).  chip_smoke.py phase 6 times both at W 4, 5
+# and 14 (W 1 has one design): the split design ran 1.6-2.4x faster at each
+# on an H100 (PERF.md), so every W takes it; each W between takes the
+# choice of the nearest measured W.  W 25-34 exist in the split design
+# only; the wide route runs 32 lanes a pair.
 GATE_GROUP: Dict[int, int] = {W: group_width(W)
-                              for W in range(1, MAX_WORDS + 1)}
+                              for W in range(1, REGISTER_MAX_WORDS + 1)}
 
 _LIB: Optional[ctypes.CDLL] = None        # K2 (csrc/myers.cu)
 _GATE_LIB: Optional[ctypes.CDLL] = None   # K1' (csrc/myers_gate.cu)
 _VOTES_LIB: Optional[ctypes.CDLL] = None  # K2' (csrc/myers_votes.cu)
+_SMS: Dict[int, int] = {}                 # SMs by CUDA device index
 
 
 def reset_launches() -> None:
@@ -139,12 +177,11 @@ def _gate_lib() -> ctypes.CDLL:
     if _GATE_LIB is None:
         lib = ctypes.CDLL(cuda_build.build("myers_gate"))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.hga_myers_gate_launch.argtypes = [vp] * 4 + [ci] * 6 + [vp] * 3
+        lib.hga_myers_gate_launch.argtypes = ([vp] * 4 + [ci] * 8 + [vp] * 2
+                                              + [ci] * 3 + [vp] * 2 + [ci]
+                                              + [vp] * 3)
         lib.hga_myers_gate_launch.restype = ci
-        lib.hga_myers_gate_carry_launch.argtypes = ([vp] * 4 + [ci] * 7
-                                                    + [vp] * 5)
-        lib.hga_myers_gate_carry_launch.restype = ci
-        lib.hga_myers_gate_attrs.argtypes = [ci, ci] + \
+        lib.hga_myers_gate_attrs.argtypes = [ci] * 4 + \
             [ctypes.POINTER(ci)] * 2
         lib.hga_myers_gate_attrs.restype = ci
         _GATE_LIB = lib
@@ -157,39 +194,58 @@ def _votes_lib() -> ctypes.CDLL:
         lib = ctypes.CDLL(cuda_build.build("myers_votes"))
         vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.hga_myers_votes_launch.argtypes = (
-            [vp] * 8 + [ci] * 9 + [cl] * 3 + [ctypes.c_float] + [vp] * 5)
+            [vp] * 8 + [ci] * 10 + [cl] * 3 + [ctypes.c_float] + [vp] * 6)
         lib.hga_myers_votes_launch.restype = ci
-        lib.hga_myers_votes_attrs.argtypes = [ci, ci] + \
+        lib.hga_myers_votes_attrs.argtypes = [ci] * 3 + \
             [ctypes.POINTER(ci)] * 2
         lib.hga_myers_votes_attrs.restype = ci
-        lib.hga_myers_votes_occupancy.argtypes = [ci, ci, ci,
-                                                  ctypes.POINTER(ci)]
+        lib.hga_myers_votes_occupancy.argtypes = [ci] * 4 + \
+            [ctypes.POINTER(ci)]
         lib.hga_myers_votes_occupancy.restype = ci
         _VOTES_LIB = lib
     return _VOTES_LIB
 
 
-def kernel_attrs(W: int, planes: bool = False,
-                 group: Optional[int] = None) -> Tuple[int, int]:
+def _sms(dev: torch.device) -> int:
+    """SMs of a CUDA device (SMS for the CPU)."""
+    if dev.type != "cuda":
+        return SMS
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
+def kernel_attrs(W: int, planes: bool = False, group: Optional[int] = None,
+                 wide: bool = False, windows: bool = False
+                 ) -> Tuple[int, int]:
     """(registers per thread, local bytes per thread) of one instantiation:
     K2 at W, or K1' at W with `group` lanes a pair (GATE_GROUP's choice by
-    default)."""
+    default), on the wide route past REGISTER_MAX_WORDS or when `wide`,
+    with target windows (S > 1) when `windows`."""
     regs, local = ctypes.c_int(), ctypes.c_int()
     if planes:
         err = _lib().hga_myers_attrs(W, ctypes.byref(regs),
-                                            ctypes.byref(local))
+                                     ctypes.byref(local))
     else:
+        wl = wide_words(W) if wide or W > REGISTER_MAX_WORDS else 0
+        G = 32 if wl else group or GATE_GROUP[W]
         err = _gate_lib().hga_myers_gate_attrs(
-            W, group or GATE_GROUP[W], ctypes.byref(regs),
-            ctypes.byref(local))
+            W, G, wl, int(windows), ctypes.byref(regs), ctypes.byref(local))
     if err:
         raise RuntimeError(f"cudaFuncGetAttributes failed with error {err}")
     return regs.value, local.value
 
 
+def wide_words(W: int) -> int:
+    """Words a lane on the wide route: W over a warp's 32 lanes."""
+    return -(-W // 32)
+
+
 def gate_designs(W: int) -> Tuple[int, ...]:
-    """K1''s instantiations at W words, in lanes a pair: 1 and
-    group_width(W), or group_width(W) alone past SINGLE_MAX_WORDS."""
+    """K1''s lanes a pair at W words: 1 and group_width(W) up to
+    SINGLE_MAX_WORDS, group_width(W) alone past it (32 on the wide
+    route)."""
     if W <= SINGLE_MAX_WORDS:
         return tuple(sorted({1, group_width(W)}))
     return (group_width(W),)
@@ -198,6 +254,76 @@ def gate_designs(W: int) -> Tuple[int, ...]:
 def gate_blocks(N: int, G: int) -> int:
     """K1' blocks for N pairs: THREADS / G pairs a block."""
     return -(-N // (THREADS // G))
+
+
+def gate_window(N: int, W: int, G: int, Lt: int, sms: int = SMS) -> int:
+    """Owned columns of each of K1''s target windows: enough windows for
+    about WINDOW_WARPS_SM warps launched on each of `sms` SMs, none shorter
+    than 4 halos (so the halo costs at most a quarter); one window (Lt
+    columns) below 8 halos."""
+    H = window_halo(W)
+    if Lt < 8 * H:
+        return max(Lt, 1)
+    warps = -(-N // (32 // G))
+    S = min(-(-sms * WINDOW_WARPS_SM // warps), Lt // (4 * H), 65535)
+    return -(-Lt // max(S, 1))
+
+
+class GateRoute(NamedTuple):
+    W: int          # query words
+    G: int          # lanes a pair
+    wl: int         # words a lane on the wide route; 0 the register route
+    S: int          # target windows (blockIdx.y)
+    window: int     # owned columns a window
+    halo: int       # columns a window past the first runs before its own
+    smem: int       # dynamic shared memory a block: the wide route's words
+    words: int      # uint32 scratch for the wide route's words (0: in smem)
+
+
+def gate_route(N: int, Lq: int, Lt: int, group: Optional[int] = None,
+               window: Optional[int] = None, wide: bool = False,
+               words_scratch: bool = False, sms: int = SMS,
+               shared_rows: bool = False) -> GateRoute:
+    """K1''s geometry for one launch: the register route at W up to
+    REGISTER_MAX_WORDS (G from GATE_GROUP, or `group`), the wide route past
+    it or when `wide` (G 32, its words in shared memory where 4 warps' fit
+    GATE_WIDE_SMEM, else, or with `words_scratch`, in a device scratch).
+    Windows by gate_window in the shared-row modes (`shared_rows`: the
+    shared-target and carried-state modes, few pairs against many columns)
+    on the split design or the wide route, else one; or of `window` owned
+    columns (at least the halo where they split the target; not at G 1
+    below group_width(W)), which tests and timings force."""
+    W = n_words(Lq)
+    wide = wide or W > REGISTER_MAX_WORDS
+    G = group if group is not None else 32 if wide else GATE_GROUP[W]
+    if G not in ((32,) if wide else gate_designs(W)):
+        designs = "32" if wide else " or ".join(map(str, gate_designs(W)))
+        raise ValueError(f"group={G}: K1' runs {designs} lanes a pair at "
+                         f"W={W}")
+    H = window_halo(W)
+    split = wide or G == group_width(W)
+    if window is None:
+        window = gate_window(N, W, G, Lt, sms) if shared_rows and split \
+            else Lt
+    elif window < Lt and not split:
+        raise ValueError(f"windows run on {group_width(W)} lanes a pair at "
+                         f"W={W}, not {G}")
+    elif window < Lt and window < H:
+        raise ValueError(f"a window of {window} columns is shorter than its "
+                         f"halo ({H} at W={W})")
+    window = max(min(window, Lt), 1)
+    S = max(-(-Lt // window), 1)
+    if S > 65535:
+        raise ValueError(f"{S} windows: at most 65535")
+    wl = wide_words(W) if wide else 0
+    smem = words = 0
+    if wl:
+        need = GATE_WARPS * WORD_PLANES * wl * 32 * 4
+        if need <= GATE_WIDE_SMEM and not words_scratch:
+            smem = need
+        else:
+            words = gate_blocks(N, G) * S * need // 4
+    return GateRoute(W, G, wl, S, window, H, smem, words)
 
 
 def _check(q, t, qlen, tlen, shared_ok: bool = False
@@ -228,38 +354,63 @@ def is_shared(q, t) -> bool:
     return t.shape[0] == 1 and q.shape[0] > 1
 
 
-def kernel_operands(q, t, qlen, tlen, group: Optional[int] = None):
+def _gate_scratch(r: GateRoute, N: int, dev: torch.device):
+    """K1''s scratch for one launch: the windows' (best, bj) slots (N,)
+    uint64 where S > 1, and the wide route's words where they leave shared
+    memory (else None each)."""
+    slot = torch.empty(N, dtype=torch.int64, device=dev) if r.S > 1 else None
+    words = (torch.empty(r.words, dtype=torch.int32, device=dev)
+             if r.words else None)
+    return slot, words
+
+
+def kernel_operands(q, t, qlen, tlen, group: Optional[int] = None,
+                    window: Optional[int] = None, wide: bool = False,
+                    words_scratch: bool = False):
     """K1' device operands for one batch: the caller's codes and lengths
-    as they are, W, the lanes a pair (GATE_GROUP's choice unless `group`
-    names 1 or group_width(W), which timing comparisons do), the
-    shared-target flag and fresh outputs."""
-    N, W, _ = _check(q, t, qlen, tlen, shared_ok=True)
-    if W > MAX_WORDS:
-        raise ValueError(f"K1' takes at most {MAX_WORDS} query words, got "
-                         f"W={W}")
-    G = GATE_GROUP[W] if group is None else group
-    if G not in gate_designs(W):
-        raise ValueError(f"group={G}: K1' runs "
-                         f"{' or '.join(map(str, gate_designs(W)))} lanes a "
-                         f"pair at W={W}")
+    as they are, the route (gate_route: GATE_GROUP's lanes a pair unless
+    `group` names 1 or group_width(W), windows by shape unless `window`,
+    the wide route past REGISTER_MAX_WORDS or when `wide`, which tests and
+    timing comparisons force), the shared-target flag, the scratch and
+    fresh outputs (dist, tend)."""
+    N, W, Lt = _check(q, t, qlen, tlen, shared_ok=True)
+    r = gate_route(N, q.shape[1], Lt, group, window, wide, words_scratch,
+                   _sms(q.device), shared_rows=is_shared(q, t))
     outs = tuple(torch.empty(N, dtype=torch.int32, device=q.device)
                  for _ in range(2))
-    return q, t, qlen, tlen, W, G, is_shared(q, t), outs
+    return (q, t, qlen, tlen, r, is_shared(q, t),
+            _gate_scratch(r, N, q.device), outs)
 
 
-def run_kernel(q, t, qlen, tlen, W, G, shared, outs) -> None:
-    """Launch K1' on the current stream."""
+def _launch_gate(q, t, qlen, tlen, r: GateRoute, shared, j0, st_in, st_out,
+                 scratch, dist, tend, what: str) -> None:
     (N, Lq), Lt = q.shape, t.shape[1]
-    dist, tend = outs
+    slot, words = scratch
+    ptr = lambda x: None if x is None else x.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _gate_lib().hga_myers_gate_launch(
             q.data_ptr(), t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(), N,
-            Lq, Lt, W, G, int(shared), dist.data_ptr(), tend.data_ptr(),
-            stream)
+            Lq, Lt, r.W, r.G, r.wl, int(shared), j0, ptr(st_in),
+            ptr(st_out), r.S, r.window, r.halo, ptr(slot), ptr(words),
+            r.smem, dist.data_ptr(), tend.data_ptr(), stream)
     if err:
-        raise RuntimeError(f"myers gate kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"myers gate kernel{what} launch failed: CUDA "
+                           f"error {err}")
+
+
+def run_kernel(q, t, qlen, tlen, r, shared, scratch, outs) -> None:
+    """Launch K1' on the current stream."""
+    _launch_gate(q, t, qlen, tlen, r, shared, 0, None, None, scratch, *outs,
+                 "")
+
+
+def gate_counter(r: GateRoute, shared: bool) -> str:
+    """The counter a K1' launch of the per-pair or shared-target mode
+    moves."""
+    if shared:
+        return "myers_batch_cuda_shared"
+    return "myers_batch_cuda_wide" if r.wl else "myers_batch_cuda"
 
 
 def planes_operands(q, t, qlen, tlen):
@@ -306,8 +457,7 @@ def myers_batch_cuda(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
     *ops, outs = kernel_operands(q, t, qlen, tlen)
     if q.shape[0]:
         run_kernel(*ops, outs)
-        LAUNCHES["myers_batch_cuda_shared" if ops[-1]
-                 else "myers_batch_cuda"] += 1
+        LAUNCHES[gate_counter(ops[4], ops[5])] += 1
     return MyersResult(*outs)
 
 
@@ -324,35 +474,28 @@ def _check_carry(q, t, qlen, tlen, state, j0: int):
     return N, W, st_in
 
 
-def carry_operands(q, t, qlen, tlen, state, j0: int = 0):
+def carry_operands(q, t, qlen, tlen, state, j0: int = 0,
+                   window: Optional[int] = None, wide: bool = False,
+                   words_scratch: bool = False):
     """K1''s carried-state launch for one chunk: the caller's codes and
-    lengths as they are, W, GATE_GROUP's lanes a pair, the shared-target
-    flag, j0, the packed input state (int32 (N, 2 W + 3)) and fresh outputs
-    (the state, dist, tend)."""
+    lengths as they are, the route (gate_route, as kernel_operands), the
+    shared-target flag, j0, the packed input state (int32 (N, 2 W + 3)),
+    the scratch and fresh outputs (the state, dist, tend)."""
     N, W, st_in = _check_carry(q, t, qlen, tlen, state, j0)
-    if W > MAX_WORDS:
-        raise ValueError(f"K1' takes at most {MAX_WORDS} query words, got "
-                         f"W={W}")
+    r = gate_route(N, q.shape[1], t.shape[1], None, window, wide,
+                   words_scratch, _sms(q.device), shared_rows=True)
     outs = (torch.empty_like(st_in),) + tuple(
         torch.empty(N, dtype=torch.int32, device=q.device) for _ in range(2))
-    return (q, t, qlen, tlen, W, GATE_GROUP[W], is_shared(q, t), j0, st_in,
-            outs)
+    return (q, t, qlen, tlen, r, is_shared(q, t), j0, st_in,
+            _gate_scratch(r, N, q.device), outs)
 
 
-def run_carry_kernel(q, t, qlen, tlen, W, G, shared, j0, st_in,
+def run_carry_kernel(q, t, qlen, tlen, r, shared, j0, st_in, scratch,
                      outs) -> None:
     """Launch K1''s carried-state mode on the current stream."""
-    (N, Lq), Lt = q.shape, t.shape[1]
     st_out, dist, tend = outs
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _gate_lib().hga_myers_gate_carry_launch(
-            q.data_ptr(), t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(), N,
-            Lq, Lt, W, G, int(shared), j0, st_in.data_ptr(),
-            st_out.data_ptr(), dist.data_ptr(), tend.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"myers gate kernel (carried state) launch "
-                           f"failed: CUDA error {err}")
+    _launch_gate(q, t, qlen, tlen, r, shared, j0, st_in, st_out, scratch,
+                 dist, tend, " (carried state)")
 
 
 def myers_cols_cuda(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
@@ -394,11 +537,13 @@ def myers_batch_planes_cuda(q: torch.Tensor, t: torch.Tensor,
 
 class VotesRoute(NamedTuple):
     W: int          # query words
-    G: int          # lanes a pair (group_width(W); two words a lane past 32)
+    G: int          # lanes a pair (group_width(W))
     pairs: int      # pairs a warp (a block), 32 / G
     stride: int     # uint32 words of a pair's plane row (even, >= 2 W Lt)
     smem: int       # dynamic shared memory a block, bytes
     scratch: bool   # planes in a device scratch instead of shared memory
+    wl: int = 0     # words a lane on the wide route; 0 the register route
+    words: bool = False  # the wide route's words in a device scratch
 
 
 def votes_route(Lq: int, Lt: int, scratch: bool = False) -> VotesRoute:
@@ -408,12 +553,22 @@ def votes_route(Lq: int, Lt: int, scratch: bool = False) -> VotesRoute:
     its staged targets (odd words a row) in shared memory, or the staged
     targets alone with the planes in a device scratch when shared memory
     would hold fewer than VOTES_SMEM_MIN_BLOCKS such blocks an SM (or when
-    `scratch` asks for it, which timing comparisons do)."""
+    `scratch` asks for it, which timing comparisons do).  Past
+    REGISTER_MAX_WORDS the wide route: planes in the scratch, each lane's
+    words after the staged row in shared memory, or in a scratch of their
+    own where that passes SMEM_MAX."""
     W = n_words(Lq)
     G = group_width(W)
     pairs = 32 // G
+    wl = wide_words(W) if W > REGISTER_MAX_WORDS else 0
+    lanes = -(-W // (wl or -(-W // G)))          # lanes that hold words
     stride = -(-2 * W * Lt // 32) * 32 + 2 * G
-    row = ((STAGE_COLUMNS + W - 1 + 3) // 4 | 1) * 4
+    row = ((STAGE_COLUMNS + lanes - 1 + 3) // 4 | 1) * 4
+    if wl:
+        words = WORD_PLANES * wl * 32 * 4
+        if row + words <= SMEM_MAX:
+            return VotesRoute(W, G, pairs, stride, row + words, True, wl)
+        return VotesRoute(W, G, pairs, stride, row, True, wl, True)
     smem = pairs * stride * 4 + pairs * row
     blocks = SMEM_SM // (smem + SMEM_RESERVED)
     if scratch or blocks < VOTES_SMEM_MIN_BLOCKS:
@@ -422,7 +577,27 @@ def votes_route(Lq: int, Lt: int, scratch: bool = False) -> VotesRoute:
 
 
 def votes_counter(r: VotesRoute) -> str:
+    if r.wl:
+        return "myers_votes_cuda_wide"
     return "myers_votes_cuda_scratch" if r.scratch else "myers_votes_cuda"
+
+
+def votes_scratch_bytes(r: VotesRoute) -> int:
+    """Device scratch bytes one warp of K2' takes: its pairs' planes on the
+    scratch homes, and the wide route's words where they leave shared
+    memory."""
+    planes = r.pairs * r.stride * 4 if r.scratch else 0
+    return planes + (WORD_PLANES * r.wl * 32 * 4 if r.words else 0)
+
+
+def votes_launch_pairs(r: VotesRoute, N: int,
+                       budget: int = VOTES_SCRATCH_BYTES) -> int:
+    """Pairs one K2' launch takes: all N, or as many whole warps as keep
+    the launch's scratch within `budget` (at least one warp)."""
+    per = votes_scratch_bytes(r)
+    if per == 0:
+        return max(N, 1)
+    return max(min(N, budget // per * r.pairs), r.pairs)
 
 
 def votes_attrs(r: VotesRoute) -> Tuple[int, int, int]:
@@ -430,10 +605,10 @@ def votes_attrs(r: VotesRoute) -> Tuple[int, int, int]:
     SM) of the route's instantiation at its shared memory."""
     regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     lib = _votes_lib()
-    err = lib.hga_myers_votes_attrs(r.W, int(r.scratch), ctypes.byref(regs),
-                                    ctypes.byref(local))
-    err = err or lib.hga_myers_votes_occupancy(r.W, int(r.scratch), r.smem,
-                                               ctypes.byref(blocks))
+    err = lib.hga_myers_votes_attrs(r.W, r.wl, int(r.scratch),
+                                    ctypes.byref(regs), ctypes.byref(local))
+    err = err or lib.hga_myers_votes_occupancy(
+        r.W, r.wl, int(r.scratch), r.smem, ctypes.byref(blocks))
     if err:
         raise RuntimeError(f"K2' attributes failed with CUDA error {err}")
     return regs.value, local.value, blocks.value
@@ -471,51 +646,65 @@ def _check_votes(merged, q, t, qlen, tlen, bb, off, lb, qw, size_v, lpad,
 def votes_operands(merged, q, t, qlen, tlen, bb, off, lb, qw=None, *,
                    min_identity: float, size_v: int, lpad: int,
                    ins_slots: int = 3, max_steps: Optional[int] = None,
-                   scratch: bool = False):
-    """K2''s launch for one batch: the route (shape alone, or the scratch
+                   scratch: bool = False, budget: int = VOTES_SCRATCH_BYTES):
+    """K2''s launches for one batch: the route (shape alone, or the scratch
     when `scratch`), the caller's tensors as they are, the walk's step
-    bound min(Lq + Lt, max_steps), the scalars, the device scratch (else
-    None) and fresh dist/tend."""
-    size_all, N, W = _check_votes(merged, q, t, qlen, tlen, bb, off, lb,
+    bound min(Lq + Lt, max_steps), the scalars, the device scratch (planes
+    or None, the wide route's words or None, the pairs a launch: N, or
+    fewer where the scratch would pass `budget`) and fresh dist/tend.
+    Where device memory cannot hold the scratch, its allocation raises
+    (torch's out-of-memory error, which gives the bytes)."""
+    size_all, N, _ = _check_votes(merged, q, t, qlen, tlen, bb, off, lb,
                                   qw, size_v, lpad, ins_slots)
-    if W > MAX_WORDS:
-        raise ValueError(f"K2' takes at most {MAX_WORDS} query words, got "
-                         f"W={W}")
     Lq, Lt = q.shape[1], t.shape[1]
     r = votes_route(Lq, Lt, scratch)
     steps = Lq + Lt if max_steps is None else min(Lq + Lt, max_steps)
-    planes = None
+    per = votes_launch_pairs(r, N, budget)
+    warps = -(-per // r.pairs)
+    planes = words = None
     if r.scratch:
-        planes = torch.empty(-(-N // r.pairs) * r.pairs * r.stride,
-                             dtype=torch.int32, device=q.device)
+        planes = torch.empty(warps * r.pairs * r.stride, dtype=torch.int32,
+                             device=q.device)
+    if r.words:
+        words = torch.empty(warps * WORD_PLANES * r.wl * 32,
+                            dtype=torch.int32, device=q.device)
     outs = tuple(torch.empty(N, dtype=torch.int32, device=q.device)
                  for _ in range(2))
     scalars = (max(steps, 0), ins_slots, lpad, size_v, size_all,
                1.0 - min_identity)
-    return r, (q, t, qlen, tlen, bb, off, lb, qw), scalars, planes, merged, \
-        outs
+    return r, (q, t, qlen, tlen, bb, off, lb, qw), scalars, \
+        (planes, words, per), merged, outs
 
 
-def run_votes_kernel(r: VotesRoute, ins, scalars, planes, merged,
-                     outs) -> None:
+def run_votes_kernel(r: VotesRoute, ins, scalars, scratch, merged,
+                     outs) -> int:
     """Launch K2' on the current stream (operands as votes_operands
-    returns them).  The float32 gate fraction is the C float nearest to
-    1 - min_identity, as torch.tensor(..., dtype=torch.float32) makes it."""
+    returns them), one launch a sub-batch of `scratch`'s pairs a launch;
+    returns the launches.  The float32 gate fraction is the C float nearest
+    to 1 - min_identity, as torch.tensor(..., dtype=torch.float32) makes
+    it."""
     q, t = ins[0], ins[1]
     (N, Lq), Lt = q.shape, t.shape[1]
     steps, ins_slots, lpad, size_v, size_all, frac = scalars
+    planes, words, per = scratch
     ptr = lambda x: None if x is None else x.data_ptr()
-    dist, tend = outs
+    n = 0
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _votes_lib().hga_myers_votes_launch(
-            *(ptr(x) for x in ins), N, Lq, Lt, r.W, r.G, r.stride, steps,
-            ins_slots, r.smem, lpad, size_v, size_all, frac,
-            dist.data_ptr(), tend.data_ptr(), merged.data_ptr(),
-            ptr(planes), stream)
-    if err:
-        raise RuntimeError(f"myers votes kernel launch failed: CUDA error "
-                           f"{err}")
+        for a in range(0, N, per):
+            sl = slice(a, min(N, a + per))
+            part = [None if x is None else x[sl] for x in ins]
+            dist, tend = (o[sl] for o in outs)
+            err = _votes_lib().hga_myers_votes_launch(
+                *(ptr(x) for x in part), dist.shape[0], Lq, Lt, r.W, r.G,
+                r.wl, r.stride, steps, ins_slots, r.smem, lpad, size_v,
+                size_all, frac, dist.data_ptr(), tend.data_ptr(),
+                merged.data_ptr(), ptr(planes), ptr(words), stream)
+            if err:
+                raise RuntimeError(f"myers votes kernel launch failed: CUDA "
+                                   f"error {err}")
+            n += 1
+    return n
 
 
 def myers_votes_cuda(merged: torch.Tensor, q: torch.Tensor, t: torch.Tensor,
@@ -541,6 +730,5 @@ def myers_votes_cuda(merged: torch.Tensor, q: torch.Tensor, t: torch.Tensor,
         merged, q, t, qlen, tlen, bb, off, lb, qw, min_identity=min_identity,
         size_v=size_v, lpad=lpad, ins_slots=ins_slots, max_steps=max_steps)
     if q.shape[0]:
-        run_votes_kernel(r, *ops, outs)
-        LAUNCHES[votes_counter(r)] += 1
+        LAUNCHES[votes_counter(r)] += run_votes_kernel(r, *ops, outs)
     return MyersResult(*outs), merged

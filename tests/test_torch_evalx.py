@@ -170,8 +170,8 @@ def test_shared_target_mode_rules():
     row = torch.zeros((1, 200), dtype=torch.int32)
     assert TMC.is_shared(q, row) and not TMC.is_shared(q[:1], row)
     ops = TMC.kernel_operands(q, row, one, one)
-    assert ops[6] is True and ops[1] is row        # the row as given
-    assert TMC.kernel_operands(q, q, one, one)[6] is False
+    assert ops[5] is True and ops[1] is row        # the row as given
+    assert TMC.kernel_operands(q, q, one, one)[5] is False
     assert "myers_batch_cuda_shared" in TMC.LAUNCHES
     # K2 and K2' keep one target row a pair; K1' takes 1 or N rows only
     with pytest.raises(ValueError):

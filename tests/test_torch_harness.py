@@ -249,7 +249,7 @@ def test_run_b_wrapper_rejects_bad_operands():
         MM.run_b(ql, tl, *planes, t[:, ::2])
     with pytest.raises(ValueError, match="exceeds"):      # 256 x 1024 bytes
         MM.run_b(ql, tl, *planes, t, S=64, BLK=256)
-    wide = torch.zeros((64, TM.MAX_WORDS + 1), dtype=torch.int32)
+    wide = torch.zeros((64, MM.MAX_WORDS + 1), dtype=torch.int32)
     with pytest.raises(ValueError, match="words"):
         MM.run_b(ql, tl, wide, wide, wide, wide, t)
 

@@ -150,16 +150,18 @@ def test_wrappers_reject_bad_operands():
         TMC.myers_batch_planes_cuda(q, t[:10], ql, tl)
     with pytest.raises(ValueError):
         TMC.myers_batch_cuda(q[:, ::2], t, ql, tl)
-    # past a kernel's word cap its operand functions refuse the shape (a
-    # CUDA batch then raises; CPU tensors take the plain version)
+    # K2 refuses the shape past its word cap (a CUDA batch then raises; CPU
+    # tensors take the plain version); K1' takes W 35 on its wide route
     w35, w25 = (torch.zeros((4, W * 31), dtype=torch.int32)
                 for W in (35, 25))
-    with pytest.raises(ValueError, match="at most 34 query words"):
-        TMC.kernel_operands(w35, w35, ql[:4], tl[:4])
+    r = TMC.kernel_operands(w35, w35, ql[:4], tl[:4])[4]
+    assert (r.W, r.G, r.wl, r.S) == (35, 32, 2, 1)
     with pytest.raises(ValueError, match="at most 24 query words"):
         TMC.planes_operands(w25, w25, ql[:4], tl[:4])
     with pytest.raises(ValueError, match="lanes"):       # G 1 stops at W 24
         TMC.kernel_operands(w25, w25, ql[:4], tl[:4], group=1)
+    with pytest.raises(ValueError, match="lanes"):       # the wide route: 32
+        TMC.kernel_operands(w35, w35, ql[:4], tl[:4], group=16)
 
 
 @pytest.mark.cuda
@@ -177,41 +179,52 @@ def test_cuda_kernels_match_plain(cuda):
 
 
 def test_word_caps_by_kernel():
-    """K1' and K2' take W 1-34 (the short-read route's pads up to 1024), K2
-    takes 1-24: each operand function accepts W up to its kernel's cap and
-    refuses past it, by shape alone; no plain route is counted."""
-    assert TM.MAX_WORDS == 34 and TMC.PLANES_MAX_WORDS == 24
+    """K1' and K2' take every W (the register route up to 34, the wide route
+    past it: one pair a warp, ceil(W / 32) words a lane), K2 takes 1-24:
+    each operand function accepts W up to its kernel's cap and refuses past
+    it, by shape alone; no plain route is counted."""
+    assert TMC.REGISTER_MAX_WORDS == 34 and TMC.PLANES_MAX_WORDS == 24
     one = torch.ones(1, dtype=torch.int32)
     merged = torch.zeros(2, dtype=torch.int32)
     for W in range(1, 40):
         q = torch.zeros((1, 31 * W), dtype=torch.int32)
         assert TMC._check(q, q, one, one) == (1, W, 31 * W)   # every W
+        wide = W > TMC.REGISTER_MAX_WORDS
         for name, build, cap in (
-                ("K1'", lambda: TMC.kernel_operands(q, q, one, one),
-                 TM.MAX_WORDS),
+                ("K1'", lambda: TMC.kernel_operands(q, q, one, one)[4],
+                 None),
                 ("K1' carried state", lambda: TMC.carry_operands(
-                    q, q, one, one, TM.myers_init_state(one, W)),
-                 TM.MAX_WORDS),
+                    q, q, one, one, TM.myers_init_state(one, W))[4], None),
                 ("K2", lambda: TMC.planes_operands(q, q, one, one),
                  TMC.PLANES_MAX_WORDS),
                 ("K2'", lambda: TMC.votes_operands(
                     merged, q, q, one, one, one, one, one, min_identity=0.75,
-                    size_v=0, lpad=0), TM.MAX_WORDS)):
-            if W <= cap:
+                    size_v=0, lpad=0)[0], None)):
+            if cap is None:
+                r = build()
+                assert r.wl == (-(-W // 32) if wide else 0), (name, W)
+            elif W <= cap:
                 build()
             else:
                 with pytest.raises(ValueError, match="query words"):
                     build()
     assert sorted(TMC.LAUNCHES) == sorted([
-        "myers_batch_cuda", "myers_batch_cuda_shared",
-        "myers_batch_cuda_carry", "myers_votes_cuda",
-        "myers_votes_cuda_scratch", "myers_batch_planes_cuda"])
+        "myers_batch_cuda", "myers_batch_cuda_wide",
+        "myers_batch_cuda_shared", "myers_batch_cuda_carry",
+        "myers_votes_cuda", "myers_votes_cuda_scratch",
+        "myers_votes_cuda_wide", "myers_batch_planes_cuda"])
     # W 17-34 run on a warp's 32 lanes a pair: one word a lane up to W 32,
-    # two at W 33-34; W 25-34 in the split design alone
+    # two at W 33-34; W 25-34 in the split design alone, the wide route
+    # past 34 (32 lanes, its counter apart)
     assert all(TMC.GATE_GROUP[W] == 32 for W in range(17, 35))
     assert TMC.group_width(33) == TMC.group_width(34) == 32
-    assert all(TMC.gate_designs(W) == (32,) for W in range(25, 35))
+    assert all(TMC.gate_designs(W) == (32,) for W in range(25, 60))
     assert TMC.gate_designs(24) == (1, 32)
+    r = TMC.gate_route(4096, 1085, 1157)
+    assert TMC.gate_counter(r, False) == "myers_batch_cuda_wide"
+    assert TMC.gate_counter(r, True) == "myers_batch_cuda_shared"
+    assert TMC.gate_counter(TMC.gate_route(4096, 1054, 1126), False) == \
+        "myers_batch_cuda"
 
 
 @pytest.mark.parametrize("Lq", [800, 992, 1024])   # W 26, 32, 34

@@ -210,7 +210,8 @@ def test_gate_groups_and_blocks():
     assert [TMC.group_width(W) for W in (1, 2, 3, 4, 5, 8, 9, 14, 16, 17,
                                          24)] == \
         [1, 2, 4, 4, 8, 8, 16, 16, 16, 32, 32]
-    assert sorted(TMC.GATE_GROUP) == list(range(1, TM.MAX_WORDS + 1))
+    assert sorted(TMC.GATE_GROUP) == list(range(1, TMC.REGISTER_MAX_WORDS
+                                                + 1))
     for W, G in TMC.GATE_GROUP.items():
         assert G in (1, TMC.group_width(W)), (W, G)
     # 4096 pairs: 8 pairs a warp at G 4 (512 warps), 2 at G 16 (2048 warps)
@@ -220,8 +221,8 @@ def test_gate_groups_and_blocks():
     q = torch.zeros((8, 112), dtype=torch.int32)
     one = torch.ones(8, dtype=torch.int32)
     ops = TMC.kernel_operands(q, q, one, one, group=1)
-    assert ops[4:6] == (4, 1) and ops[0] is q     # codes as given
-    assert TMC.kernel_operands(q, q, one, one)[5] == TMC.GATE_GROUP[4]
+    assert ops[4][:2] == (4, 1) and ops[0] is q     # codes as given
+    assert TMC.kernel_operands(q, q, one, one)[4].G == TMC.GATE_GROUP[4]
     with pytest.raises(ValueError, match="lanes"):
         TMC.kernel_operands(q, q, one, one, group=2)
 

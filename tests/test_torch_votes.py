@@ -533,10 +533,32 @@ def test_votes_routes_and_banks():
             r = TMC.votes_route(Lq, Lt)
             assert r.stride % 2 == 0 and r.stride >= 2 * r.W * Lt
             assert r.smem <= TMC.SMEM_MAX and r.pairs * r.G == 32
-    assert set(TMC.LAUNCHES) == {"myers_batch_cuda",
+    # past 34 words the wide route: one pair a warp, ceil(W / 32) words a
+    # lane (their 5 x 32 x 4 B after the staged row), planes on the scratch,
+    # its own counter; a batch whose planes pass VOTES_SCRATCH_BYTES runs in
+    # sub-batches of whole warps (pad 3,100: W 100, ~2.5 MB a pair)
+    for lq, W, wl in ((1085, 35, 2), (1488, 48, 2), (1984, 64, 2),
+                      (1985, 65, 3), (3100, 100, 4)):
+        r = TMC.votes_route(lq, lq + 72)
+        assert (r.W, r.G, r.pairs, r.scratch, r.wl, r.words) == \
+            (W, 32, 1, True, wl, False)
+        lanes = -(-W // wl)
+        row = ((TMC.STAGE_COLUMNS + lanes - 1 + 3) // 4 | 1) * 4
+        assert r.smem == row + 5 * wl * 32 * 4
+        assert TMC.votes_counter(r) == "myers_votes_cuda_wide"
+    r = TMC.votes_route(3100, 3172)
+    per = TMC.votes_launch_pairs(r, 4096)
+    assert 0 < per < 4096 and per * r.stride * 4 <= TMC.VOTES_SCRATCH_BYTES
+    assert TMC.votes_launch_pairs(r, 4096, budget=1) == 1
+    assert TMC.votes_launch_pairs(TMC.votes_route(112, 184), 4096) == 4096
+    assert TMC.votes_launch_pairs(TMC.votes_route(800, 872), 4096) == 4096
+    huge = TMC.votes_route(31 * 12000, 100)           # words past SMEM_MAX
+    assert huge.words and huge.smem < TMC.SMEM_MAX
+    assert set(TMC.LAUNCHES) == {"myers_batch_cuda", "myers_batch_cuda_wide",
                                  "myers_batch_cuda_shared",
                                  "myers_batch_cuda_carry", "myers_votes_cuda",
                                  "myers_votes_cuda_scratch",
+                                 "myers_votes_cuda_wide",
                                  "myers_batch_planes_cuda"}
     # at W 1, 2 and 4 the DP's 64-bit plane stores of a half-warp (the
     # lanes a shared-memory access serves together) hit distinct banks

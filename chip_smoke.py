@@ -21,9 +21,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      route (myers_batch_cuda_wide must move) at W 35, 48, 64, 65 (its words
      also in the device scratch) and 100 with qlen 0, 1, 31, 31 W - 1,
      31 W, and at the long reads' gate shapes (N 128, Lq 8,192; N 64,
-     Lq 31,000); past K2's word cap (W 25) its wrapper raises and counts
-     nothing; then K1''s shared-target mode (one target row for every
-     pair, counted as myers_batch_cuda_shared; target windows by shape)
+     Lq 31,000, held after phase 3 against its plain version, which runs
+     in a process of its own on the card beside phases 2 and 3, as do
+     phase 7's Lq 31,000 cases); then K1''s shared-target mode (one
+     target row for every pair, counted as myers_batch_cuda_shared;
+     target windows by shape)
      at segment_identity's shape (segments of 384, W 13, against genome .
      sentinel . revcomp of a 4 kb genome: Lt 8001) and at W 4, W 1, W 26,
      W 34 and W 40 (the wide route) with qlen 0, 1, 31, 32 and target
@@ -31,9 +33,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      window (the single sweep); and the carried-state mode at W 26, 33, 48
      (wide) and W 40 on a shared row (one chunk, 2, 3, 8 chunks, and
      forced windows of one halo over 1, 2 and 3 chunks)
-  3. K2 (myers_batch_planes_cuda) == its plain version (dist, tend, Pv, Mv)
-     at the correction shape (N 4096, Lq 112, Lt 184), and the traceback
-     votes made from each set of planes are equal; then K2'
+  3. K2s (myers_batch_planes_cuda) == its plain version (dist, tend, Pv,
+     Mv) at the correction shape (N 4096, Lq 112, Lt 184), the forced
+     one-thread K2 on the same inputs, and the traceback votes made from
+     each set of planes are equal; K2s at W 1, 4, 24, 25, 34, 35 and 100
+     (its wide route past 34, myers_batch_planes_cuda_wide, W 35 and 100
+     also with the words in the device scratch), its route's counter
+     moving by one; then K2'
      (myers_votes_cuda: DP, gate, traceback and votes in one launch) ==
      its plain version (dist, tend and the vote buffer less its sink) at
      the correction shape (min_identity 0.9, weighted and unweighted, qlen
@@ -62,11 +68,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      both designs at W 14, 4, 5 and 1 and the split design at W 26, 32 and
      34, its wide route at N 4096 and Lq 31,000, 8,192, 3,100 and 1,085
      (and the register route beside it at W 34),
-     K2, K3' at the refine's shapes
+     K2s at bench_corr_tb's shape (N 4096, Lq 112, W 4) beside the forced
+     K2 on the same inputs, at W 13, 26, 34 and on its wide route at W 100
+     (N 1,024), K3' at the refine's shapes
      beside K3'' and K3's kernels on the same inputs, K3'' at the 300 bp
      refine's shapes (Lq 320, forward band 64 and reverse band 128) with
-     its in-band share, K and shared memory, beside K3's kernel on the same
-     inputs (K3's row, forced there); K2' on real correction batches
+     its in-band share, K and shared memory, beside the K3''' and K3
+     kernels on the same inputs (K3's row, forced there), K3''' at the 300
+     bp refine with --band 128 (reverse band 256), at band 960 (Lq 320)
+     and at Lq 31,000 (bands 64 and 128, N 4096), with the warps an SM
+     holds; K2' on real correction batches
      (_prep's output) on both plane homes, its shared memory and blocks an
      SM, and on planted batches at W 26 (the scratch) and W 100 (the wide
      route); K2''s two homes at
@@ -74,20 +85,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      the blocks an SM shared memory holds (votes_route's cutoff); and the
      correction batch split (_prep / K2')
   7. banded_sw_batch_cuda == its plain version, bit-exact, every case
-     through the wrapper, whose route counter must move: K3' at the
+     through the wrapper, whose route counter must move (and K3's row
+     counter stay 0: no shape takes it): K3' at the
      refine's forward (N 4096, Lq 112, Lt 184, band 64) and reverse (band
      128, ragged) shapes (and K3'' forced on both) and at Lq 1, 31, 32, 33,
      112, 128, 129, 256 at bands 0, 64, 128, >= Lq; K3'' at the 300 bp
      refine's forward (N 4096, Lq 320, Lt 392, band 64) and reverse (band
      128, ragged) shapes, at Lq 257, 320, 1024 at bands 0, 1, 64, 127, 128,
-     at bands 31, 32, 63, 64, 255 (K's edges) and at Lq 1024 and 1100; K3
-     (rows) at band >= Lq above Lq 256 and band 960 (device scratch); tie
-     rows, -1 and 4 codes, qlen/tlen 0 everywhere
+     at bands 31, 32, 63, 64, 255 (K's edges) and at Lq 1024 and 1100;
+     K3''' at band >= Lq above Lq 256, band 960, Lq 31,000 at bands 64 and
+     128 (N 8) and band 2500 (its slots in shared memory, and forced into
+     the device scratch), and forced at the 300 bp refine's shapes; K3
+     (rows) forced at band >= Lq above Lq 256 and band 960 (its device
+     scratch); tie rows, -1 and 4 codes, qlen/tlen 0 everywhere
   8. judged config 3, compute_overlaps_cross(device="cuda") with the SW
-     refine, on the judged read model of a 500 kb genome (phase 4's seed):
+     refine, on the judged read model of a 400 kb genome (phase 4's seed):
      K1' and K3' counters must move, K3''
      and K3 stay 0, truth precision >= 0.95; then 300 bp reads on a 100
-     kb genome, whose refine width takes K3'' (K3' and K3 stay 0)
+     kb genome, whose refine width takes K3'' (K3', K3''' and K3 stay 0);
+     then those reads at --band 128, whose reverse pass (band 256) takes
+     K3''' (K3'' and K3''' move, K3's rows stay 0), and on a 20 kb genome
+     on cuda and on cpu, the records byte-identical
   9. the measurement path: X1 (exp/myers_micro run_b), X2 (exp/sw_variants
      v1, v2, v3) and X3 (exp/vpu_micro) == their plain versions, bit-exact;
      then the three harnesses' main() as a user runs them (their counters
@@ -101,7 +119,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      utils/evalx.segment_identity on the card
      (K1''s shared-target counter must move); --phase10 picks the genomes
      (repeats, circular, repeats+circular), --phase10-len their length
-     (500 kb by default)
+     (400 kb by default)
 
   c. distribution (parallel/): K1''s carried-state mode
      (myers_cols_cuda, counted as myers_batch_cuda_carry) == ops/myers
@@ -121,8 +139,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      --what scaling` on 1 (NCCL) and 2 (gloo) ranks and `--what comm`
 
   d. the exp/ scripts of hga_tpu_torch.exp as a user runs them, on a copy
-     of phase 4's run directory: bench_corr_tb (K2 and K2' must move; the
-     vote buffers of the K2 planes' traceback, fused_full_S and
+     of phase 4's run directory: bench_corr_tb (K2s and K2' must move; the
+     vote buffers of the K2s planes' traceback, fused_full_S and
      fused_bounded equal on planted pairs; the three times), reoverlap
      --polish (K1' must move; overlaps.npz and contigs.fasta equal phase
      4's), polish_retry 2 passes over reoverlap's contigs (K2' must move,
@@ -193,6 +211,7 @@ import shutil
 import sys
 import tempfile
 import time
+from typing import Optional
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -214,9 +233,16 @@ KERNELS = {
                               "hga_tpu/ops/myers_pallas.py:106"),
     "myers_batch_planes_cuda": ("hga_tpu_torch/csrc/myers.cu",
                                 "hga_tpu/ops/myers_pallas.py:106"),
+    "myers_batch_planes_cuda_wide": ("hga_tpu_torch/csrc/myers.cu",
+                                     "hga_tpu/ops/myers_pallas.py:106"),
+    # K2, one thread a pair: forced only, beside K2s on the same inputs
+    "myers_batch_planes_cuda_thread": ("hga_tpu_torch/csrc/myers.cu",
+                                       "hga_tpu/ops/myers_pallas.py:106"),
     "banded_sw_batch_cuda": ("hga_tpu_torch/csrc/sw.cu",
                              "hga_tpu/ops/align_pallas.py:66"),
     "banded_sw_batch_cuda_band": ("hga_tpu_torch/csrc/sw.cu",
+                                  "hga_tpu/ops/align_pallas.py:66"),
+    "banded_sw_batch_cuda_wide": ("hga_tpu_torch/csrc/sw.cu",
                                   "hga_tpu/ops/align_pallas.py:66"),
     "banded_sw_batch_cuda_rows": ("hga_tpu_torch/csrc/sw.cu",
                                   "hga_tpu/ops/align_pallas.py:66"),
@@ -246,10 +272,15 @@ _PTXAS_ENTRY = (
     ("K1'", r"myers_gate_kernelILi(\d+)ELi(\d+)E",
      lambda g: f"W{g[0]}G{g[1]}"),
     ("K2", r"myers_kernelILi(\d+)E", lambda g: int(g[0])),
+    ("K2s", r"myers_planes_kernelILi(\d+)ELi(\d+)E",
+     lambda g: f"W{g[0]}G{g[1]}"),
     ("K2'", r"myers_votes_kernelILi(\d+)ELi(\d+)ELb([01])E",
      lambda g: f"G{g[0]}WL{g[1]}{'smem' if g[2] == '1' else 'scratch'}"),
     ("K3'", r"sw_diag_kernelILi(\d+)E", lambda g: f"K{g[0]}"),
     ("K3''", r"sw_band_kernelILi(\d+)E", lambda g: f"K{g[0]}"),
+    ("K3'''", r"sw_wide_kernelILi(\d+)E", lambda g: f"K{g[0]}"),
+    ("K3'''", r"sw_wide_mem_kernelILb([01])E",
+     lambda g: "mem_scratch" if g[0] == "1" else "mem_smem"),
     ("K3", r"sw_kernelILb([01])E",
      lambda g: "smem" if g[0] == "1" else "scratch"),
     ("X1", r"myers_slab_kernelILi(\d+)E", lambda g: int(g[0])),
@@ -263,9 +294,10 @@ _PTXAS_ENTRY = (
 def ptxas_report(text: str):
     """(kernel, instantiation, registers, (spill store bytes, spill load
     bytes)) per instantiation, from nvcc's -Xptxas -v report: K1' by W and
-    lanes a pair, K2 by W, K2' by lanes a pair, words a lane and plane
-    home, K3' and K3'' by slots a lane, K3 by buffer kind, X1 by W, X2 by layout, K, G and
-    ablation flags, X3 by C and STEPS."""
+    lanes a pair, K2 by W, K2s by W and lanes a pair, K2' by lanes a pair,
+    words a lane and plane home, K3', K3'' and K3''' by slots a lane (and
+    K3''''s slots in memory), K3 by buffer kind, X1 by W, X2 by layout, K,
+    G and ablation flags, X3 by C and STEPS."""
     import re
 
     rows, cur = [], None
@@ -496,7 +528,8 @@ def phase_k1_shared(rng, MC, M):
 def phase_k1(rng, MC, M):
     """K1' through its wrapper (GATE_GROUP's lanes a pair, the wide route
     past 34 words, whose counter must move) and through the other design at
-    each shape, against the plain version."""
+    each shape, against the plain version (the longest gate case,
+    phase_gate_long, runs after phase 3)."""
     import torch
 
     log("phase 2: K1' myers_batch_cuda vs plain, bit-exact, both designs and "
@@ -526,65 +559,106 @@ def phase_k1(rng, MC, M):
         cases.append((f"W {W} (N {n}, Lq {lq}, Lt {lq + 72})",
                       myers_edges(rng, n, lq, lq + 72,
                                   edges=(0, 1, 31, lq - 1, lq))))
-    for n, lq in ((128, 8192), (64, 31_000)):
-        cases.append((f"long-read gate W {M.n_words(lq)} (N {n}, Lq {lq}, "
-                      f"Lt {lq + 72})", myers_edges(rng, n, lq, lq + 72)))
+    cases.append(("long-read gate W 265 (N 128, Lq 8192, Lt 8264)",
+                  myers_edges(rng, 128, 8192, 8264)))
     for label, x in cases:
         args = to_dev(*x)
         t0 = time.perf_counter()
         ref = M.myers_batch(*args)
         torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        W = M.n_words(x[0].shape[1])
-        r = MC.kernel_operands(*args)[4]
-        key = MC.gate_counter(r, False)
-        before = MC.LAUNCHES[key]
-        got = MC.myers_batch_cuda(*args)
-        if MC.LAUNCHES[key] != before + 1:
-            fail(f"K1' {label}: {key} did not count")
-        if (W > MC.REGISTER_MAX_WORDS) != (key == "myers_batch_cuda_wide"):
-            fail(f"K1' {label} took {key}")
-        errs[key] += [eq(f"K1' {label} G {r.G} ({key}; plain {dt:.1f} s) "
-                         f"{f}", getattr(got, f), getattr(ref, f))
-                      for f in ("dist", "tend")]
-        runs = [(f"G {g}", dict(group=g))
-                for g in set(MC.gate_designs(W)) - {r.G}]
-        if W in (26, 34):          # the wide route forced below its W
-            runs.append(("wide route forced", dict(wide=True)))
-        if W == 65:                # its words in the device scratch
-            runs.append(("words in the scratch", dict(words_scratch=True)))
-        for tag, kw in runs:
-            *ops, outs = MC.kernel_operands(*args, **kw)
-            MC.run_kernel(*ops, outs)
-            errs[MC.gate_counter(ops[4], False)] += [
-                eq(f"K1' {label} {tag} {f}", o, getattr(ref, f))
-                for f, o in zip(("dist", "tend"), outs)]
-    cap_check(rng, MC, M)
+        gate_check(MC, M, label, args, ref, time.perf_counter() - t0, errs)
     return {k: max(v) for k, v in errs.items()}
 
 
-def cap_check(rng, MC, M):
-    """Past K2's word cap a CUDA batch raises and launches nothing (W 25,
-    Lq 775); K1' and K2' take every W (phase 2's and 3's wide cases)."""
-    before = dict(MC.LAUNCHES)
-    lq = MC.PLANES_MAX_WORDS * 31 + 1
-    try:
-        MC.myers_batch_planes_cuda(*to_dev(*myers_edges(rng, 256, lq,
-                                                        lq + 72)))
-    except ValueError as e:
-        if "query words" not in str(e):
-            raise
-        if moved(before, MC.LAUNCHES):
-            fail("myers_batch_planes_cuda at W 25: counted a launch before "
-                 "raising")
-        return
-    fail("myers_batch_planes_cuda at W 25 did not raise past K2's word cap")
+def phase_gate_long(MC, M, plains) -> int:
+    """Phase 2's longest gate case, the long reads' pad of a 4.6 Mb judged
+    run (GATE_LONG: N 64, Lq 31,000, W 1,000), held after phase 3 against
+    its plain version's process (plain_procs)."""
+    n, lq = GATE_LONG
+    ref, dt = plain_ref(plains, "gate", M.MyersResult)
+    errs = {"myers_batch_cuda": [], "myers_batch_cuda_wide": []}
+    gate_check(MC, M, f"long-read gate W {M.n_words(lq)} (N {n}, Lq {lq}, "
+               f"Lt {lq + 72}; plain in its process)",
+               to_dev(*long_gate_case()),
+               ref, dt, errs)
+    return max(errs["myers_batch_cuda_wide"])
+
+
+def gate_check(MC, M, label, args, ref, dt, errs) -> None:
+    """One K1' case: the wrapper (its route's counter must move by one) and
+    the other designs forced, each against `ref`, the plain version's
+    result (`dt` seconds); the max errors join `errs` by counter."""
+    W = M.n_words(args[0].shape[1])
+    r = MC.kernel_operands(*args)[4]
+    key = MC.gate_counter(r, False)
+    before = MC.LAUNCHES[key]
+    got = MC.myers_batch_cuda(*args)
+    if MC.LAUNCHES[key] != before + 1:
+        fail(f"K1' {label}: {key} did not count")
+    if (W > MC.REGISTER_MAX_WORDS) != (key == "myers_batch_cuda_wide"):
+        fail(f"K1' {label} took {key}")
+    errs[key] += [eq(f"K1' {label} G {r.G} ({key}; plain {dt:.1f} s) "
+                     f"{f}", getattr(got, f), getattr(ref, f))
+                  for f in ("dist", "tend")]
+    runs = [(f"G {g}", dict(group=g))
+            for g in set(MC.gate_designs(W)) - {r.G}]
+    if W in (26, 34):          # the wide route forced below its W
+        runs.append(("wide route forced", dict(wide=True)))
+    if W == 65:                # its words in the device scratch
+        runs.append(("words in the scratch", dict(words_scratch=True)))
+    for tag, kw in runs:
+        *ops, outs = MC.kernel_operands(*args, **kw)
+        MC.run_kernel(*ops, outs)
+        errs[MC.gate_counter(ops[4], False)] += [
+            eq(f"K1' {label} {tag} {f}", o, getattr(ref, f))
+            for f, o in zip(("dist", "tend"), outs)]
+
+
+PLANES_FIELDS = ("dist", "tend", "Pv planes", "Mv planes")
+
+
+def planes_eq(label, outs, ref) -> list:
+    """K2s's or K2's four outputs against the plain version's."""
+    got = (outs[0].dist, outs[0].tend, outs[1], outs[2]) \
+        if isinstance(outs, tuple) else outs
+    want = (ref[0].dist, ref[0].tend, ref[1], ref[2])
+    return [eq(f"{label} {f}", g, w)
+            for f, g, w in zip(PLANES_FIELDS, got, want)]
+
+
+def planes_words(rng, MC, M):
+    """K2s == plain past K2's old 24-word cap and at its routes' edges: W 1,
+    4, 24, 25, 34, 35 and 100 (Lq 31 W, Lt = Lq + 72; qlen 0, 1, 31,
+    31 W - 1, 31 W, ragged tlen, codes -1, 4, 9; N 256, N 64 at W 100)
+    through the wrapper, whose route's counter (the wide route past 34)
+    must move by one, W 35 and 100 also with their words in the device
+    scratch."""
+    errs = {"myers_batch_planes_cuda": [], "myers_batch_planes_cuda_wide": []}
+    for W in (1, 4, 24, 25, 34, 35, 100):
+        N, lq = (256 if W < 100 else 64), 31 * W
+        args = to_dev(*myers_edges(rng, N, lq, lq + 72,
+                                   edges=(0, 1, 31, lq - 1, lq)))
+        key = MC.planes_counter(MC.planes_route(lq))
+        before = dict(MC.LAUNCHES)
+        got = MC.myers_batch_planes_cuda(*args)
+        if moved(before, MC.LAUNCHES) != {key: 1}:
+            fail(f"K2s at W {W}: counters moved "
+                 f"{moved(before, MC.LAUNCHES)}, not {key} once")
+        ref = M.myers_batch_planes(*args)
+        errs[key] += planes_eq(f"K2s W {W} (N {N}, {key})", got, ref)
+        if W > MC.REGISTER_MAX_WORDS:
+            r, ins, outs = MC.planes_operands(*args, words_scratch=True)
+            MC.run_planes_kernel(r, ins, outs)
+            errs[key] += planes_eq(f"K2s W {W} words in the scratch", outs,
+                                   ref)
+    return {k: max(v) for k, v in errs.items()}
 
 
 def phase_k2(rng, MC, M, PU):
     import torch
 
-    log("phase 3: K2 myers_batch_planes_cuda vs plain, bit-exact")
+    log("phase 3: K2s myers_batch_planes_cuda vs plain, bit-exact (and K2 "
+        "forced)")
     N, Lq, Lt = 4096, 112, 184
     q, t, ql, tl = planted_pairs(rng, N, Lq, Lt)
     ql[:4] = [0, 31, 62, Lq - 1]
@@ -593,8 +667,12 @@ def phase_k2(rng, MC, M, PU):
     args = to_dev(q, t, ql, tl)
     got, gpv, gmv = MC.myers_batch_planes_cuda(*args)
     ref, rpv, rmv = M.myers_batch_planes(*args)
-    errs = [eq("K2 dist", got.dist, ref.dist), eq("K2 tend", got.tend, ref.tend),
-            eq("K2 Pv planes", gpv, rpv), eq("K2 Mv planes", gmv, rmv)]
+    errs = planes_eq("K2s (N 4096, Lq 112, Lt 184)", (got, gpv, gmv),
+                     (ref, rpv, rmv))
+    r, ins, outs = MC.planes_operands(*args, thread=True)
+    MC.run_planes_kernel(r, ins, outs)
+    err_thread = max(planes_eq("K2 forced (N 4096, Lq 112, Lt 184)", outs,
+                               (ref, rpv, rmv)))
     # traceback votes from each set of planes (the gate of correction)
     nb, lpad, slots = 8, 512, 3
     size_v = nb * lpad * PU.N_SYM
@@ -615,8 +693,12 @@ def phase_k2(rng, MC, M, PU):
         votes.append(m[:size_all])
     if int(votes[0].sum()) == 0:
         fail("traceback cast no votes")
-    errs.append(eq("K2 traceback votes", votes[0], votes[1]))
-    return max(errs)
+    errs.append(eq("K2s traceback votes", votes[0], votes[1]))
+    out = planes_words(rng, MC, M)
+    out["myers_batch_planes_cuda"] = max(
+        errs + [out["myers_batch_planes_cuda"]])
+    out["myers_batch_planes_cuda_thread"] = err_thread
+    return out
 
 
 def votes_inputs(rng, N, Lq, band, nb=8):
@@ -831,21 +913,143 @@ def refine_cases(rng, A, N, Lq, band):
              "qend/tend", rq, rt, rql, rtl, 2 * band)]
 
 
+# phase 7's long queries: Lq 31,000 (a 4.6 Mb judged run's long pad) at the
+# refine's bands, N cut to LONG_SW_PAIRS.  The plain version's ~62,000-step
+# anti-diagonal loop takes ~15 s a call on the card, bound by its launches
+# from one host thread, so it runs in a process of its own on the card,
+# started after phase 1 beside phases 2 and 3 (plain_procs; on the CPU it
+# took 200-300 s on the chip machine's host), and phase 7 holds the
+# kernel's results against its output; phase 6 times the plain version at
+# a cut, Lq LONG_SW_CUT
+LONG_SW_LQ = 31_000
+LONG_SW_PAIRS = 8
+LONG_SW_BANDS = (64, 128)
+LONG_SW_CUT = 3_100
+SW_FIELDS = ("score", "qend", "tend")
+
+
+def long_sw_case(band: int, lq: Optional[int] = None):
+    """Phase 7's long-query operands at `band` (Lq LONG_SW_LQ unless `lq`),
+    from a generator of their own (the plain version's process draws the
+    same)."""
+    import numpy as np
+
+    lq = lq or LONG_SW_LQ
+    return long_sw_pairs(np.random.default_rng(lq + band), LONG_SW_PAIRS,
+                         lq, lq + band + 8, band)
+
+
+# the long cases whose plain version runs in a process of its own: phase
+# 2's gate at the long reads' pad (W 1,000; ~27 s) and phase 7's SW cases
+LONG_PLAINS = ("gate", *(f"sw{b}" for b in LONG_SW_BANDS))
+GATE_LONG = (64, 31_000)          # N, Lq of phase 2's longest gate case
+
+
+def long_gate_case():
+    """Phase 2's long-read gate case (N 64, Lq 31,000, Lt Lq + 72) from a
+    generator of its own (the plain version's process draws the same)."""
+    import numpy as np
+
+    n, lq = GATE_LONG
+    return myers_edges(np.random.default_rng(lq), n, lq, lq + 72)
+
+
+def long_plain(name: str, out: str) -> None:
+    """The plain version of one LONG_PLAINS case on the card: its outputs
+    (dist, tend; or score, qend, tend) and seconds into out (.npz)."""
+    import numpy as np
+    import torch
+
+    from hga_tpu_torch.ops import align as A
+    from hga_tpu_torch.ops import myers as M
+
+    case = long_gate_case() if name == "gate" else long_sw_case(
+        int(name[2:]))
+    args = to_dev(*case)
+    t0 = time.perf_counter()
+    if name == "gate":
+        r = M.myers_batch(*args)
+    else:
+        r = A.banded_sw_batch(*args, band=int(name[2:]))
+    torch.cuda.synchronize()
+    np.savez(out, seconds=time.perf_counter() - t0,
+             **{f: x.cpu().numpy() for f, x in r._asdict().items()})
+
+
+@contextlib.contextmanager
+def plain_procs(names):
+    """Start long_plain for each of `names` in a process of its own on the
+    card (one torch thread); yields {name: (process, .npz path)} and stops
+    whatever is still running on the way out."""
+    import subprocess
+
+    d = tempfile.mkdtemp(prefix="hga_plain_")
+    jobs = {}
+    try:
+        for name in names:
+            out = os.path.join(d, f"{name}.npz")
+            jobs[name] = (subprocess.Popen(
+                [sys.executable, "-c", "import chip_smoke as S; "
+                 f"S.long_plain({name!r}, {out!r})"], cwd=HERE,
+                env=dict(os.environ, OMP_NUM_THREADS="1")), out)
+        yield jobs
+    finally:
+        for p, _ in jobs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def plain_ref(jobs, name: str, kind):
+    """One LONG_PLAINS case's plain result (it waits for its process), as a
+    `kind` (MyersResult or SWResult) of CPU tensors, and its seconds."""
+    import numpy as np
+    import torch
+
+    p, out = jobs[name]
+    t0 = time.perf_counter()
+    if p.wait(timeout=900):
+        fail(f"the plain version of {name} failed in its process")
+    log(f"  waited {time.perf_counter() - t0:.1f} s for the plain version "
+        f"of {name} in its process")
+    z = np.load(out)
+    return kind(*(torch.from_numpy(z[f]) for f in kind._fields)), \
+        float(z["seconds"])
+
+
+def long_sw_pairs(rng, n, lq, lt, band):
+    """Planted pairs at a long query for few pairs: qlen 0, 1, Lq, ragged
+    qlen and tlen, -1 and 4 codes."""
+    q, t, ql, tl = planted_pairs(rng, n, lq, lt, lead=band // 2)
+    ql[:3] = [0, 1, lq]
+    ql[3] = lq // 3
+    tl[4:6] = [lt // 2, 1]
+    q[6, ::97], t[6, ::89] = -1, 4
+    return q, t, ql, tl
+
+
 def sw_cases(rng, A):
-    """K3', K3'' and K3 checks: the refine's forward and reverse shapes at
-    100 bp reads (Lq 112: K3', and K3'' forced on the same inputs) and at
-    300 bp reads (Lq 320: K3''), band >= Lq, Lq 1024 and 1100, band 960
-    (K3 with the device scratch), K3' at every slot count's edges (Lq 1 ..
-    256, and 257) at bands 0, 64, 128 and >= Lq, then K3'' at Lq 257, 320
-    and 1024 at the CPU emulator's bands and at K's edges (band + 1 = 32,
-    33, 64, 65, 256).  Each case: (label, q, t, qlen, tlen, band, and
-    whether K3'' also runs forced)."""
-    cases = [(*c, True) for c in refine_cases(rng, A, 4096, 112, 64)]
-    cases += [(*c, False) for c in refine_cases(rng, A, 4096, 320, 64)]
+    """K3', K3'', K3''' (and K3 forced) checks: the refine's forward and
+    reverse shapes at 100 bp reads (Lq 112: K3', and K3'' forced on the
+    same inputs) and at 300 bp reads (Lq 320: K3'', and K3''' forced), band
+    >= Lq, Lq 1024 and 1100, band 960 (K3''' on 4 warps a pair, and K3
+    forced with its device scratch), K3' at every slot count's edges (Lq 1
+    .. 256, and 257) at bands 0, 64, 128 and >= Lq, then K3'' at Lq 257,
+    320 and 1024 at the CPU emulator's bands and at K's edges (band + 1 =
+    32, 33, 64, 65, 256), then K3''' at Lq 31,000 (bands 64 and 128, N 8,
+    long_sw_case) and past its register slots (band 2500: its slots in
+    shared memory, and forced into the device scratch).  Each case: (label,
+    q, t, qlen, tlen, band, and the forced runs: (kind, kernel_operands'
+    options))."""
+    band = ("band", {})
+    cases = [(*c, (band,)) for c in refine_cases(rng, A, 4096, 112, 64)]
+    cases += [(*c, (("wide", {}),))
+              for c in refine_cases(rng, A, 4096, 320, 64)]
     sized = [(512, 40, 60, 200, "band >= Lq"),
              (256, 1024, 1100, 64, "Lq 1024"),
              (256, 1100, 1200, 64, "Lq 1100"),
-             (64, 1000, 1000, 960, "band 960 (device scratch)")]
+             (64, 1000, 1000, 960, "band 960")]
     sized += [(512, lq, lq + 72, b, f"Lq {lq}")
               for lq in (1, 31, 32, 33, 112, 128, 129, 256, 257)
               for b in (0, 64, 128, lq + 7)]
@@ -856,41 +1060,63 @@ def sw_cases(rng, A):
                                 (1024, (0, 1, 127, 128, 1031)))
               for b in bands]
     for n, lq, lt, b, label in sized:
+        forced = (("rows", {}),) if b == 960 or (b == lq + 7 and
+                                                  lq in (257, 320)) else ()
         cases.append((f"{label} (N {n}, Lq {lq}, Lt {lt}) band {b}",
-                      *sw_edges(rng, n, lq, lt, b), b, False))
+                      *sw_edges(rng, n, lq, lt, b), b, forced))
+    lq = LONG_SW_LQ
+    for b in LONG_SW_BANDS:
+        cases.append((f"Lq {lq} (N {LONG_SW_PAIRS}, Lt {lq + b + 8}) band "
+                      f"{b}", *long_sw_case(b), b, ()))
+    cases.append(("past the register slots (N 64, Lq 2600, Lt 2672) band "
+                  "2500", *sw_edges(rng, 64, 2600, 2672, 2500), 2500,
+                  (("wide", {"scratch": True}),)))
     return cases
 
 
-SW_KERNEL_NAME = {"diag": "K3'", "band": "K3''", "rows": "K3 (rows)"}
+SW_KERNEL_NAME = {"diag": "K3'", "band": "K3''", "wide": "K3'''",
+                  "rows": "K3 (rows)"}
 
 
-def phase_k3(rng, AC, A):
+def phase_k3(rng, AC, A, plains):
     """Every case through the wrapper, which picks the route by shape: the
-    route's counter must move; K3', K3'' and K3 are reported apart, and each
-    must have run."""
-    log("phase 7: K3', K3'' and K3 banded_sw_batch_cuda vs plain, bit-exact")
+    route's counter must move and K3's row counter stay 0 (no shape takes
+    it); K3', K3'', K3''' and the forced K3 are reported apart, and each
+    must have run.  The Lq 31,000 cases are held against the plain
+    version's processes (`plains`, plain_procs)."""
+    import torch
+
+    log("phase 7: K3', K3'', K3''' (and K3 forced) banded_sw_batch_cuda vs "
+        "plain, bit-exact")
     errs = {key: [] for key in AC.ROUTE_COUNTER.values()}
-    for label, q, t, ql, tl, band, force_band in sw_cases(rng, A):
+    rows = AC.ROUTE_COUNTER["rows"]
+    for label, q, t, ql, tl, band, forced in sw_cases(rng, A):
         args = to_dev(q, t, ql, tl)
         Lq, Lt = q.shape[1], t.shape[1]
         r = AC.route(Lq, Lt, band)
         key = AC.ROUTE_COUNTER[r.kind]
-        before = AC.LAUNCHES[key]
+        before = dict(AC.LAUNCHES)
         got = AC.banded_sw_batch_cuda(*args, band=band)
-        if AC.LAUNCHES[key] != before + 1:
-            fail(f"K3 {label}: the {r.kind} route was not launched")
-        ref = A.banded_sw_batch(*args, band=band)
-        runs = [(r.kind, tuple(got))]
-        if force_band:
-            br, *ops, outs = AC.kernel_operands(*args, band=band,
-                                                kind="band")
-            AC.run_kernel(br, *ops, outs)
-            runs.append(("band", outs))
-        for kind, res in runs:
+        if moved(before, AC.LAUNCHES) != {key: 1} or AC.LAUNCHES[rows]:
+            fail(f"K3 {label}: counters moved {moved(before, AC.LAUNCHES)}"
+                 f" on the {r.kind} route (the row counter must stay 0)")
+        if Lq == LONG_SW_LQ:
+            ref, sec = plain_ref(plains, f"sw{band}", A.SWResult)
+            label += f" (plain in its process, {sec:.1f} s)"
+        else:
+            ref = A.banded_sw_batch(*args, band=band)
+        runs = [(f"{SW_KERNEL_NAME[r.kind]} (K {r.K}, {r.nw} warps a "
+                 f"pair)", r.kind, tuple(got))]
+        for kind, kw in forced:
+            fr, *ops, outs = AC.kernel_operands(*args, band=band, kind=kind,
+                                                **kw)
+            AC.run_kernel(fr, *ops, outs)
+            runs.append((f"{SW_KERNEL_NAME[kind]} forced {kw or ''}", kind,
+                         outs))
+        for name, kind, res in runs:
             for f, x in zip(("score", "qend", "tend"), res):
                 errs[AC.ROUTE_COUNTER[kind]].append(
-                    eq(f"{SW_KERNEL_NAME[kind]} {label} {f}", x,
-                       getattr(ref, f)))
+                    eq(f"{name} {label} {f}", x, getattr(ref, f)))
         if int(ref.score.max()) <= 0:
             fail(f"K3 {label}: no positive score")
     for key, e in errs.items():
@@ -903,11 +1129,18 @@ _SIMULATED: dict = {}
 # phase 8's second drive: 300 bp short reads (Illumina MiSeq 2 x 300), whose
 # refine width (pad 320) takes K3'' (the band route), on a 100 kb genome
 MISEQ_GENOME = 100_000
+# phase 8's third drive: those reads at `--band 128`, whose reverse pass
+# (band 256) takes K3''' (the wide route); its card == CPU check on a P8_CUT
+# genome with short reads at E_CPU_COV (its CPU side, ~180 s at 30x on 3
+# threads, then held phase 5 up by ~80 s)
+P8_BAND = 128
+P8_CUT = 20_000
 # phase 8's first drive (config 3 with 100 bp reads) and phase 10's default
 # genome, cut from phase 4's 1 Mb so that the smoke stays near 950 s on a
-# slow host (PERF.md section 4)
-CONFIG3_GENOME = 500_000
-PHASE10_GENOME = 500_000
+# slow host (PERF.md section 4): 500 kb, 400 kb since phase 8's band-128
+# drive
+CONFIG3_GENOME = 400_000
+PHASE10_GENOME = 400_000
 # phase d's repeat genome (diag_repeat_corr, diag_leak, diag_polish_votes)
 # and count_scale's genome there (card against CPU), cut from 1 Mb so that
 # the phase stays near two minutes
@@ -1004,8 +1237,9 @@ def run_judged(label: str, genome_len: int, MC, workdir: str,
             fail(f"{name} was never launched on the main path")
     if k2v_launches(arb) <= 0:
         fail("K2' was never launched in the arbitrate stage")
-    if launches["myers_batch_planes_cuda"]:
-        fail("K2 (myers_batch_planes_cuda) ran on the main path, where K2' "
+    if launches["myers_batch_planes_cuda"] or \
+            launches["myers_batch_planes_cuda_wide"]:
+        fail("K2s (myers_batch_planes_cuda) ran on the main path, where K2' "
              "replaces it")
     metrics, warnings = SR.scale_metrics(res, genome, pr_s, pr_l, wall,
                                          genome_len / 1e6, repeats, circular)
@@ -1123,7 +1357,7 @@ _HYBRID = (_PIPE + ("arbitrated.fasta",),
 _SHORT = (_PIPE, ("spectrum.npz", "candidates.npz", "overlaps.npz"))
 _CROSS = (("overlaps.paf",), ("overlaps.npz",))
 TWINS = {"p5_hybrid": _HYBRID, "p5_config3": _CROSS,
-         "p5_config3_300": _CROSS, "p5_short": _SHORT,
+         "p5_config3_300": _CROSS, "p5_short": _SHORT, "p8_band128": _CROSS,
          "b_sw_correct": ((), ("corrected.npz",)), "b_sw_hybrid": _HYBRID,
          "e_hybrid": _HYBRID, "e_cross": _CROSS, "e_short": _SHORT,
          "e_short1024": _SHORT, "e_overlap_long": _CROSS,
@@ -1155,6 +1389,9 @@ def _twin_spec(name: str):
                            config3_cfg),
         "p5_short": ("short", lambda: simulate(8_000, seed=8),
                      short_only_cfg),
+        "p8_band128": ("cross", lambda: e_reads(P8_CUT, 300, 44,
+                                                short_cov=E_CPU_COV),
+                       lambda: config3_cfg().replace(band=P8_BAND)),
         "b_sw_correct": ("correct", lambda: simulate(8_000, seed=8), sw),
         "b_sw_hybrid": ("pipeline", lambda: simulate(20_000, seed=7), sw),
         "e_hybrid": ("pipeline", wide(780), judged_cfg),
@@ -1220,6 +1457,7 @@ def overlap_long(pr_l, d: str, device: str) -> int:
 
 
 P5_TWINS = ("p5_hybrid", "p5_config3", "p5_config3_300", "p5_short")
+P8_TWINS = ("p8_band128",)
 B_TWINS = ("b_sw_correct", "b_sw_hybrid")
 E_TWINS = ("e_hybrid", "e_cross", "e_short", "e_short1024",
            "e_overlap_long", "e_correct1120")
@@ -1227,7 +1465,7 @@ E_TWINS = ("e_hybrid", "e_cross", "e_short", "e_short1024",
 # plain SW refine at Lq 320 and the sw engine, ~110 s on one thread; the
 # plain K1' at the long reads' pad, W ~645; the plain K2' at W 37)
 TWIN_THREADS = {"p5_config3_300": 3, "b_sw_hybrid": 2, "e_overlap_long": 2,
-                "e_correct1120": 2}
+                "e_correct1120": 2, "p8_band128": 3}
 
 
 @contextlib.contextmanager
@@ -1307,10 +1545,21 @@ def phase_cpu_equal(workdir: str, MC, AC):
         _, launches = card_twin(name, workdir, MC, AC)
         if "config3" in name:
             pad = 320 if name.endswith("300") else 112
-            want = {AC.ROUTE_COUNTER[AC.route(pad, pad + cfg.band + 8,
-                                              cfg.band).kind]}
+            want = {AC.ROUTE_COUNTER[k]
+                    for k in config3_routes(AC, pad, cfg.band)}
             if {k for k in AC.LAUNCHES if launches[k]} != want:
                 fail(f"{name} (pad {pad}) launched {launches}, not {want}")
+
+
+def p8_band128_card(workdir: str, MC, AC):
+    """Phase 8's card == CPU check at --band 128, the card side: config 3
+    with 300 bp reads on a P8_CUT genome; K3'' (forward) and K3''' (the
+    reverse pass at band 256) must move, K3's rows stay 0.  main holds its
+    records against the CPU side's, which runs with the other twins."""
+    _, launches = card_twin("p8_band128", workdir, MC, AC)
+    want = {AC.ROUTE_COUNTER[k] for k in config3_routes(AC, 320, P8_BAND)}
+    if {k for k in AC.LAUNCHES if launches[k]} != want:
+        fail(f"p8_band128 launched {launches}, not {want}")
 
 
 # ---------------------------------------------------------------- phase e
@@ -2296,13 +2545,17 @@ def read_loci(names):
 
 
 def phase_config3(genome_len: int, MC, AC, read_len: int = 100,
-                  seed: int = 42):
+                  seed: int = 42, band: Optional[int] = None):
     """Judged config 3 on the card: short reads of the judged read model
     against its long reads, refine sw; precision against the truth loci.
-    The refine's width (the short reads' pad) picks the SW route: K3' at
-    100 bp reads (pad 112), K3'' at 300 bp reads (pad 320, forward band 64
-    and reverse band 128 both on it); the other routes' counters must stay
-    at 0.  The 100 bp drive counts a record right when
+    The refine's width (the short reads' pad) and band (`band`, as
+    `--band` sets it; the judged 64 by default) pick the SW routes of the
+    forward pass and of the reverse pass at twice the band: K3' at 100 bp
+    reads (pad 112), K3'' at 300 bp reads (pad 320, forward band 64 and
+    reverse band 128 both on it), K3'' forward and K3''' reverse at 300 bp
+    and band 128 (reverse band 256); those counters must move and the
+    others (K3's rows among them) stay at 0.  The 100 bp drive counts a
+    record right when
     the short read lies inside its long read's locus; at 300 bp about 5%
     of true overlaps hang off a long read's end (a read-length share of the
     ~8 kb long reads), so that drive counts a record right when the two
@@ -2316,13 +2569,11 @@ def phase_config3(genome_len: int, MC, AC, read_len: int = 100,
         f"{genome_len} bp genome, {read_len} bp short reads")
     t0 = time.perf_counter()
     _, pr_s, pr_l = simulate(genome_len, seed, read_len)
-    cfg = config3_cfg()
-    # the refine's widths: Lq = the pad, Lt = Lq + band + 8 (models/overlap)
-    route = AC.route(pr_s.pad_len, pr_s.pad_len + cfg.band + 8,
-                     cfg.band).kind
-    log(f"  {pr_s.n_reads} short (pad {pr_s.pad_len}: SW route {route}) + "
-        f"{pr_l.n_reads} long reads ({time.perf_counter() - t0:.1f} s to "
-        "simulate or reuse)")
+    cfg = config3_cfg() if band is None else config3_cfg().replace(band=band)
+    routes = config3_routes(AC, pr_s.pad_len, cfg.band)
+    log(f"  {pr_s.n_reads} short (pad {pr_s.pad_len}, band {cfg.band}: SW "
+        f"routes {sorted(routes)}) + {pr_l.n_reads} long reads "
+        f"({time.perf_counter() - t0:.1f} s to simulate or reuse)")
     MC.reset_launches()
     AC.reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -2331,13 +2582,13 @@ def phase_config3(genome_len: int, MC, AC, read_len: int = 100,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(MC.LAUNCHES, **AC.LAUNCHES)
-    for name in ("myers_batch_cuda", AC.ROUTE_COUNTER[route]):
+    for name in ("myers_batch_cuda", *(AC.ROUTE_COUNTER[r] for r in routes)):
         if launches[name] <= 0:
             fail(f"{name} was never launched on the config-3 path")
     for kind, name in AC.ROUTE_COUNTER.items():
-        if kind != route and launches[name]:
-            fail(f"{name} ran {launches[name]} times at the {route} route's "
-                 "width")
+        if kind not in routes and launches[name]:
+            fail(f"{name} ran {launches[name]} times at the {routes} routes' "
+                 "widths")
     if rec.n == 0:
         fail("config 3 found no overlap")
     s_start, s_strand, _ = read_loci(pr_s.names)
@@ -2349,7 +2600,7 @@ def phase_config3(genome_len: int, MC, AC, read_len: int = 100,
     touching = (np.minimum(a0 + pr_s.length[a], b0 + l_len[b])
                 - np.maximum(a0, b0)) > 0
     t = OV.LAST_TIMINGS
-    out = dict(genome_len=genome_len, read_len=read_len,
+    out = dict(genome_len=genome_len, read_len=read_len, band=cfg.band,
                n_short=pr_s.n_reads, n_long=pr_l.n_reads,
                candidates=t["gate_pairs"],
                survivors=t["refine_pairs"], records=rec.n,
@@ -2369,20 +2620,27 @@ def phase_config3(genome_len: int, MC, AC, read_len: int = 100,
     return launches, out
 
 
+def config3_routes(AC, pad: int, band: int) -> set:
+    """The SW routes of config 3's refine at a short-read pad: the forward
+    pass (Lq = pad, Lt = pad + band + 8, models/overlap) at `band`, the
+    reverse pass at 2 band."""
+    return {AC.route(pad, pad + band + 8, b).kind for b in (band, 2 * band)}
+
+
 def time_row(shape, wrapper, sets, kernel, kernel_sets, plain, cells, ops,
              nbytes, counters, plain_ms=None):
     """CUDA-event times of a wrapper and of its kernel alone (20 calls over
     distinct input sets, warm) and of the plain version (one call, or
     `plain_ms` where the caller timed that call), the bound from `ops`
     int32 operations and `nbytes` bytes and the kernel's share of it, GCUPS
-    on `cells`.  Launches made here are no path's: the counters are
+    on `cells` (no plain time where `plain` is None).  Launches made here are no path's: the counters are
     restored."""
     from hga_tpu_torch.utils import benchmarks as B
 
     before = [dict(c) for c in counters]
     ms = B.cuda_ms(wrapper, sets, 20)
     kern_ms = B.cuda_ms(kernel, kernel_sets, 20)
-    if plain_ms is None:
+    if plain_ms is None and plain is not None:
         plain_ms = one_call_ms(plain, sets[0])
     for c, b in zip(counters, before):
         c.update(b)
@@ -2659,15 +2917,20 @@ def phase_times(rng, MC, M, PU, genome_len: int):
         rows["myers_batch_cuda"][name] = gate_row(MC, M, [
             to_dev(*planted_pairs(rng, 4096, lq, lq + 72))
             for _ in range(4)])
+    # K2s at bench_corr_tb's shape (W 4) beside the forced K2 on the same
+    # inputs, at W 13, 26 and 34 (Lt = Lq + 72; no plain call: 0.7-1.3 s
+    # each on an H100, PERF.md), and on its wide route at W 100 (N 1,024:
+    # 2.6 GB of planes a call)
     sets = [to_dev(*planted_pairs(rng, 4096, 112, 184)) for _ in range(4)]
-    rows["myers_batch_planes_cuda"] = time_row(
-        dict(N=4096, Lq=112, Lt=184, W=4), MC.myers_batch_planes_cuda, sets,
-        MC.run_planes_kernel, [MC.planes_operands(*a) for a in sets],
-        M.myers_batch_planes, *myers_cost(4096, 112, 184, True),
-        [MC.LAUNCHES])
-    rows["myers_batch_planes_cuda"].update(
-        zip(("registers", "local_bytes"), MC.kernel_attrs(4, planes=True)),
-        blocks=-(-4096 // MC.THREADS))
+    rows["myers_batch_planes_cuda"] = planes_row(MC, M, sets)
+    rows["myers_batch_planes_cuda_thread"] = planes_row(MC, M, sets,
+                                                        thread=True)
+    for lq in (400, 800, 1024):
+        rows["myers_batch_planes_cuda"][f"W{M.n_words(lq)}"] = planes_row(
+            MC, M, [to_dev(*planted_pairs(rng, 4096, lq, lq + 72))
+                    for _ in range(4)], plain=False)
+    rows["myers_batch_planes_cuda_wide"] = planes_row(MC, M, [
+        to_dev(*planted_pairs(rng, 1024, 3100, 3172)) for _ in range(2)])
     rows["myers_votes_cuda"], split = votes_times(rng, MC, PU, CR)
     # copy arbitration's chunk batches: Lq 400 (W 13, 2 pairs a warp), Lt
     # 472, planted pairs at ~10% edits, unweighted (chunks carry no quality)
@@ -2690,6 +2953,39 @@ def phase_times(rng, MC, M, PU, genome_len: int):
         log(f"  {name}: {json.dumps(r)}")
     log(f"  correction batch (N 4096, Lq 112, Lt 184): {json.dumps(split)}")
     return rows, split
+
+
+def planes_row(MC, M, sets, thread: bool = False, plain: bool = True):
+    """K2s at one shape (or the forced K2 with `thread`, whose "ms" then
+    times its operand prep and launch, the work its wrapper did): wrapper
+    and kernel alone, bound (bytes: the planes), registers, blocks, the
+    plain version's time unless not `plain`; K2s beside K2's kernel alone
+    on the same inputs where K2 takes the W."""
+    from hga_tpu_torch.utils import benchmarks as B
+
+    N, Lq = sets[0][0].shape
+    Lt = sets[0][1].shape[1]
+    W = M.n_words(Lq)
+    kernel_sets = [MC.planes_operands(*a, thread=thread) for a in sets]
+    r = kernel_sets[0][0]
+    wrapper = MC.myers_batch_planes_cuda if not thread else \
+        (lambda *a: MC.run_planes_kernel(*MC.planes_operands(*a,
+                                                              thread=True)))
+    row = time_row(dict(N=N, Lq=Lq, Lt=Lt, W=W, G=r.G, wl=r.wl,
+                        ring=r.ring, forced=thread), wrapper, sets,
+                   MC.run_planes_kernel, kernel_sets,
+                   M.myers_batch_planes if plain else None,
+                   *myers_cost(N, Lq, Lt, True), [MC.LAUNCHES])
+    del kernel_sets
+    row.update(zip(("registers", "local_bytes"),
+                   MC.kernel_attrs(W, planes=True, thread=thread)),
+               blocks=-(-N // (MC.THREADS // r.G)), smem=r.smem)
+    if not thread and W <= MC.THREAD_MAX_WORDS:
+        row["thread_kernel_ms"] = B.cuda_ms(
+            MC.run_planes_kernel,
+            [MC.planes_operands(*a, thread=True) for a in sets[:2]], 20,
+            passes=3)
+    return row
 
 
 def votes_homes(rng, MC, PU):
@@ -2923,10 +3219,23 @@ def refine_sets(rng, A, N, Lq, band, n_sets=4):
     return (("forward", fwd, band), ("reverse", rev, 2 * band)), Lt
 
 
+def sw_cells_fast(A, qlen, tlen, band) -> int:
+    """A.sw_cells over the distinct (qlen, tlen) pairs, each weighted by
+    its count (one row each: the long-query sets would build (N, Lq)
+    arrays)."""
+    import numpy as np
+
+    pairs, counts = np.unique(np.stack([qlen, tlen], axis=1), axis=0,
+                              return_counts=True)
+    return sum(int(c) * A.sw_cells(p[:1], p[1:], band)
+               for p, c in zip(pairs, counts))
+
+
 def swept_slot_steps(r, sets, Lq, Lt, band):
-    """Slot-steps a K3' or K3'' launch sweeps, a set on average: 32 K per
-    anti-diagonal up to each pair's last in-band one (K3' from d = 2, K3''
-    in pairs of steps from d = 2 - (band & 1))."""
+    """Slot-steps a K3', K3'' or K3''' launch sweeps, a set on average: 32 K
+    (32 K nw; K3''' in memory band + 1) per anti-diagonal up to each pair's
+    last in-band one (K3' from d = 2, K3'' and K3''' with register slots in
+    pairs of steps from d = 2 - (band & 1), K3''' in memory from d = 2)."""
     import numpy as np
 
     band = min(band, max(Lq, Lt))
@@ -2934,27 +3243,34 @@ def swept_slot_steps(r, sets, Lq, Lt, band):
         np.int64)
     tl = np.minimum(np.concatenate([x[3] for x in sets]), Lt)
     dend = np.where(ql >= 1, ql + np.minimum(tl, ql + band), 1)
-    if r.kind == "diag":
+    if r.kind == "diag" or (r.kind == "wide" and r.K == 0):
         steps = (dend - 1).clip(min=0)
     else:
         d0 = 2 - (band & 1)
         steps = np.where(dend >= d0, 2 * ((dend - d0) // 2 + 1), 0)
-    return 32 * r.K * steps.sum() / len(sets)
+    slots = band + 1 if r.K == 0 else 32 * r.K * r.nw
+    return slots * steps.sum() / len(sets)
 
 
-def sw_row(AC, A, sets, band, kind=None):
+def sw_row(AC, A, sets, band, kind=None, beside=None, plain_ms=None):
     """One SW timing row: the wrapper and the kernel alone of the route the
-    shape takes, GCUPS on in-band cells, the bound; for K3' and K3'' the
-    share of the swept slot-steps in band; beside it the kernels of the
-    other routes on the same inputs (K3 always, K3'' beside K3').  With
-    `kind` ("rows"), the row is that route's, forced: "ms" then times its
-    operand prep and launch, the work the wrapper would do there."""
+    shape takes, GCUPS on in-band cells, the bound, registers and the warps
+    an SM holds; for K3', K3'' and K3''' the share of the swept slot-steps
+    in band; beside it the kernels of other routes on the same inputs
+    (`beside`, by default K3'' and K3 beside K3', K3''' and K3 beside
+    K3'', K3 beside K3''').  With `kind` ("rows" or "wide"), the row is
+    that route's, forced: "ms" then times its operand prep and launch, the
+    work the wrapper would do there.  `plain_ms`: the plain version's time
+    where the caller measured it (at a cut)."""
     from hga_tpu_torch.utils import benchmarks as B
 
     N, Lq = sets[0][0].shape
     Lt = sets[0][1].shape[1]
-    dev_sets = [to_dev(*x) for x in sets]
-    cells = sum(A.sw_cells(x[2], x[3], band) for x in sets) / len(sets)
+    dev_sets = [x if hasattr(x[0], "is_cuda") else to_dev(*x) for x in sets]
+    # the lengths on the host, for the cell and slot-step counts
+    sets = [(None, None, x[2].cpu().numpy(), x[3].cpu().numpy())
+            for x in dev_sets]
+    cells = sum(sw_cells_fast(A, x[2], x[3], band) for x in sets) / len(sets)
     kernel_sets = [AC.kernel_operands(*x, band=band, kind=kind)
                    for x in dev_sets]
     r = kernel_sets[0][0]
@@ -2969,15 +3285,18 @@ def sw_row(AC, A, sets, band, kind=None):
         wrapper, dev_sets, AC.run_kernel, kernel_sets,
         lambda *x: A.banded_sw_batch(*x, band=band), cells,
         cells * B.SW_OPS_PER_CELL, 4 * N * (Lq + Lt) + 8 * N + 12 * N,
-        [AC.LAUNCHES])
+        [AC.LAUNCHES], plain_ms=plain_ms)
     row.update(zip(("registers", "local_bytes"), AC.kernel_attrs(r)),
-               K=r.K, warps=r.warps, smem=r.smem)
-    row["blocks"] = -(-N // r.warps) if r.kind != "rows" else \
+               K=r.K, warps=r.warps, nw=r.nw, smem=r.smem,
+               warps_per_sm=AC.warps_per_sm(r))
+    row["blocks"] = -(-N // (r.warps // r.nw)) if r.kind != "rows" else \
         -(-N // AC.THREADS)
     if r.kind != "rows":
         row["in_band_share"] = cells / swept_slot_steps(r, sets, Lq, Lt,
                                                         band)
-        beside = ("band", "rows") if r.kind == "diag" else ("rows",)
+        if beside is None:
+            beside = {"diag": ("band", "rows"), "band": ("wide", "rows"),
+                      "wide": ("rows",)}[r.kind]
         for other in beside:
             # kernel alone of another route on the same inputs
             row[f"{other}_kernel_ms"] = B.cuda_ms(
@@ -2986,13 +3305,42 @@ def sw_row(AC, A, sets, band, kind=None):
     return row
 
 
+def long_sw_sets(seed, N, Lq, band, n_sets=2):
+    """Long-query SW operands in bulk, made on the card: random codes, each
+    query planted at band // 2 in its target with 5% substitutions, full
+    lengths, Lt = Lq + band + 8 (the refine's window)."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    Lt = Lq + band + 8
+    out = []
+    for _ in range(n_sets):
+        rnd = lambda hi, n: torch.randint(0, hi, (N, n), generator=g,
+                                          device="cuda", dtype=torch.int32)
+        q, t = rnd(4, Lq), rnd(4, Lt)
+        t[:, band // 2:band // 2 + Lq] = torch.where(rnd(20, Lq) == 0,
+                                                     (q + 1) % 4, q)
+        out.append((q, t, torch.full((N,), Lq, dtype=torch.int32,
+                                     device="cuda"),
+                    torch.full((N,), Lt, dtype=torch.int32, device="cuda")))
+    return out
+
+
 def phase_times_k3(rng, AC, A):
     """K3' at the 100 bp refine's shapes (Lq 112: forward band 64, reverse
     band 128) beside the K3'' and K3 kernels on the same inputs; K3'' at
-    the 300 bp refine's shapes (Lq 320) beside K3's kernel; K3's row,
-    forced at Lq 320 (no main path takes the row route now)."""
-    log("phase 6: K3', K3'' and K3 times (CUDA events, distinct inputs, "
-        "warm)")
+    the 300 bp refine's shapes (Lq 320) beside the K3''' and K3 kernels;
+    K3's row, forced at Lq 320 (no shape takes the row route); K3''' at
+    the 300 bp refine with --band 128 (the reverse pass at band 256 on
+    K3''', its forward pass at 128 on K3''), at band 960 (Lq 320, Lt 1288)
+    and at Lq 31,000 (bands 64 and 128, N 4096, its plain version timed at
+    a cut, N 8 and Lq LONG_SW_CUT), with no K3 beside them (K3 at band 960
+    took 65.98 ms on an H100, PERF.md; at Lq 31,000 it would take seconds
+    a launch), and forced onto the 300 bp refine's reverse shape at
+    band 128, beside K3'''s row there."""
+    log("phase 6: K3', K3'', K3''' and K3 times (CUDA events, distinct "
+        "inputs, warm)")
     rows = {}
     for key, Lq in (("banded_sw_batch_cuda", 112),
                     ("banded_sw_batch_cuda_band", 320)):
@@ -3003,12 +3351,26 @@ def phase_times_k3(rng, AC, A):
          for shape, sets, b in passes}
     rows["banded_sw_batch_cuda_rows"] = dict(r["forward"],
                                              reverse=r["reverse"])
+    rows["banded_sw_batch_cuda_band"]["reverse"]["wide_forced"] = sw_row(
+        AC, A, passes[1][1], passes[1][2], kind="wide", beside=())
+    b128, _ = refine_sets(rng, A, 4096, 320, P8_BAND)
+    r = {shape: sw_row(AC, A, sets, b) for shape, sets, b in b128}
+    wide = dict(r["reverse"], forward_band128=r["forward"])
+    wide["band960"] = sw_row(AC, A, [planted_pairs(rng, 4096, 320, 1288,
+                                                   lead=480)
+                                     for _ in range(4)], 960, beside=())
+    for b in LONG_SW_BANDS:
+        cut = to_dev(*long_sw_case(b, LONG_SW_CUT))
+        wide[f"Lq{LONG_SW_LQ}_band{b}"] = sw_row(
+            AC, A, long_sw_sets(b, 4096, LONG_SW_LQ, b), b, beside=(),
+            plain_ms=one_call_ms(lambda *a: A.banded_sw_batch(*a, band=b),
+                                 cut))
+        wide[f"Lq{LONG_SW_LQ}_band{b}"]["plain_cut"] = dict(
+            N=LONG_SW_PAIRS, Lq=LONG_SW_CUT)
+    rows["banded_sw_batch_cuda_wide"] = wide
     for key, row in rows.items():
         log(f"  {key}: {json.dumps(row)}")
     return rows
-
-
-SW_FIELDS = ("score", "qend", "tend")
 
 
 def x_checks(rng, VM, MM, SV, M, A):
@@ -3310,17 +3672,22 @@ def main() -> int:
             for n, p in libs.items()))
     report = ptxas_report("".join(str(b["ptxas"]) for b in built.values()))
     # K1': both designs to 24 words, the split design to 34, the wide
-    # route; K2; K2': 7 register instances on both homes, the wide route
+    # route; K2; K2s to 34 words and its wide route; K2': 7 register
+    # instances on both homes, the wide route; K3', K3'', K3''' (8 register
+    # instances, its slots in memory twice), K3 twice
     expect = ((2 * MC.SINGLE_MAX_WORDS - 1)
               + (MC.REGISTER_MAX_WORDS - MC.SINGLE_MAX_WORDS) + 1
-              + MC.PLANES_MAX_WORDS + 2 * 7 + 1 + len(AC.DIAG_SLOTS) + len(AC.BAND_SLOTS) + 2
-              + MM.MAX_WORDS + sum(len(k) for k in SV.BUILT.values())
+              + MC.THREAD_MAX_WORDS + MC.REGISTER_MAX_WORDS + 1 + 2 * 7 + 1
+              + len(AC.DIAG_SLOTS) + len(AC.BAND_SLOTS) + AC.WIDE_SLOTS + 2
+              + 2 + MM.MAX_WORDS + sum(len(k) for k in SV.BUILT.values())
               + len(VM.BUILT))
     log(f"  ptxas report: {len(report)} of {expect} kernel instantiations "
         "parsed")
     for kern, by in (("K1'", "W, lanes a pair"), ("K2", "W"),
+                     ("K2s", "W, lanes a pair (W0: the wide route)"),
                      ("K2'", "lanes a pair, words a lane, plane home"),
                      ("K3'", "slots a lane"), ("K3''", "slots a lane"),
+                     ("K3'''", "slots a lane, or slots in memory"),
                      ("K3", "buffer"), ("X1", "W"),
                      ("X2", "layout"), ("X3", "C, STEPS")):
         rows = [r for r in report if r[0] == kern]
@@ -3337,18 +3704,27 @@ def main() -> int:
     done("1")
     rng = np.random.default_rng(7)
     err = dict.fromkeys(KERNELS)     # None: the kernel's check did not run
-    if "2" in ph:
-        err.update(phase_k1(rng, MC, M))
-        err["myers_batch_cuda_shared"] = phase_k1_shared(rng, MC, M)
-        err["myers_batch_cuda_carry"] = phase_carry_wide(rng, MC, M)
-        done("2")
-    if "3" in ph:
-        err["myers_batch_planes_cuda"] = phase_k2(rng, MC, M, PU)
-        err.update(phase_k2v(rng, MC, PU))
-        done("3")
-    if "7" in ph:
-        err.update(phase_k3(rng, AC, A))
-        done("7")
+    # the plain version of phase 2's and 7's longest cases, in processes of
+    # their own on the card beside phases 2 and 3
+    with plain_procs(n for n in LONG_PLAINS
+                     if ("2" if n == "gate" else "7") in ph) as plains:
+        if "2" in ph:
+            err.update(phase_k1(rng, MC, M))
+            err["myers_batch_cuda_shared"] = phase_k1_shared(rng, MC, M)
+            err["myers_batch_cuda_carry"] = phase_carry_wide(rng, MC, M)
+            done("2")
+        if "3" in ph:
+            err.update(phase_k2(rng, MC, M, PU))
+            err.update(phase_k2v(rng, MC, PU))
+            done("3")
+        if "2" in ph:
+            err["myers_batch_cuda_wide"] = max(
+                err["myers_batch_cuda_wide"],
+                phase_gate_long(MC, M, plains))
+            done("2 (its longest gate case)")
+        if "7" in ph:
+            err.update(phase_k3(rng, AC, A, plains))
+            done("7")
     if "c" in ph:
         err["myers_batch_cuda_carry"] = max(
             phase_carry(rng, MC, M), err["myers_batch_cuda_carry"] or 0)
@@ -3374,6 +3750,10 @@ def main() -> int:
                 CONFIG3_GENOME, MC, AC)
             paths["phase 8 config 3, 300 bp reads"], _ = phase_config3(
                 MISEQ_GENOME, MC, AC, read_len=300, seed=44)
+            paths["phase 8 config 3, 300 bp reads, --band 128"], _ = \
+                phase_config3(MISEQ_GENOME, MC, AC, read_len=300, seed=44,
+                              band=P8_BAND)
+            p8_band128_card(workdir, MC, AC)
             done("8")
         if "a" in ph:
             paths.update(phase_genomes(args.phase10_len, kinds, MC,
@@ -3391,6 +3771,7 @@ def main() -> int:
         # own already) and phase 5's card side: no timed pipeline runs
         # beside them
         twins = (P5_TWINS if "5" in ph else ()) + \
+            (P8_TWINS if "8" in ph else ()) + \
             (B_TWINS if "b" in ph else ()) + (E_TWINS if "e" in ph else ())
         with cpu_twins(twins, workdir) as jobs:
             log(f"  started the CPU side of {len(jobs)} card == CPU runs")

@@ -5,7 +5,7 @@ Counterpart of exp/bench_corr_tb.py, on the same inputs: P pairs of random
 codes (``default_rng(0)``), Lq 112, band 64, target windows Wt = Lq + band
 + 8 = 184, votes into 64 backbones of Lpad 8192.  Three lines, as there:
 
-  dp_only        the planes DP alone: K2, ``myers_batch_planes_cuda``
+  dp_only        the planes DP alone: K2s, ``myers_batch_planes_cuda``
   fused_full_S   DP, gate, traceback and votes in one launch: K2',
                  ``myers_votes_cuda`` with max_steps None
   fused_bounded  K2' with the walk bounded at max_steps = Lq + 28 + 2
@@ -21,7 +21,7 @@ On those random inputs no pair passes the gate (a random 112-mer is far
 more than 28 edits from any window), so no walk runs.  ``run`` therefore
 also returns the vote buffer each way gives on planted pairs of the same
 shapes (each query a window of its target with 3% substitutions, every
-pair gated in): the K2 planes walked by the plain traceback
+pair gated in): the K2s planes walked by the plain traceback
 (``pileup.accumulate_backbone_votes_myers``) and the two K2' launches.
 The three must be equal less the buffer's last slot, the sink of dropped
 moves, which the plain traceback writes and K2' never does.

@@ -40,11 +40,22 @@ Counterpart of ``hga_tpu.ops.myers_pallas``:
   REGISTER_MAX_WORDS the wide route (``myers_votes_cuda_wide``), planes on
   the scratch.  A batch whose scratch passes ``VOTES_SCRATCH_BYTES`` runs
   in sub-batches, one launch each.
-* ``myers_batch_planes_cuda`` launches K2 (``csrc/myers.cu``
-  ``myers_kernel<W>``), the port of the public planes function
-  ``myers_batch_planes_pallas``: one thread per pair from query planes
-  (W, N) and transposed (Lt, N) targets that its wrapper prepares, planes
-  (Lt, N, W) written to device memory.  No main path runs it since K2'.
+* ``myers_batch_planes_cuda`` launches K2s (``csrc/myers.cu``
+  ``myers_planes_kernel<W, G>``), which replaces ``_myers_planes_kernel``
+  (hga_tpu/ops/myers_pallas.py:106) as the port of the public planes
+  function ``myers_batch_planes_pallas``: K1''s split DP (a pair on
+  group_width(W) lanes, the skewed schedule, Eq words built in the kernel
+  from the caller's (N, Lq) codes) with the Pv/Mv planes (Lt, N, W)
+  written to device memory, each warp's columns regrouped in a shared
+  ring so that a column's words of its pairs leave as one contiguous run.
+  Two routes by W (``planes_route``): the register route up to
+  REGISTER_MAX_WORDS, the wide route past it (counted apart,
+  ``myers_batch_planes_cuda_wide``).  The planes take 2 x Lt x N x W x 4
+  bytes; a batch whose planes device memory cannot hold raises with that
+  count.  Only exp/bench_corr_tb runs it.  K2 (``myers_kernel<W>``, one
+  thread a pair from query planes and transposed targets the wrapper
+  prepares, W 1-24) runs only when a timing comparison forces it
+  (``planes_operands(..., thread=True)``).
 
 What bounds them on an H100: about 20 int32 ALU operations per word, column
 and pair (integer throughput), plus about 40 a traceback step in K2'; K2
@@ -57,11 +68,9 @@ else.  On a CPU tensor it returns its plain version (ops/myers.py,
 ops/pileup.py) — only because the tensor lies on the CPU, which is how the
 CPU tests run the port.  On a CUDA tensor it launches its kernel or
 raises; there is no fallback from a CUDA tensor to the plain version.
-K1' and K2' take any number of query words; the only raise left is a K2'
-scratch that device memory cannot hold (torch's out-of-memory error, with
-its byte count).  K2
-takes 1-24 (``PLANES_MAX_WORDS``; only exp/bench_corr_tb runs it) and
-raises past it.
+K1', K2' and K2s take any number of query words; the only raises left are
+a K2' scratch or K2s planes that device memory cannot hold, with the byte
+count.
 
 The kernels are built at first use with nvcc (``-gencode
 arch=compute_90a,code=sm_90a``) from ``csrc/myers_gate.cu``,
@@ -95,11 +104,12 @@ LAUNCHES: Dict[str, int] = {"myers_batch_cuda": 0,
                             "myers_votes_cuda": 0,
                             "myers_votes_cuda_scratch": 0,
                             "myers_votes_cuda_wide": 0,
-                            "myers_batch_planes_cuda": 0}
+                            "myers_batch_planes_cuda": 0,
+                            "myers_batch_planes_cuda_wide": 0}
 
-THREADS = 128              # threads a block, K1' and K2
+THREADS = 128              # threads a block, K1', K2s and K2
 GATE_WARPS = THREADS // 32
-PLANES_MAX_WORDS = 24      # W K2 unrolls into one thread's registers
+THREAD_MAX_WORDS = 24      # W the forced K2 unrolls into one thread
 SINGLE_MAX_WORDS = 24      # W K1' takes at one thread a pair (G 1)
 # W K1' and K2' compile into registers (the register route: one word a
 # lane up to 32, two at 33-34); past it both take the wide route, W at run
@@ -148,7 +158,7 @@ def group_width(W: int) -> int:
 GATE_GROUP: Dict[int, int] = {W: group_width(W)
                               for W in range(1, REGISTER_MAX_WORDS + 1)}
 
-_LIB: Optional[ctypes.CDLL] = None        # K2 (csrc/myers.cu)
+_LIB: Optional[ctypes.CDLL] = None        # K2s and K2 (csrc/myers.cu)
 _GATE_LIB: Optional[ctypes.CDLL] = None   # K1' (csrc/myers_gate.cu)
 _VOTES_LIB: Optional[ctypes.CDLL] = None  # K2' (csrc/myers_votes.cu)
 _SMS: Dict[int, int] = {}                 # SMs by CUDA device index
@@ -168,6 +178,12 @@ def _lib() -> ctypes.CDLL:
         lib.hga_myers_launch.restype = ci
         lib.hga_myers_attrs.argtypes = [ci] + [ctypes.POINTER(ci)] * 2
         lib.hga_myers_attrs.restype = ci
+        lib.hga_myers_planes_launch.argtypes = ([vp] * 4 + [ci] * 6 + [vp]
+                                                + [ci] + [vp] * 5)
+        lib.hga_myers_planes_launch.restype = ci
+        lib.hga_myers_planes_attrs.argtypes = [ci] * 2 + \
+            [ctypes.POINTER(ci)] * 2
+        lib.hga_myers_planes_attrs.restype = ci
         _LIB = lib
     return _LIB
 
@@ -217,18 +233,22 @@ def _sms(dev: torch.device) -> int:
 
 
 def kernel_attrs(W: int, planes: bool = False, group: Optional[int] = None,
-                 wide: bool = False, windows: bool = False
-                 ) -> Tuple[int, int]:
+                 wide: bool = False, windows: bool = False,
+                 thread: bool = False) -> Tuple[int, int]:
     """(registers per thread, local bytes per thread) of one instantiation:
-    K2 at W, or K1' at W with `group` lanes a pair (GATE_GROUP's choice by
-    default), on the wide route past REGISTER_MAX_WORDS or when `wide`,
-    with target windows (S > 1) when `windows`."""
+    K2s at W with `planes` (K2 with `thread`), or K1' at W with `group`
+    lanes a pair (GATE_GROUP's choice by default); K1' and K2s on the wide
+    route past REGISTER_MAX_WORDS or when `wide`, K1' with target windows
+    (S > 1) when `windows`."""
     regs, local = ctypes.c_int(), ctypes.c_int()
-    if planes:
+    wl = wide_words(W) if wide or W > REGISTER_MAX_WORDS else 0
+    if planes and thread:
         err = _lib().hga_myers_attrs(W, ctypes.byref(regs),
                                      ctypes.byref(local))
+    elif planes:
+        err = _lib().hga_myers_planes_attrs(W, wl, ctypes.byref(regs),
+                                            ctypes.byref(local))
     else:
-        wl = wide_words(W) if wide or W > REGISTER_MAX_WORDS else 0
         G = 32 if wl else group or GATE_GROUP[W]
         err = _gate_lib().hga_myers_gate_attrs(
             W, G, wl, int(windows), ctypes.byref(regs), ctypes.byref(local))
@@ -413,36 +433,123 @@ def gate_counter(r: GateRoute, shared: bool) -> str:
     return "myers_batch_cuda_wide" if r.wl else "myers_batch_cuda"
 
 
-def planes_operands(q, t, qlen, tlen):
-    """K2's device operands for one batch: transposed query planes (W, N),
-    transposed targets (Lt, N), lengths, and fresh outputs (dist, tend and
-    the (Lt, N, W) Pv/Mv planes)."""
+class PlanesRoute(NamedTuple):
+    W: int          # query words
+    G: int          # lanes a pair (group_width(W); 1 for K2)
+    wl: int         # words a lane on the wide route; 0 the register route
+    smem: int       # dynamic shared memory a block: the wide route's words
+                    # (unless `words`) and rings (if `ring`)
+    words: bool     # the wide route's words in a device scratch
+    ring: bool      # columns regrouped in a shared ring (always on the
+                    # register route)
+    thread: bool = False    # K2, one thread a pair (forced only)
+
+
+def planes_route(Lq: int, words_scratch: bool = False,
+                 thread: bool = False) -> PlanesRoute:
+    """K2s's geometry at one shape: the register route up to
+    REGISTER_MAX_WORDS (rings in static shared memory), the wide route past
+    it: 4 warps' words (5 x wl x 32 uint32 a warp) and rings
+    (2 x A x W uint32 a warp, A = ceil(W / wl)) in dynamic shared memory
+    where both fit GATE_WIDE_SMEM; else the words in a device scratch
+    (also with `words_scratch`) and the rings alone where they fit; else no
+    ring (each lane stores its own words).  `thread` names K2, which timing
+    comparisons force, at W <= THREAD_MAX_WORDS."""
+    W = n_words(Lq)
+    if thread:
+        if W > THREAD_MAX_WORDS:
+            raise ValueError(f"K2 (one thread a pair) takes at most "
+                             f"{THREAD_MAX_WORDS} query words, got W={W}")
+        return PlanesRoute(W, 1, 0, 0, False, False, True)
+    if W <= REGISTER_MAX_WORDS:
+        return PlanesRoute(W, group_width(W), 0, 0, False, True)
+    wl = wide_words(W)
+    words = GATE_WARPS * WORD_PLANES * wl * 32 * 4
+    rings = GATE_WARPS * 2 * -(-W // wl) * W * 4
+    if not words_scratch and words + rings <= GATE_WIDE_SMEM:
+        return PlanesRoute(W, 32, wl, words + rings, False, True)
+    if rings <= GATE_WIDE_SMEM:
+        return PlanesRoute(W, 32, wl, rings, True, True)
+    if not words_scratch and words <= GATE_WIDE_SMEM:
+        return PlanesRoute(W, 32, wl, words, False, False)
+    return PlanesRoute(W, 32, wl, 0, True, False)
+
+
+def planes_counter(r: PlanesRoute) -> str:
+    return "myers_batch_planes_cuda_wide" if r.wl else \
+        "myers_batch_planes_cuda"
+
+
+def planes_bytes(N: int, W: int, Lt: int) -> int:
+    """Bytes of one batch's Pv and Mv planes, int32 (Lt, N, W) each."""
+    return 2 * Lt * N * W * 4
+
+
+def planes_alloc(N: int, W: int, Lt: int, dev: torch.device):
+    """The Pv and Mv planes, int32 (Lt, N, W) each.  Where device memory
+    cannot hold them it raises with their byte count (the caller's batch
+    is not cut silently); it asks the device nothing before allocating, so
+    a batch that fits pays no query."""
+    try:
+        return [torch.empty((Lt, N, W), dtype=torch.int32, device=dev)
+                for _ in range(2)]
+    except torch.OutOfMemoryError as e:
+        raise ValueError(f"the Pv/Mv planes of this batch need "
+                         f"{planes_bytes(N, W, Lt):,} bytes of device "
+                         "memory, more than is free; run the batch in "
+                         "parts") from e
+
+
+def planes_operands(q, t, qlen, tlen, words_scratch: bool = False,
+                    thread: bool = False):
+    """The planes kernel's launch for one batch: the route (planes_route:
+    K2s by W, the wide route's words in their scratch with
+    `words_scratch`, or K2 with `thread`, which tests and timing
+    comparisons force), the inputs (the caller's
+    codes and lengths and the wide route's word scratch or None; for K2 the
+    transposed query planes (W, N) and targets (Lt, N) it reads) and fresh
+    outputs (dist, tend and the (Lt, N, W) Pv/Mv planes, planes_alloc)."""
     N, W, Lt = _check(q, t, qlen, tlen)
-    if W > PLANES_MAX_WORDS:
-        raise ValueError(f"K2 takes at most {PLANES_MAX_WORDS} query words, "
-                         f"got W={W}")
+    r = planes_route(q.shape[1], words_scratch, thread)
     dev = q.device
-    qp = tuple(x.t().contiguous() for x in query_planes(q, qlen, W))
     outs = [torch.empty(N, dtype=torch.int32, device=dev) for _ in range(2)]
-    outs += [torch.empty((Lt, N, W), dtype=torch.int32, device=dev)
-             for _ in range(2)]
-    return qp, t.t().contiguous(), qlen, tlen, outs
+    outs += planes_alloc(N, W, Lt, dev)
+    if r.thread:
+        qp = tuple(x.t().contiguous() for x in query_planes(q, qlen, W))
+        return r, (qp, t.t().contiguous(), qlen, tlen), outs
+    words = None
+    if r.words:
+        words = torch.empty(-(-N // GATE_WARPS) * GATE_WARPS * WORD_PLANES
+                            * r.wl * 32, dtype=torch.int32, device=dev)
+    return r, (q, t, qlen, tlen, words), outs
 
 
-def run_planes_kernel(qp, tT, qlen, tlen, outs) -> None:
-    """Launch K2 on the current stream."""
-    (q0, q1, vq, mend), (dist, tend, pvp, mvp) = qp, outs
-    W, N = q0.shape
-    Lt = tT.shape[0]
-    with torch.cuda.device(q0.device):
-        stream = torch.cuda.current_stream(q0.device).cuda_stream
-        err = _lib().hga_myers_launch(
-            q0.data_ptr(), q1.data_ptr(), vq.data_ptr(), mend.data_ptr(),
-            tT.data_ptr(), qlen.data_ptr(), tlen.data_ptr(), N, Lt, W,
-            dist.data_ptr(), tend.data_ptr(), pvp.data_ptr(), mvp.data_ptr(),
-            stream)
+def run_planes_kernel(r: PlanesRoute, ins, outs) -> None:
+    """Launch K2s (or the forced K2) on the current stream (operands as
+    planes_operands returns them)."""
+    dist, tend, pvp, mvp = outs
+    N = dist.shape[0]
+    with torch.cuda.device(dist.device):
+        stream = torch.cuda.current_stream(dist.device).cuda_stream
+        if r.thread:
+            (q0, q1, vq, mend), tT, qlen, tlen = ins
+            err = _lib().hga_myers_launch(
+                q0.data_ptr(), q1.data_ptr(), vq.data_ptr(), mend.data_ptr(),
+                tT.data_ptr(), qlen.data_ptr(), tlen.data_ptr(), N,
+                tT.shape[0], r.W, dist.data_ptr(), tend.data_ptr(),
+                pvp.data_ptr(), mvp.data_ptr(), stream)
+        else:
+            q, t, qlen, tlen, words = ins
+            ring = int(r.ring and r.wl > 0)    # the wide route's flag
+            err = _lib().hga_myers_planes_launch(
+                q.data_ptr(), t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(),
+                N, q.shape[1], t.shape[1], r.W, r.wl, ring,
+                None if words is None else words.data_ptr(), r.smem,
+                dist.data_ptr(), tend.data_ptr(), pvp.data_ptr(),
+                mvp.data_ptr(), stream)
     if err:
-        raise RuntimeError(f"myers kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"myers planes kernel launch failed: CUDA error "
+                           f"{err}")
 
 
 def myers_batch_cuda(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
@@ -520,16 +627,16 @@ def myers_cols_cuda(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
 
 def myers_batch_planes_cuda(q: torch.Tensor, t: torch.Tensor,
                             qlen: torch.Tensor, tlen: torch.Tensor):
-    """K2: myers_batch_cuda + per-column Pv/Mv planes int32 (Lt, N, W);
-    bit-exact with ops.myers.myers_batch_planes (CPU tensors: the plain
-    version)."""
+    """K2s: myers_batch_cuda + per-column Pv/Mv planes int32 (Lt, N, W) at
+    any W; bit-exact with ops.myers.myers_batch_planes (CPU tensors: the
+    plain version)."""
     _check(q, t, qlen, tlen)
     if not q.is_cuda:
         return myers_batch_planes(q, t, qlen, tlen)
-    qp, tT, qlen, tlen, outs = planes_operands(q, t, qlen, tlen)
+    r, ins, outs = planes_operands(q, t, qlen, tlen)
     if q.shape[0]:
-        run_planes_kernel(qp, tT, qlen, tlen, outs)
-        LAUNCHES["myers_batch_planes_cuda"] += 1
+        run_planes_kernel(r, ins, outs)
+        LAUNCHES[planes_counter(r)] += 1
     return MyersResult(dist=outs[0], tend=outs[1]), outs[2], outs[3]
 
 

@@ -150,14 +150,18 @@ def test_wrappers_reject_bad_operands():
         TMC.myers_batch_planes_cuda(q, t[:10], ql, tl)
     with pytest.raises(ValueError):
         TMC.myers_batch_cuda(q[:, ::2], t, ql, tl)
-    # K2 refuses the shape past its word cap (a CUDA batch then raises; CPU
-    # tensors take the plain version); K1' takes W 35 on its wide route
+    # K2s and K1' take every W (K2s at W 25 on 32 lanes, W 35 on both wide
+    # routes); only the forced one-thread K2 refuses past 24 words
     w35, w25 = (torch.zeros((4, W * 31), dtype=torch.int32)
                 for W in (35, 25))
     r = TMC.kernel_operands(w35, w35, ql[:4], tl[:4])[4]
     assert (r.W, r.G, r.wl, r.S) == (35, 32, 2, 1)
+    assert TMC.planes_operands(w25, w25, ql[:4], tl[:4])[0][:3] == \
+        (25, 32, 0)
+    assert TMC.planes_operands(w35, w35, ql[:4], tl[:4])[0][:3] == \
+        (35, 32, 2)
     with pytest.raises(ValueError, match="at most 24 query words"):
-        TMC.planes_operands(w25, w25, ql[:4], tl[:4])
+        TMC.planes_operands(w25, w25, ql[:4], tl[:4], thread=True)
     with pytest.raises(ValueError, match="lanes"):       # G 1 stops at W 24
         TMC.kernel_operands(w25, w25, ql[:4], tl[:4], group=1)
     with pytest.raises(ValueError, match="lanes"):       # the wide route: 32
@@ -179,11 +183,13 @@ def test_cuda_kernels_match_plain(cuda):
 
 
 def test_word_caps_by_kernel():
-    """K1' and K2' take every W (the register route up to 34, the wide route
-    past it: one pair a warp, ceil(W / 32) words a lane), K2 takes 1-24:
-    each operand function accepts W up to its kernel's cap and refuses past
-    it, by shape alone; no plain route is counted."""
-    assert TMC.REGISTER_MAX_WORDS == 34 and TMC.PLANES_MAX_WORDS == 24
+    """K1', K2' and K2s take every W (the register route up to 34, the wide
+    route past it: one pair a warp, ceil(W / 32) words a lane); the forced
+    one-thread K2 takes 1-24: each operand function accepts every W on its
+    route by shape alone, K2 refuses past its own; no plain route is
+    counted."""
+    assert TMC.REGISTER_MAX_WORDS == 34 and TMC.THREAD_MAX_WORDS == 24
+    assert not hasattr(TMC, "PLANES_MAX_WORDS")
     one = torch.ones(1, dtype=torch.int32)
     merged = torch.zeros(2, dtype=torch.int32)
     for W in range(1, 40):
@@ -195,8 +201,11 @@ def test_word_caps_by_kernel():
                  None),
                 ("K1' carried state", lambda: TMC.carry_operands(
                     q, q, one, one, TM.myers_init_state(one, W))[4], None),
-                ("K2", lambda: TMC.planes_operands(q, q, one, one),
-                 TMC.PLANES_MAX_WORDS),
+                ("K2s", lambda: TMC.planes_operands(q, q, one, one)[0],
+                 None),
+                ("K2", lambda: TMC.planes_operands(q, q, one, one,
+                                                   thread=True),
+                 TMC.THREAD_MAX_WORDS),
                 ("K2'", lambda: TMC.votes_operands(
                     merged, q, q, one, one, one, one, one, min_identity=0.75,
                     size_v=0, lpad=0)[0], None)):
@@ -212,7 +221,8 @@ def test_word_caps_by_kernel():
         "myers_batch_cuda", "myers_batch_cuda_wide",
         "myers_batch_cuda_shared", "myers_batch_cuda_carry",
         "myers_votes_cuda", "myers_votes_cuda_scratch",
-        "myers_votes_cuda_wide", "myers_batch_planes_cuda"])
+        "myers_votes_cuda_wide", "myers_batch_planes_cuda",
+        "myers_batch_planes_cuda_wide"])
     # W 17-34 run on a warp's 32 lanes a pair: one word a lane up to W 32,
     # two at W 33-34; W 25-34 in the split design alone, the wide route
     # past 34 (32 lanes, its counter apart)

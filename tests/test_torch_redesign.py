@@ -334,8 +334,8 @@ def test_sw_plain_matches_jax_at_slot_boundaries(Lq, band):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
                                       np.asarray(getattr(ref, f)), err_msg=f)
     # the route the card takes at this shape: K3'' above Lq 256 while the
-    # clamped band + 1 <= 256, K3 past that (Lq 257, band >= Lq)
-    wide = "band" if min(band, max(Lq, Lt)) < 256 else "rows"
+    # clamped band + 1 <= 256, K3''' past that (Lq 257, band >= Lq)
+    wide = "band" if min(band, max(Lq, Lt)) < 256 else "wide"
     assert TAC.route(Lq, Lt, band).kind == ("diag" if Lq <= 256 else wide)
 
 
@@ -354,15 +354,17 @@ def test_sw_routes_and_geometry():
     assert TAC.route(100, 57000, 64)[:3] == ("diag", 4, 1)
     assert TAC.route(100, 58000, 64)[:2] == ("band", 3)
     # Lq above 256 takes the band route up to a clamped band of 255, then
-    # the row route, its buffer in shared memory up to band 907, then the
-    # device scratch
+    # K3''' (two warps a pair at band 256); the forced row route keeps its
+    # buffer in shared memory up to band 907, then the device scratch
     assert TAC.route(257, 300, 64)[:2] == ("band", 3)
-    assert TAC.route(257, 300, 256) == TAC.Route("rows", 0, 0,
-                                                 (2 * 256 + 2) * 32 * 4,
-                                                 False)
-    assert TAC.route(1000, 1000, 907).scratch is False
-    assert TAC.route(1000, 1000, 908).scratch is True
-    assert TAC.route(300, 200, 5000).smem == (2 * 300 + 2) * 32 * 4
+    assert TAC.route(257, 300, 256) == TAC.Route("wide", 5, 2, 3600, False,
+                                                 2)
+    assert TAC.rows_route(257, 300, 256) == TAC.Route(
+        "rows", 0, 0, (2 * 256 + 2) * 32 * 4, False)
+    assert TAC.rows_route(1000, 1000, 907).scratch is False
+    assert TAC.rows_route(1000, 1000, 908).scratch is True
+    assert TAC.rows_route(300, 200, 5000).smem == (2 * 300 + 2) * 32 * 4
+    assert TAC.route(300, 200, 5000)[:2] == ("wide", 5)
     q = torch.zeros((4, 112), dtype=torch.int32)
     t = torch.zeros((4, 184), dtype=torch.int32)
     n = torch.ones(4, dtype=torch.int32)
@@ -372,6 +374,7 @@ def test_sw_routes_and_geometry():
     assert r.kind == "rows" and qa.shape == (112, 4) and ta.shape == (184, 4)
     assert TAC.ROUTE_COUNTER == {"diag": "banded_sw_batch_cuda",
                                  "band": "banded_sw_batch_cuda_band",
+                                 "wide": "banded_sw_batch_cuda_wide",
                                  "rows": "banded_sw_batch_cuda_rows"}
     assert set(TAC.LAUNCHES) == set(TAC.ROUTE_COUNTER.values())
 

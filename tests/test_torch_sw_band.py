@@ -282,13 +282,15 @@ def test_sw_routes_three_kinds():
     # Lq <= 256 with a target past the diag route's windows: the band
     # route's windows do not grow with the target
     assert TAC.route(100, 58000, 64)[:3] == ("band", 3, 4)
-    # K3 keeps a clamped band above 255 (above Lq 256 the clamp is >= 257)
-    # and queries past the band route's windows
-    assert TAC.route(257, 200, 5000)[:2] == ("rows", 0)
-    assert TAC.route(257, 300, 256) == TAC.rows_route(257, 300, 256)
-    assert TAC.route(1000, 1000, 960).scratch is True
+    # K3''' takes a clamped band above 255 (above Lq 256 the clamp is
+    # >= 257) and queries past the band route's windows; K3's row route
+    # takes no shape (it is forced only)
+    assert TAC.route(257, 200, 5000)[:2] == ("wide", 5)
+    assert TAC.route(257, 300, 256) == TAC.wide_route(257, 300, 256)
+    assert TAC.route(1000, 1000, 960)[:2] == ("wide", 8)
     assert TAC.route(28000, 28100, 64)[:3] == ("band", 3, 1)
-    assert TAC.route(30000, 30100, 64).kind == "rows"
+    assert TAC.route(30000, 30100, 64)[:3] == ("wide", 3, 4)
+    assert TAC.rows_route(1000, 1000, 960).scratch is True
     assert TAC.ROUTE_COUNTER["band"] == "banded_sw_batch_cuda_band"
     assert set(TAC.LAUNCHES) == set(TAC.ROUTE_COUNTER.values())
 

@@ -559,7 +559,8 @@ def test_votes_routes_and_banks():
                                  "myers_batch_cuda_carry", "myers_votes_cuda",
                                  "myers_votes_cuda_scratch",
                                  "myers_votes_cuda_wide",
-                                 "myers_batch_planes_cuda"}
+                                 "myers_batch_planes_cuda",
+                                 "myers_batch_planes_cuda_wide"}
     # at W 1, 2 and 4 the DP's 64-bit plane stores of a half-warp (the
     # lanes a shared-memory access serves together) hit distinct banks
     for Lq in (31, 62, 112):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke for the PyTorch/CUDA port (hga_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                     # every phase, 1 Mb genome
+    python3 chip_smoke.py                     # every phase, 500 kb genome
     python3 chip_smoke.py --genome-len 4600000 --phase10-len 4600000 \
         --phases 014a --phase10 repeats,circular,repeats+circular
                                               # the judged quality rows
@@ -106,12 +106,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
      then those reads at --band 128, whose reverse pass (band 256) takes
      K3''' (K3'' and K3''' move, K3's rows stay 0), and on a 20 kb genome
      on cuda and on cpu, the records byte-identical
-  9. the measurement path: X1 (exp/myers_micro run_b), X2 (exp/sw_variants
-     v1, v2, v3) and X3 (exp/vpu_micro) == their plain versions, bit-exact;
-     then the three harnesses' main() as a user runs them (their counters
-     must move), the SASS add/max count of X3 and the DPX instructions of
-     X2, and `hga-torch bench --what sw|myers|count|pipeline --pairs 8192`
-     through cli.main (the K1' and K3' counters must move)
+  9. the measurement path: X1 (exp/myers_micro run_b) at the harness's
+     shapes and at W 1, 5, 13, 25, 34, 100 (four words a lane) and 300
+     (the words in the device scratch) with ragged lengths, partial blocks
+     and slabs, at two (S, BLK); X2 (exp/sw_variants v1, v2, v3, v3g2) at
+     check()'s shape, the refine's, band >= Lq (the query layout), and past
+     the old caps, Lq 1,000 at band 64 and Lq 320 at band 300 (v3g8 and
+     v3g64 too: the slots in memory); X3 (exp/vpu_micro): each == its
+     plain version, bit-exact; then the three harnesses' main() as a user
+     runs them (their counters must move), the SASS add/max count of X3
+     and X2's instruction mix by route, and `hga-torch bench --what
+     sw|myers|count|pipeline --pairs 8192` through cli.main (the K1' and
+     K3' counters must move); then the X rows' times, X1 also at W 1, 13,
+     34, 100, S 1 and 2 and N 8192 beside K1', X2 also at Lq 1,000 and Lq
+     320 at band 300 beside K3's route
   a. (phase 10) the pipeline on a repeat-bearing genome (sim.repeat_genome)
      with circular reads, through hga_tpu_torch.exp.scale_run as its
      --repeats --circular runs it: contigs, circular contigs, k-mer
@@ -186,15 +194,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 Phase 5 also runs config 3 (100 bp and 300 bp reads) and the
 short-read-only pipeline (8 kb genome) on cuda and on cpu, byte-identical.
 Phases run in the order 0 1 2 3 7 c(kernel) 4 8 a c b d 5 e 6 9 (phases c
-and d run phase 4 when it is not asked for).  The CPU side of the card ==
-CPU runs of phases 5, b and e runs in processes of its own (TWIN_THREADS),
-started after phase b, beside phase d and phase 5's card side; phase e
-starts once they have all ended, so no timed pipeline but phase d's
-scripts (which run beside processes of their own anyway) shares the host
-with them.  Phase 6 also times K2' at the arbitration shape, K1''s
-shared-target mode at segment_identity's shape and its carried-state mode
-at the ring's step shape on 2 ranks, each at its windows by shape, at
-twice as many and at one window (the single sweep).
+and d run phase 4 when it is not asked for; phase c's CLI runs beside
+phases b and d).  The CPU side of the card == CPU runs of phases 5, 8, b
+and e runs in processes of its own (TWIN_THREADS) at the lowest priority
+(nice 19) on 3/8 of the CPUs, started after phase 1, beside the phases on
+the card until it ends; phase 5 and phase e hold their runs against them.
+Each line of the log starts with the seconds since the script started.
+Phase 6 also times K2' at the arbitration shape, K1''s shared-target mode
+at segment_identity's shape and its carried-state mode at the ring's step
+shape on 2 ranks, each at its windows by shape, at twice as many and at
+one window (the single sweep).
 
 The last three lines of standard output are the `kernels` JSON line, the
 card's `name, power.limit`, and {"ok": true, "device": {...}}.
@@ -203,10 +212,12 @@ card's `name, power.limit`, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import sys
 import tempfile
@@ -259,8 +270,13 @@ KERNELS = {
 }
 
 
+_T0 = time.perf_counter()
+_T0_WALL = time.time()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line of the smoke's log, after the seconds since it started."""
+    print(f"{time.perf_counter() - _T0:7.1f} {msg}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -283,10 +299,10 @@ _PTXAS_ENTRY = (
      lambda g: "mem_scratch" if g[0] == "1" else "mem_smem"),
     ("K3", r"sw_kernelILb([01])E",
      lambda g: "smem" if g[0] == "1" else "scratch"),
-    ("X1", r"myers_slab_kernelILi(\d+)E", lambda g: int(g[0])),
-    ("X2", r"swv_kernelILb([01])ELi(\d+)ELi(\d+)ELi(\d+)E",
-     lambda g: (f"{'v2' if g[0] == '1' else 'i32'}K{g[1]}G{g[2]}"
-                f"f{g[3]}")),
+    ("X1", r"myers_slab_kernelILi(\d+)E", lambda g: f"WL{g[0]}"),
+    ("X2", r"swv_kernelILi(\d+)ELi(\d+)E", lambda g: f"K{g[0]}f{g[1]}"),
+    ("X2", r"swv_packed_kernelILi(\d+)E", lambda g: f"v2H{g[0]}"),
+    ("X2", r"swv_mem_kernel", lambda g: "memory"),
     ("X3", r"vpu_kernelILi(\d+)ELi(\d+)E", lambda g: f"C{g[0]}S{g[1]}"),
 )
 
@@ -296,8 +312,10 @@ def ptxas_report(text: str):
     bytes)) per instantiation, from nvcc's -Xptxas -v report: K1' by W and
     lanes a pair, K2 by W, K2s by W and lanes a pair, K2' by lanes a pair,
     words a lane and plane home, K3', K3'' and K3''' by slots a lane (and
-    K3''''s slots in memory), K3 by buffer kind, X1 by W, X2 by layout, K,
-    G and ablation flags, X3 by C and STEPS."""
+    K3''''s slots in memory), K3 by buffer kind, X1 by words a lane (WL0:
+    the words in the device scratch), X2 by route (int32 K slots a lane and
+    ablation flags, v2's H packed words a lane, the slots in memory), X3 by
+    C and STEPS."""
     import re
 
     rows, cur = [], None
@@ -1135,12 +1153,16 @@ MISEQ_GENOME = 100_000
 # threads, then held phase 5 up by ~80 s)
 P8_BAND = 128
 P8_CUT = 20_000
+# phase 4's genome, whose reads and run phases b, c and d reuse, near the
+# smallest genomes of free-living bacteria (Mycoplasma genitalium, 580 kb);
 # phase 8's first drive (config 3 with 100 bp reads) and phase 10's default
-# genome, cut from phase 4's 1 Mb so that the smoke stays near 950 s on a
-# slow host (PERF.md section 4): 500 kb, 400 kb since phase 8's band-128
-# drive
-CONFIG3_GENOME = 400_000
+# genome.  Each cut from 1 Mb so that the smoke ends well inside its 1,200 s
+# on a slow host (PERF.md section 4)
+P4_GENOME = 500_000
+CONFIG3_GENOME = 200_000
 PHASE10_GENOME = 400_000
+# phase 6's rows of segment_identity and of the ring's step: a 1 Mb genome
+SEGMENT_GENOME = 1_000_000
 # phase d's repeat genome (diag_repeat_corr, diag_leak, diag_polish_votes)
 # and count_scale's genome there (card against CPU), cut from 1 Mb so that
 # the phase stays near two minutes
@@ -1471,10 +1493,16 @@ TWIN_THREADS = {"p5_config3_300": 3, "b_sw_hybrid": 2, "e_overlap_long": 2,
 @contextlib.contextmanager
 def cpu_twins(names, workdir: str):
     """Start the CPU side of the twin runs `names`, each in a process of its
-    own (OMP_NUM_THREADS from TWIN_THREADS), writing under workdir/cpu;
-    yields the jobs and stops whatever is still running on the way out."""
+    own at the lowest priority (nice 19) on the last 3/8 of this process's
+    CPUs (the phases on the card keep the rest: beside them on every CPU,
+    at nice 19 still, the runs made phase 2 2.7x slower; on half, 1.9x), with
+    OMP_NUM_THREADS from TWIN_THREADS, writing under workdir/cpu; each
+    prints the time it ended last.  Yields the jobs and stops whatever is
+    still running on the way out."""
     import subprocess
 
+    cpus = sorted(os.sched_getaffinity(0))
+    cpus = set(cpus[len(cpus) - max(1, 3 * len(cpus) // 8):])
     jobs = []
     try:
         for name in names:
@@ -1483,7 +1511,10 @@ def cpu_twins(names, workdir: str):
                     f"{os.path.join(workdir, 'cpu')!r}, 'cpu')")
             with open(out, "w") as fh:
                 jobs.append((name, out, subprocess.Popen(
-                    [sys.executable, "-c", f"import chip_smoke as S; {call}"],
+                    [sys.executable, "-c", "import os, time; os.nice(19); "
+                     f"os.sched_setaffinity(0, {cpus!r}); "
+                     f"import chip_smoke as S; {call}; "
+                     "print('ended', time.time())"],
                     cwd=HERE, stdout=fh, stderr=subprocess.STDOUT,
                     env=dict(os.environ, OMP_NUM_THREADS=str(
                         TWIN_THREADS.get(name, 1))))))
@@ -1516,11 +1547,15 @@ def card_twin(name: str, workdir: str, MC, AC):
 def twins_wait(jobs) -> None:
     """Wait for the CPU side of `jobs`; fail if one failed."""
     t0 = time.perf_counter()
+    ended = []
     for name, out, p in jobs:
         if p.wait(timeout=900):
             fail(f"the CPU run {name} failed: {open(out).read()[-3000:]}")
-    log(f"  waited {time.perf_counter() - t0:.1f} s for the CPU runs "
-        f"({', '.join(n for n, _, _ in jobs)})")
+        at = re.findall(r"^ended (\S+)$", open(out).read(), re.M)
+        ended.append(f"{name} {float(at[-1]) - _T0_WALL:.1f}" if at
+                     else f"{name} ?")
+    log(f"  waited {time.perf_counter() - t0:.1f} s for the CPU runs; each "
+        f"ended at (s since the smoke started): {', '.join(ended)}")
 
 
 def twins_equal(jobs, workdir: str) -> None:
@@ -2186,10 +2221,8 @@ def run_cli(argv, nproc: int = 0, timeout: int = 600):
 def phase_distributed(genome_len: int, workdir: str, p4: dict):
     """Phase c, parts 2-5: two ranks on the one card (gloo; NCCL refuses
     two ranks on a card): the judged pipeline against phase 4's one-rank
-    artifacts, segment_identity through the ring against one rank; a world
-    of 1 on NCCL (`torchrun --nproc-per-node 1 ... eval --segs`); `bench
-    --what scaling` on 1 (NCCL) and 2 (gloo) ranks and `--what comm`.
-    Returns {path: launches}."""
+    artifacts, segment_identity through the ring against one rank.
+    Returns {path: launches} and the arguments of phase_c_cli."""
     import numpy as np
 
     from hga_tpu_torch.io.fastq import write_fasta
@@ -2280,17 +2313,28 @@ def phase_distributed(genome_len: int, workdir: str, p4: dict):
             o["segment_launches"]
     log(f"  ok: segment_dist {one['segment_dist']} on 2 ranks == 1 rank "
         f"({one['n_segments']} segments)")
+    log(f"  phase c distribution: {time.perf_counter() - tc:.1f} s")
+    return paths, (contigs_fa, genome_fa, one["segment_dist"])
 
-    # a world of 1 on NCCL, as a user runs it
+
+def phase_c_cli(contigs_fa: str, genome_fa: str, segment_dist: int) -> list:
+    """Phase c, part 5: the CLI under torchrun, as a user runs it: `eval
+    --segs` on a world of 1 (NCCL) against one rank's segment_dist, `bench
+    --what scaling` on 1 (NCCL) and 2 (gloo) ranks, `bench --what comm`.
+    Each is a process of its own, so main runs this in a thread beside
+    phases b and d, whose scripts take this process's standard output: the
+    lines are returned, for main to log once phase d has ended."""
+    lines = []
+    tc = time.perf_counter()
     t0 = time.perf_counter()
     got, text = run_cli(["eval", "--contigs", contigs_fa, "--reference",
                          genome_fa, "--segs"], nproc=1)
     if "backend nccl" not in text:
         fail("torchrun --nproc-per-node 1 did not take NCCL")
-    if got["segment_dist"] != one["segment_dist"]:
+    if got["segment_dist"] != segment_dist:
         fail(f"eval --segs on NCCL: {got['segment_dist']} != "
-             f"{one['segment_dist']}")
-    log(f"  ok: torchrun --nproc-per-node 1 eval --segs on NCCL: "
+             f"{segment_dist}")
+    lines.append(f"  ok: torchrun --nproc-per-node 1 eval --segs on NCCL: "
         f"segment_dist {got['segment_dist']} ({time.perf_counter() - t0:.1f}"
         " s)")
 
@@ -2301,15 +2345,14 @@ def phase_distributed(genome_len: int, workdir: str, p4: dict):
         want = "nccl" if n == 1 else "gloo"
         if f"backend {want}" not in text:
             fail(f"bench --what scaling on {n} ranks did not take {want}")
-        log(f"  bench --what scaling, {n} rank(s) ({want}): "
+        lines.append(f"  bench --what scaling, {n} rank(s) ({want}): "
             f"{json.dumps(bench[n])} ({time.perf_counter() - t0:.1f} s)")
     if "not a scaling figure" not in bench[2].get("note", ""):
         fail("the 2-rank scaling figure does not say it shares one card")
     comm, _ = run_cli(["bench", "--what", "comm"])
-    log(f"  bench --what comm: {json.dumps(comm)}")
-    log(f"  phase c distribution: {time.perf_counter() - tc:.1f} s")
-    return paths, dict(ranks=ranks, one_rank=p4["out"], scaling=bench,
-                       comm=comm)
+    lines.append(f"  bench --what comm: {json.dumps(comm)}")
+    lines.append(f"  phase c CLI: {time.perf_counter() - tc:.1f} s")
+    return lines
 
 
 @contextlib.contextmanager
@@ -3373,6 +3416,36 @@ def phase_times_k3(rng, AC, A):
     return rows
 
 
+def x1_case(rng, N, W, Lt):
+    """X1's check pairs at W words: planted, qlen 0, 1, 31 and Lq with code
+    4 past qlen, ragged tlen, codes -1/4/9 in the targets; the last word
+    not full (Lq = 31 W - 3 past W 1)."""
+    import numpy as np
+
+    Lq = 31 * W - (3 if W > 1 else 0)
+    q, t, _, _ = planted_pairs(rng, N, Lq, Lt)
+    ql = rng.integers(0, Lq + 1, N).astype(np.int32)
+    ql[:4] = [0, 1, min(31, Lq), Lq]
+    q[np.arange(Lq)[None, :] >= ql[:, None]] = 4
+    tl = rng.integers(1, Lt + 1, N).astype(np.int32)
+    t[:64, :8] = rng.choice([-1, 4, 9], size=(min(N, 64), 8))
+    return Lq, to_dev(q, t, ql, tl)
+
+
+# X1's checks, W: (N, Lt), each with partial blocks of 16 S pairs and
+# partial slabs: one word a lane to W 32, two at W 34, four at W 100, the
+# device scratch at W 300; each at the two (S, BLK) of X1_SB
+X1_CHECKS = {1: (1000, 190), 5: (1000, 190), 13: (1000, 190),
+             25: (1000, 190), 34: (1000, 190), 100: (300, 190),
+             300: (40, 70)}
+X1_SB = ((8, 32), (2, 7))
+# X2's checks past the old caps, (N, Lq, Lt, band): Lq 1,000 at band 64,
+# Lq 320 at band 300 (301 slots); the variants reach every route there
+X2_WIDE = ((512, 1000, 1072, 64), (512, 320, 392, 300))
+X2_VARIANTS = ("v1", "v2", "v3", "v3g2")
+X2_WIDE_VARIANTS = X2_VARIANTS + ("v3g8", "v3g64")
+
+
 def x_checks(rng, VM, MM, SV, M, A):
     """Phase 9's comparisons: X3, X1 and X2 against their plain versions on
     the card, bit-exact.  Returns {kernel: max |kernel - plain|} (0)."""
@@ -3390,45 +3463,48 @@ def x_checks(rng, VM, MM, SV, M, A):
            VM.vpu_chains_cuda(xd, C, 2048, reps=3),
            VM.chains(xd, C, 2048).expand(3, *x.shape))
         for C in (1, 2, 4, 8))
-    # X1 at the harness's main() shapes, then a ragged case: a partial
-    # block (N 1000) and slab (Lt 190), qlen 0..Lq with code 4 past it,
-    # ragged tlen, codes -1/4/9 in the targets
+    # X1 at the harness's main() shapes, then at each W of X1_CHECKS
     errs = []
     for N, Lq, Lt, BLK, S in MM.SHAPES[:2]:
         ops, (q, t, ql, tl) = MM.prep(N, Lq, Lt, "cuda")
         got, ref = MM.run_b(*ops, S=S, BLK=BLK), M.myers_batch(q, t, ql, tl)
         errs += [eq(f"X1 N {N} Lq {Lq} Lt {Lt} {f}", getattr(got, f),
                     getattr(ref, f)) for f in ("dist", "tend")]
-    N, Lq, Lt = 1000, 128, 190
-    q, t, _, _ = planted_pairs(rng, N, Lq, Lt)
-    ql = rng.integers(0, Lq + 1, N).astype(np.int32)
-    ql[:4] = [0, 31, 62, Lq]
-    q[np.arange(Lq)[None, :] >= ql[:, None]] = 4
-    tl = rng.integers(1, Lt + 1, N).astype(np.int32)
-    t[:64, :8] = rng.choice([-1, 4, 9], size=(64, 8))
-    qd, td, qld, tld = to_dev(q, t, ql, tl)
-    planes = M.query_planes(qd, qld, M.n_words(Lq))
-    ref = M.myers_batch(qd, td, qld, tld)
-    for S, BLK in ((8, 32), (2, 8)):
-        got = MM.run_b(qld, tld, *planes, td, S=S, BLK=BLK)
-        errs += [eq(f"X1 ragged (N {N}, Lt {Lt}) S {S} BLK {BLK} {f}",
-                    getattr(got, f), getattr(ref, f))
-                 for f in ("dist", "tend")]
+    for W, (N, Lt) in X1_CHECKS.items():
+        Lq, (qd, td, qld, tld) = x1_case(rng, N, W, Lt)
+        planes = M.query_planes(qd, qld, W)
+        ref = M.myers_batch(qd, td, qld, tld)
+        for S, BLK in X1_SB:
+            got = MM.run_b(qld, tld, *planes, td, S=S, BLK=BLK)
+            g = MM.slab_geometry(N, W, S, BLK)
+            where = "scratch" if g.words else "registers"
+            errs += [eq(f"X1 W {W} (N {N}, Lq {Lq}, Lt {Lt}; {g.lanes} lanes "
+                        f"a pair, {g.pairs} pairs a warp, words in {where}) "
+                        f"S {S} BLK {BLK} {f}", getattr(got, f),
+                        getattr(ref, f)) for f in ("dist", "tend")]
     err["run_b_cuda"] = max(errs)
-    # X2 at check()'s shape and at K3's refine shapes (forward band 64 and
-    # reverse band 128, ragged, homopolymer and ACAC tie rows; band >= Lq)
+    # X2 at check()'s shape, K3's refine shapes (forward band 64, reverse
+    # band 128 ragged, homopolymer and ACAC tie rows) and band >= Lq (the
+    # query layout), then past the old caps (X2_WIDE; v3, v3g2 at band 300
+    # and v3g8, v3g64 take the slots in memory)
     cases = [("check() shape (N 256, Lq 128, Lt 256) band 64",
-              *SV.planted_inputs(256, 128, 256), 64),
-             *refine_cases(rng, A, 4096, 112, 64),
+              *SV.planted_inputs(256, 128, 256), 64, X2_VARIANTS),
+             *(c + (X2_VARIANTS,)
+               for c in refine_cases(rng, A, 4096, 112, 64)),
              ("band >= Lq (N 512, Lq 40, Lt 60) band 200",
-              *sw_edges(rng, 512, 40, 60, 200), 200)]
+              *sw_edges(rng, 512, 40, 60, 200), 200, X2_VARIANTS),
+             *((f"past the old caps (N {N}, Lq {Lq}, Lt {Lt}) band {b}",
+                *sw_edges(rng, N, Lq, Lt, b), b, X2_WIDE_VARIANTS)
+               for N, Lq, Lt, b in X2_WIDE)]
     errs = {v: [] for v in ("v1", "v2", "v3")}
-    for label, q, t, ql, tl, band in cases:
+    for label, q, t, ql, tl, band, variants in cases:
         args = to_dev(q, t, ql, tl)
         ref = A.banded_sw_batch(*args, band=band)
-        for v in ("v1", "v2", "v3", "v3g2"):
+        for v in variants:
+            p = SV.plan(v, len(q), q.shape[1], t.shape[1], band)
             got = SV.sw_pallas_exp(*args, band=band, variant=v)
-            errs[v[:2]] += [eq(f"X2 {v} {label} {f}", getattr(got, f),
+            errs[v[:2]] += [eq(f"X2 {v} ({p.route} K {p.K}, {p.swept} slots "
+                               f"a pair) {label} {f}", getattr(got, f),
                                getattr(ref, f)) for f in SW_FIELDS]
     for v, e in errs.items():
         err[f"sw_variants_{v}"] = max(e)
@@ -3436,20 +3512,27 @@ def x_checks(rng, VM, MM, SV, M, A):
 
 
 def sass_dpx(cuda_build):
-    """{instantiation: counts of the integer max/add-max instructions, and
-    of all instructions} of X2's SASS: whether the DPX forms (VIADDMNMX,
-    VIMNMX) appear, and how long each instantiation's code is."""
+    """{X2 instantiation: counts of its DPX (integer max, add-max), permute,
+    logic, add, compare, select, shared-load and shuffle instructions, and
+    of all its instructions}: how long each route's code is and what it is
+    made of."""
     import re
 
+    kept = ("VIADDMNMX", "VIMNMX", "VIMNMX3", "IMNMX", "VIADD", "VHMNMX",
+            "PRMT", "LOP3", "IADD3", "ISETP", "SEL", "LDS", "SHFL")
     out = {}
     for fn, ops in cuda_build.sass_opcodes("sw_variants").items():
-        m = re.search(r"swv_kernelILb([01])ELi(\d+)ELi(\d+)ELi(\d+)E", fn)
+        key = None
+        m = re.search(r"swv_kernelILi(\d+)ELi(\d+)E", fn)
         if m:
-            key = (f"{'v2' if m.group(1) == '1' else 'i32'} K{m.group(2)} "
-                   f"G{m.group(3)} flags{m.group(4)}")
-            out[key] = {op: n for op, n in sorted(ops.items())
-                        if op in ("VIADDMNMX", "VIMNMX", "VIMNMX3", "IMNMX",
-                                  "VIADD", "VHMNMX")}
+            key = f"i32 K{m.group(1)} flags{m.group(2)}"
+        m = re.search(r"swv_packed_kernelILi(\d+)E", fn)
+        if m:
+            key = f"v2 H{m.group(1)}"
+        if "swv_mem_kernel" in fn:
+            key = "memory"
+        if key:
+            out[key] = {op: n for op, n in sorted(ops.items()) if op in kept}
             out[key]["all"] = sum(ops.values())
     return out
 
@@ -3475,10 +3558,95 @@ def bench_path(cli):
     return out
 
 
-def x_times(x3_rows, x1_rows, sv_rows, VM, MM, SV, M, A):
+# X1's other timing shapes beside K1' on the same pairs, (N, Lq, Lt, BLK,
+# S): the harness's W 1 and bench shapes, W 5 at S 1 and 2 (8x and 4x the
+# blocks of S 8), and W 13, 34 and 100 past the old cap at S 2 (32 pairs a
+# block: one group a warp; at S 8 these W run 2-4 groups a warp in turn),
+# W 34 also at S 8
+X1_TIMES = ((4096, 31, 192, 32, 8), (8192, 128, 192, 32, 8),
+            (4096, 128, 192, 32, 1), (4096, 128, 192, 32, 2),
+            (4096, 400, 192, 32, 2), (4096, 1054, 192, 32, 2),
+            (4096, 1054, 192, 32, 8), (4096, 3100, 192, 32, 2))
+# X2's timing shapes past the old caps beside K3's route on the same pairs,
+# (N, Lq, Lt, band): Lq 1,000 at band 64, Lq 320 at band 300
+X2_TIMES = ((4096, 1000, 1072, 64), (4096, 320, 392, 300))
+
+
+def x_more_rows(MM, SV, M, A, MC, AC, counters):
+    """X1 and X2 at X1_TIMES and X2_TIMES: kernel and wrapper ms (CUDA
+    events, 20 launches on 2 input sets, warm), bound and share, registers,
+    the layout, and K1' or K3's route's kernel on the same inputs.  Their
+    launches are no path's: the counters are restored."""
+    import numpy as np
+    import torch
+
+    from hga_tpu_torch.utils import benchmarks as B
+
+    before = [dict(c) for c in counters]
+    x1 = []
+    for N, Lq, Lt, BLK, S in X1_TIMES:
+        ops, (q, t, ql, tl) = MM.prep(N, Lq, Lt, "cuda")
+        sets = MM.target_sets(ops, 2)
+        W = M.n_words(Lq)
+        g = MM.slab_geometry(N, W, S, BLK)
+        kern = B.cuda_ms(lambda *k: MM.run_kernel(*k, S=S, BLK=BLK),
+                         [MM.kernel_operands(*a, S=S, BLK=BLK)
+                          for a in sets], 20)
+        ms = B.cuda_ms(lambda *a: MM.run_b(*a, S=S, BLK=BLK), sets, 20)
+        k1 = B.cuda_ms(MC.run_kernel, [MC.kernel_operands(q, s[-1], ql, tl)
+                                       for s in sets], 20)
+        bound, by = B.bound_ms(N * Lt * W * B.OPS_PER_WORD_COLUMN,
+                               16 * N * W + 4 * N * Lt + 16 * N)
+        x1.append(dict(
+            N=N, Lq=Lq, Lt=Lt, W=W, S=S, BLK=BLK, lanes=g.lanes,
+            pairs_a_warp=g.pairs, warps=g.warps, blocks=g.blocks,
+            kernel_ms=kern, ms=ms, bound_ms=bound, bound_by=by,
+            pct_of_bound=100 * bound / kern, k1_kernel_ms=k1,
+            **dict(zip(("registers", "local_bytes"), MM.kernel_attrs(W)))))
+        log(f"  X1 {json.dumps(x1[-1])}")
+    x2 = []
+    for N, Lq, Lt, band in X2_TIMES:
+        g = np.random.default_rng(0)
+        q = g.integers(0, 4, (N, Lq)).astype(np.int32)
+        t = g.integers(0, 4, (N, Lt)).astype(np.int32)
+        ql, tl = np.full(N, Lq, np.int32), np.full(N, Lt, np.int32)
+        sets = [to_dev((q + i) % 4, t, ql, tl) for i in range(2)]
+        cells = A.sw_cells([Lq], [Lt], band) * N
+        bound, by = B.bound_ms(cells * B.SW_OPS_PER_CELL,
+                               4 * N * (Lq + Lt) + 8 * N + 12 * N)
+        k3 = B.cuda_ms(AC.run_kernel, [AC.kernel_operands(*a, band=band)
+                                       for a in sets], 20)
+        for v in ("v1", "v2", "v3"):
+            p = SV.plan(v, N, Lq, Lt, band)
+            outs = [tuple(torch.empty(N, dtype=torch.int32, device="cuda")
+                          for _ in range(3)) for _ in sets]
+            kern = B.cuda_ms(
+                lambda *a: SV.run_kernel(*a, variant=v, band=band),
+                [(*a, o) for a, o in zip(sets, outs)], 20)
+            ms = B.cuda_ms(
+                lambda *a: SV.sw_pallas_exp(*a, band=band, variant=v), sets,
+                20)
+            swept = SV.swept_slot_steps(v, sets[0][2], sets[0][3], Lq, Lt,
+                                        band)
+            x2.append(dict(
+                variant=v, N=N, Lq=Lq, Lt=Lt, band=band, layout=p.route,
+                K=p.K, slots=p.S, swept_a_pair=p.swept, query=p.query,
+                swept=swept, in_band=cells / swept, kernel_ms=kern, ms=ms,
+                bound_ms=bound, bound_by=by, pct_of_bound=100 * bound / kern,
+                k3_route=AC.route(Lq, Lt, band).kind, k3_kernel_ms=k3,
+                **dict(zip(("registers", "local_bytes"),
+                           SV.kernel_attrs(v, Lq, Lt, band)))))
+            log(f"  X2 {json.dumps(x2[-1])}")
+    for c, b in zip(counters, before):
+        c.update(b)
+    return x1, x2
+
+
+def x_times(x3_rows, x1_rows, sv_rows, VM, MM, SV, M, A, MC, AC):
     """The X rows of the kernels line: each kernel beside its plain version
     and its bound at the harness's timing shape, and beside K1 or K3 at the
-    same shape (from the harnesses' own rows)."""
+    same shape (from the harnesses' own rows); then X1 and X2 at the other
+    shapes of X1_TIMES and X2_TIMES."""
     import numpy as np
     import torch
 
@@ -3495,13 +3663,16 @@ def x_times(x3_rows, x1_rows, sv_rows, VM, MM, SV, M, A):
         dict(N=N, Lq=Lq, Lt=Lt, W=W, BLK=BLK, S=S),
         lambda *a: MM.run_b(*a, S=S, BLK=BLK), sets,
         lambda *k: MM.run_kernel(*k, S=S, BLK=BLK),
-        [MM.kernel_operands(*a, S=S) for a in sets],
+        [MM.kernel_operands(*a, S=S, BLK=BLK) for a in sets],
         lambda ql, tl, q0, q1, vq, mend, t: M.myers_batch_from_planes(
             q0, q1, vq, mend, t, ql, tl),
         N * Lq * Lt, N * Lt * W * B.OPS_PER_WORD_COLUMN,
         16 * N * W + 4 * N * Lt + 8 * N + 8 * N, counters)
     rows["run_b_cuda"].update(zip(("registers", "local_bytes"),
                                   MM.kernel_attrs(W)))
+    g = MM.slab_geometry(N, W, S, BLK)
+    rows["run_b_cuda"].update(lanes=g.lanes, pairs_a_warp=g.pairs,
+                              warps=g.warps, blocks=g.blocks)
     beside = next(r for r in x1_rows if (r["N"], r["Lq"]) == (N, Lq))
     rows["run_b_cuda"]["beside_k1"] = {
         k: beside[k] for k in ("k1_ms", "k1_kernel_ms", "kernel_ms")}
@@ -3525,13 +3696,24 @@ def x_times(x3_rows, x1_rows, sv_rows, VM, MM, SV, M, A):
             cells * B.SW_OPS_PER_CELL, 4 * N * (Lq + Lt) + 8 * N + 12 * N,
             counters)
         rows[f"sw_variants_{v}"].update(zip(("registers", "local_bytes"),
-                                            SV.kernel_attrs(v, Lq)))
+                                            SV.kernel_attrs(v, Lq, Lt, band)))
+        p = SV.plan(v, N, Lq, Lt, band)
         beside = next(r for r in sv_rows if r["variant"] == v)
-        rows[f"sw_variants_{v}"]["beside_k3"] = {
-            k: beside[k] for k in ("k3_ms", "k3_kernel_ms", "kernel_ms")}
+        rows[f"sw_variants_{v}"].update(
+            layout=p.route, K=p.K, swept_a_pair=p.swept, swept=beside["swept"],
+            in_band=beside["in_band"], beside_k3={
+                k: beside[k] for k in ("k3_ms", "k3_kernel_ms", "kernel_ms")})
     rows["sw_variants_v1"]["ablations"] = {
         r["variant"]: {k: r[k] for k in ("ms", "kernel_ms", "gcups")}
         for r in sv_rows if "no" in r["variant"]}
+    rows["sw_variants_v3"]["v3g2"] = {
+        k: r[k] for r in sv_rows if r["variant"] == "v3g2"
+        for k in ("ms", "kernel_ms", "gcups", "swept", "in_band")}
+    x1, x2 = x_more_rows(MM, SV, M, A, MC, AC, counters)
+    rows["run_b_cuda"]["more"] = x1
+    for v in ("v1", "v2", "v3"):
+        rows[f"sw_variants_{v}"]["more"] = [r for r in x2
+                                            if r["variant"] == v]
     # X3 at the sweep's fastest C (R 128, STEPS 2048, default_reps copies)
     best = max((r for r in x3_rows if "C" in r and r["R"] == 128),
                key=lambda r: r["lane_ops_per_s"])
@@ -3604,18 +3786,91 @@ def phase_measurement(rng, VM, MM, SV, M, A, MC, AC, cuda_build):
     for name in ("myers_batch_cuda", "banded_sw_batch_cuda"):
         if launches[name] <= 0:
             fail(f"{name} was never launched by hga-torch bench")
-    rows = x_times(x3_rows, x1_rows, sv_rows, VM, MM, SV, M, A)
+    rows = x_times(x3_rows, x1_rows, sv_rows, VM, MM, SV, M, A, MC, AC)
     rows["dpx"] = dpx
     log(f"  phase 9: {time.perf_counter() - t9:.1f} s")
     paths = {"phase 9 harnesses": harness, "phase 9 bench": launches}
     return err, paths, rows, bench
 
 
+def phases_on_card(args, ph, kinds, rng, err, paths, workdir, done, pool,
+                   MC, M, PU, AC, A):
+    """Phases 2, 3, 7, c (kernel), 4, 8, 10, c and b, in that order; fills
+    `err` and `paths`; returns phase 4's run (None where it did not run)
+    and phase c's CLI part, submitted to `pool` once phase c's ranks have
+    ended (None where c did not run)."""
+    import torch
+
+    # the plain version of phase 2's and 7's longest cases, in processes of
+    # their own on the card beside phases 2 and 3
+    with plain_procs(n for n in LONG_PLAINS
+                     if ("2" if n == "gate" else "7") in ph) as plains:
+        if "2" in ph:
+            err.update(phase_k1(rng, MC, M))
+            err["myers_batch_cuda_shared"] = phase_k1_shared(rng, MC, M)
+            err["myers_batch_cuda_carry"] = phase_carry_wide(rng, MC, M)
+            done("2")
+        if "3" in ph:
+            err.update(phase_k2(rng, MC, M, PU))
+            err.update(phase_k2v(rng, MC, PU))
+            done("3")
+        if "2" in ph:
+            err["myers_batch_cuda_wide"] = max(
+                err["myers_batch_cuda_wide"],
+                phase_gate_long(MC, M, plains))
+            done("2 (its longest gate case)")
+        if "7" in ph:
+            err.update(phase_k3(rng, AC, A, plains))
+            done("7")
+    if "c" in ph:
+        err["myers_batch_cuda_carry"] = max(
+            phase_carry(rng, MC, M), err["myers_batch_cuda_carry"] or 0)
+        done("c (kernel)")
+    torch.cuda.synchronize()
+
+    # launches per kernel on each path that ran: K1' and K2' on the hybrid
+    # pipeline (phases 4 and 10), K1' and K3' on config 3 and K1' and K3'' on
+    # its 300 bp drive (phase 8), K1''s shared-target mode on
+    # segment_identity (phase 10), X1-X3 on the harnesses and K1'/K3' on
+    # hga-torch bench (phase 9), K1'/K2' at W 26 and K1'/K3' on
+    # hga_tpu_torch.bench and graft_entry (phase e)
+    p4 = None
+    if "4" in ph or "c" in ph or "d" in ph:
+        paths["phase 4 hybrid pipeline"], p4 = phase_pipeline(
+            args.genome_len, MC, workdir)
+        done("4")
+    if "8" in ph:
+        paths["phase 8 config 3"], _ = phase_config3(
+            CONFIG3_GENOME, MC, AC)
+        paths["phase 8 config 3, 300 bp reads"], _ = phase_config3(
+            MISEQ_GENOME, MC, AC, read_len=300, seed=44)
+        paths["phase 8 config 3, 300 bp reads, --band 128"], _ = \
+            phase_config3(MISEQ_GENOME, MC, AC, read_len=300, seed=44,
+                          band=P8_BAND)
+        p8_band128_card(workdir, MC, AC)
+        done("8")
+    if "a" in ph:
+        paths.update(phase_genomes(args.phase10_len, kinds, MC, workdir))
+        done("10")
+    c_cli = None
+    if "c" in ph:
+        c_paths, cli_args = phase_distributed(args.genome_len, workdir, p4)
+        paths.update(c_paths)
+        done("c (the ranks)")
+        # the CLI runs (processes of their own) beside phases b and d
+        c_cli = pool.submit(phase_c_cli, *cli_args)
+    if "b" in ph:
+        paths.update(phase_b(args.genome_len, workdir, MC, AC))
+        done("b")
+    return p4, c_cli
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--genome-len", type=int, default=1_000_000,
+    ap.add_argument("--genome-len", type=int, default=P4_GENOME,
                     help="genome length of phase 4, whose reads and run "
-                         "phases b, c and d reuse (default 1,000,000 bp)")
+                         f"phases b, c and d reuse (default {P4_GENOME:,} "
+                         "bp)")
     ap.add_argument("--phase10-len", type=int, default=PHASE10_GENOME,
                     help=f"genome length of phase 10 (default "
                          f"{PHASE10_GENOME:,} bp)")
@@ -3679,8 +3934,7 @@ def main() -> int:
               + (MC.REGISTER_MAX_WORDS - MC.SINGLE_MAX_WORDS) + 1
               + MC.THREAD_MAX_WORDS + MC.REGISTER_MAX_WORDS + 1 + 2 * 7 + 1
               + len(AC.DIAG_SLOTS) + len(AC.BAND_SLOTS) + AC.WIDE_SLOTS + 2
-              + 2 + MM.MAX_WORDS + sum(len(k) for k in SV.BUILT.values())
-              + len(VM.BUILT))
+              + 2 + MM.REGISTER_WORDS + 1 + len(SV.BUILT) + len(VM.BUILT))
     log(f"  ptxas report: {len(report)} of {expect} kernel instantiations "
         "parsed")
     for kern, by in (("K1'", "W, lanes a pair"), ("K2", "W"),
@@ -3688,8 +3942,8 @@ def main() -> int:
                      ("K2'", "lanes a pair, words a lane, plane home"),
                      ("K3'", "slots a lane"), ("K3''", "slots a lane"),
                      ("K3'''", "slots a lane, or slots in memory"),
-                     ("K3", "buffer"), ("X1", "W"),
-                     ("X2", "layout"), ("X3", "C, STEPS")):
+                     ("K3", "buffer"), ("X1", "words a lane"),
+                     ("X2", "route"), ("X3", "C, STEPS")):
         rows = [r for r in report if r[0] == kern]
         log(f"  ptxas {kern} registers by {by}: "
             + " ".join(f"{w}:{regs}" for _, w, regs, _ in rows))
@@ -3704,80 +3958,30 @@ def main() -> int:
     done("1")
     rng = np.random.default_rng(7)
     err = dict.fromkeys(KERNELS)     # None: the kernel's check did not run
-    # the plain version of phase 2's and 7's longest cases, in processes of
-    # their own on the card beside phases 2 and 3
-    with plain_procs(n for n in LONG_PLAINS
-                     if ("2" if n == "gate" else "7") in ph) as plains:
-        if "2" in ph:
-            err.update(phase_k1(rng, MC, M))
-            err["myers_batch_cuda_shared"] = phase_k1_shared(rng, MC, M)
-            err["myers_batch_cuda_carry"] = phase_carry_wide(rng, MC, M)
-            done("2")
-        if "3" in ph:
-            err.update(phase_k2(rng, MC, M, PU))
-            err.update(phase_k2v(rng, MC, PU))
-            done("3")
-        if "2" in ph:
-            err["myers_batch_cuda_wide"] = max(
-                err["myers_batch_cuda_wide"],
-                phase_gate_long(MC, M, plains))
-            done("2 (its longest gate case)")
-        if "7" in ph:
-            err.update(phase_k3(rng, AC, A, plains))
-            done("7")
-    if "c" in ph:
-        err["myers_batch_cuda_carry"] = max(
-            phase_carry(rng, MC, M), err["myers_batch_cuda_carry"] or 0)
-        done("c (kernel)")
-    torch.cuda.synchronize()
-
-    # launches per kernel on each path that ran: K1' and K2' on the hybrid
-    # pipeline (phases 4 and 10), K1' and K3' on config 3 and K1' and K3'' on
-    # its 300 bp drive (phase 8), K1''s shared-target mode on
-    # segment_identity (phase 10), X1-X3 on the harnesses and K1'/K3' on
-    # hga-torch bench (phase 9), K1'/K2' at W 26 and K1'/K3' on
-    # hga_tpu_torch.bench and graft_entry (phase e)
     workdir = tempfile.mkdtemp(prefix="hga_smoke_")
     paths = {}
+    # the CPU side of phases 5, 8, b and e, each run in a process of its
+    # own at the lowest priority, from here on beside every phase on the
+    # card; each phase holds its runs against theirs once they have ended
+    twins = (P5_TWINS if "5" in ph else ()) + \
+        (P8_TWINS if "8" in ph else ()) + \
+        (B_TWINS if "b" in ph else ()) + (E_TWINS if "e" in ph else ())
     try:
-        p4 = None
-        if "4" in ph or "c" in ph or "d" in ph:
-            paths["phase 4 hybrid pipeline"], p4 = phase_pipeline(
-                args.genome_len, MC, workdir)
-            done("4")
-        if "8" in ph:
-            paths["phase 8 config 3"], _ = phase_config3(
-                CONFIG3_GENOME, MC, AC)
-            paths["phase 8 config 3, 300 bp reads"], _ = phase_config3(
-                MISEQ_GENOME, MC, AC, read_len=300, seed=44)
-            paths["phase 8 config 3, 300 bp reads, --band 128"], _ = \
-                phase_config3(MISEQ_GENOME, MC, AC, read_len=300, seed=44,
-                              band=P8_BAND)
-            p8_band128_card(workdir, MC, AC)
-            done("8")
-        if "a" in ph:
-            paths.update(phase_genomes(args.phase10_len, kinds, MC,
-                                       workdir))
-            done("10")
-        if "c" in ph:
-            c_paths, _ = phase_distributed(args.genome_len, workdir, p4)
-            paths.update(c_paths)
-            done("c")
-        if "b" in ph:
-            paths.update(phase_b(args.genome_len, workdir, MC, AC))
-            done("b")
-        # the CPU side of phases 5, b and e, each run in a process of its
-        # own, beside phase d (whose scripts run beside processes of their
-        # own already) and phase 5's card side: no timed pipeline runs
-        # beside them
-        twins = (P5_TWINS if "5" in ph else ()) + \
-            (P8_TWINS if "8" in ph else ()) + \
-            (B_TWINS if "b" in ph else ()) + (E_TWINS if "e" in ph else ())
         with cpu_twins(twins, workdir) as jobs:
-            log(f"  started the CPU side of {len(jobs)} card == CPU runs")
-            if "d" in ph:
-                paths.update(phase_scripts(args.genome_len, workdir, p4, MC))
-                done("d (beside the CPU runs)")
+            log(f"  started the CPU side of {len(jobs)} card == CPU runs "
+                "(nice 19)")
+            with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                p4, cli = phases_on_card(args, ph, kinds, rng, err, paths,
+                                         workdir, done, pool, MC, M, PU, AC,
+                                         A)
+                if "d" in ph:
+                    paths.update(phase_scripts(args.genome_len, workdir, p4,
+                                               MC))
+                    done("d")
+                if cli is not None:
+                    for line in cli.result():
+                        log(line)
+                    done("c (its CLI, beside phases b and d)")
             if "5" in ph:
                 phase_cpu_equal(workdir, MC, AC)
             early = [j for j in jobs if j[0] not in E_TWINS]
@@ -3803,7 +4007,7 @@ def main() -> int:
         library_ms=None, gcups=None, shape=None, registers=None,
         local_bytes=None) for name, (src, rep) in KERNELS.items()}
     if "6" in ph:
-        rows, split = phase_times(rng, MC, M, PU, args.genome_len)
+        rows, split = phase_times(rng, MC, M, PU, SEGMENT_GENOME)
         rows.update(phase_times_k3(rng, AC, A))
         for name, r in rows.items():
             entries[name].update(r)

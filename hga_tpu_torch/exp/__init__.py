@@ -4,10 +4,11 @@ The kernel harnesses, one a Pallas kernel of ``exp/``:
 
   vpu_micro    X3: int32 add/max issue rate (csrc/vpu_micro.cu), and a bf16
                torch.matmul probe
-  myers_micro  X1: Myers with targets staged in column slabs
+  myers_micro  X1: Myers from query planes, a pair split across lanes,
+               target slabs staged by asynchronous copies
                (csrc/myers_micro.cu), beside K1
-  sw_variants  X2: anti-diagonal SW, a warp per pair, int32 / int16x2 / G
-               pair groups (csrc/sw_variants.cu), beside K3
+  sw_variants  X2: anti-diagonal SW over the band window, int32 / int16x2 /
+               G pairs a warp (csrc/sw_variants.cu), beside K3
 
 The judged-scale scripts and the truth-labelled diagnostics:
 

@@ -1,26 +1,31 @@
-"""Harness: Myers with the targets staged in slabs of columns (X1), beside K1'.
+"""Harness: Myers from query planes, a pair split across lanes (X1), beside K1'.
 
 Counterpart of exp/myers_micro.py.  ``run_b`` launches X1
-(``csrc/myers_micro.cu`` ``myers_slab_kernel<W>``), which replaces the
+(``csrc/myers_micro.cu`` ``myers_slab_kernel<WL>``), which replaces the
 Pallas kernel ``_kernel_b`` (exp/myers_micro.py:58): K1's function, ``dist``
 and ``tend`` per pair, from precomputed query bit-planes
 (ops.myers.query_planes) and the targets, read in slabs of BLK columns.
 
 The knobs are the reference's.  BLK is the columns per slab.  S was the pair
 tile (S * 128 pairs a grid step, S sublanes of 128 lanes); on Hopper a block
-holds 16 * S pairs, one a thread (S = 8 gives K1's 128 threads), and those
-pairs share each staged slab of BLK * 16 * S int8 codes in shared memory.
+holds 16 * S pairs, packed into groups of A = ceil(W / ceil(W / 32)) lanes
+(P = 32 // A pairs a warp), min(ceil(16 S / P), 32) warps a block, each warp
+running its groups in turn (slab_geometry).  Each warp stages its own pairs'
+slabs of BLK columns in shared memory by asynchronous copies, two buffers
+deep, the next slab landing while this one runs.
 
 What bounds it on an H100: as K1, about 20 int32 operations per word,
-column and pair, serial within a pair (integer issue rate); the design stages
-each slab coalesced as 32-bit words and runs its columns unrolled by 8.
+column and pair (integer issue rate); see csrc/myers_micro.cu for the
+design.  No word cap: up to 128 words a pair's words sit in registers, past
+that in a device scratch the wrapper allocates.
 
-The wrapper takes the port's layouts (planes (N, W), targets (N, Lt)), not
-the (G, S, 128) TPU tiling.  It checks dtype, shape and contiguity and
-raises on anything else, also when the slab exceeds 227 KB a block or
-W > MAX_WORDS.  On a CUDA tensor it launches the kernel (or raises); on a
-CPU tensor it returns the plain version (ops.myers.myers_batch_from_planes,
-myers_batch's recurrence).  There is no fallback.
+The wrapper takes the port's layouts (planes (N, W), targets (N, Lt),
+int32, row-major, as they are: no copy a call), not the (G, S, 128) TPU
+tiling.  It checks dtype, shape and contiguity and raises on anything else,
+also when a block's slabs exceed 227 KB of shared memory.  On a CUDA tensor
+it launches the kernel (or raises); on a CPU tensor it returns the plain
+version (ops.myers.myers_batch_from_planes, myers_batch's recurrence).
+There is no fallback.
 
     python -m hga_tpu_torch.exp.myers_micro [--device cuda|cpu]
 """
@@ -29,7 +34,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,9 +50,11 @@ from hga_tpu_torch.utils.device import resolve_device
 # launches of the kernel by its wrapper (reset with reset_launches())
 LAUNCHES: Dict[str, int] = {"run_b_cuda": 0}
 
-SMEM_MAX = 232448            # shared memory a block may opt in to (227 KB)
-MAX_THREADS = 1024
-MAX_WORDS = 24               # W csrc/myers_micro.cu instantiates (1..24)
+SMEM_MAX = 232448 - 32 * 2 * 8  # dynamic shared memory a block (227 KB less
+                                # the kernel's 32 x 2 mbarriers)
+MAX_WARPS = 32                  # warps a block
+REGISTER_WORDS = 4              # words a lane kept in registers (W <= 128)
+PLANES = 6                      # q0, q1, vq, mend, pv, mv: a word's state
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -62,7 +69,8 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(cuda_build.build("myers_micro"))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.hga_myers_slab_launch.argtypes = [vp] * 7 + [ci] * 6 + [vp] * 3
+        lib.hga_myers_slab_launch.argtypes = ([vp] * 7 + [ci] * 5
+                                              + [vp] * 4)
         lib.hga_myers_slab_launch.restype = ci
         lib.hga_myers_slab_attrs.argtypes = [ci, ctypes.POINTER(ci),
                                              ctypes.POINTER(ci)]
@@ -72,7 +80,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def kernel_attrs(W: int) -> Tuple[int, int]:
-    """(registers per thread, local bytes per thread) of one instantiation."""
+    """(registers per thread, local bytes per thread) of the instantiation
+    that runs W words."""
     regs, local = ctypes.c_int(), ctypes.c_int()
     err = _lib().hga_myers_slab_attrs(W, ctypes.byref(regs),
                                       ctypes.byref(local))
@@ -83,6 +92,33 @@ def kernel_attrs(W: int) -> Tuple[int, int]:
 
 def pairs_per_block(S: int) -> int:
     return 16 * S
+
+
+class SlabGeometry(NamedTuple):
+    wl: int        # words a lane (ceil(W / 32))
+    lanes: int     # lanes a pair, A
+    pairs: int     # pairs a warp, P
+    warps: int     # warps a block
+    row: int       # int32 words a staged row (pitch A mod 32)
+    smem: int      # dynamic shared memory a block (slabs, mask tables)
+    blocks: int    # blocks of 16 S pairs
+    words: int     # uint32 words of the device scratch (0: registers)
+
+
+def slab_geometry(N: int, W: int, S: int, BLK: int) -> SlabGeometry:
+    """X1's launch geometry, as csrc/myers_micro.cu computes it."""
+    wl = -(-W // 32)
+    A = -(-W // wl)
+    P = 32 // A
+    pairs = pairs_per_block(S)
+    warps = min(-(-pairs // P), MAX_WARPS)
+    span = BLK + A - 1
+    row = span + (A - span) % 32
+    blocks = -(-N // pairs)
+    words = 0 if wl <= REGISTER_WORDS else blocks * warps * PLANES * wl * 32
+    peq = 5 * wl * 32 if wl <= REGISTER_WORDS else 0   # match-mask table
+    return SlabGeometry(wl, A, P, warps, row,
+                        warps * (2 * P * row + peq) * 4, blocks, words)
 
 
 def _check(qlen, tlen, q0, q1, vq, mend, t, S: int, BLK: int) -> None:
@@ -105,46 +141,51 @@ def _check(qlen, tlen, q0, q1, vq, mend, t, S: int, BLK: int) -> None:
         raise ValueError(f"shape mismatch: planes {tuple(q0.shape)}, t "
                          f"{tuple(t.shape)}, qlen {tuple(qlen.shape)}, "
                          f"tlen {tuple(tlen.shape)}")
-    if not 1 <= W <= MAX_WORDS:
-        raise ValueError(f"W={W} words outside 1..{MAX_WORDS}")
-    P = pairs_per_block(S)
-    if S < 1 or BLK < 1 or P > MAX_THREADS:
-        raise ValueError(f"S={S}, BLK={BLK}: need S >= 1, BLK >= 1 and "
-                         f"16 * S <= {MAX_THREADS}")
-    if BLK * P > SMEM_MAX:
-        raise ValueError(f"a slab of BLK={BLK} columns x {P} pairs = "
-                         f"{BLK * P} bytes exceeds {SMEM_MAX} bytes of shared "
-                         "memory a block")
+    if W < 1:
+        raise ValueError("the planes hold no word (W = 0)")
+    if S < 1 or BLK < 1:
+        raise ValueError(f"S={S}, BLK={BLK}: need S >= 1 and BLK >= 1")
+    geo = slab_geometry(N, W, S, BLK)
+    if geo.smem > SMEM_MAX:
+        raise ValueError(f"slabs of BLK={BLK} columns for {geo.warps} warps "
+                         f"of {geo.pairs} pairs, two buffers each, take "
+                         f"{geo.smem} bytes, which exceeds {SMEM_MAX} bytes "
+                         "of shared memory a block")
 
 
-def kernel_operands(qlen, tlen, q0, q1, vq, mend, t, S: int):
-    """The kernel's device operands: planes transposed (W, N), targets as
-    int8 codes (any code outside 0..3 as 4) transposed (Lt, Np) and padded
-    with code 4 to Np = a whole number of blocks, and fresh outputs."""
+def kernel_operands(qlen, tlen, q0, q1, vq, mend, t, S: int, BLK: int = 64):
+    """The kernel's device operands: the caller's planes and targets as
+    they are, the words' device scratch past REGISTER_WORDS words a lane
+    (else None), and fresh outputs.  Raises, with the byte count, where
+    device memory cannot hold the scratch."""
     N, Lt = t.shape
-    P = pairs_per_block(S)
-    Np = -(-N // P) * P
-    t8 = torch.full((Lt, Np), 4, dtype=torch.int8, device=t.device)
-    t8[:, :N] = torch.where((t >= 0) & (t < 4), t, 4).t().to(torch.int8)
-    planes = tuple(x.t().contiguous() for x in (q0, q1, vq, mend))
+    geo = slab_geometry(N, q0.shape[1], S, BLK)
+    scratch = None
+    if geo.words:
+        free, _ = torch.cuda.mem_get_info(t.device)
+        if 4 * geo.words > free:
+            raise ValueError(f"the words' device scratch takes "
+                             f"{4 * geo.words} bytes; {free} are free")
+        scratch = torch.empty(geo.words, dtype=torch.int32, device=t.device)
     outs = tuple(torch.empty(N, dtype=torch.int32, device=t.device)
                  for _ in range(2))
-    return planes, t8, qlen, tlen, N, outs
+    return (q0, q1, vq, mend), t, qlen, tlen, scratch, outs
 
 
-def run_kernel(planes, t8, qlen, tlen, N, outs, S: int, BLK: int) -> None:
+def run_kernel(planes, t, qlen, tlen, scratch, outs, S: int,
+               BLK: int) -> None:
     """Launch X1 on the current stream."""
     q0, q1, vq, mend = planes
-    W = q0.shape[0]
-    Lt, Np = t8.shape
+    N, Lt = t.shape
     dist, tend = outs
-    with torch.cuda.device(t8.device):
-        stream = torch.cuda.current_stream(t8.device).cuda_stream
+    with torch.cuda.device(t.device):
+        stream = torch.cuda.current_stream(t.device).cuda_stream
         err = _lib().hga_myers_slab_launch(
             q0.data_ptr(), q1.data_ptr(), vq.data_ptr(), mend.data_ptr(),
-            t8.data_ptr(), qlen.data_ptr(), tlen.data_ptr(), N, Np, Lt, W,
-            pairs_per_block(S), BLK, dist.data_ptr(), tend.data_ptr(),
-            stream)
+            t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(), N, Lt,
+            q0.shape[1], pairs_per_block(S), BLK,
+            None if scratch is None else scratch.data_ptr(),
+            dist.data_ptr(), tend.data_ptr(), stream)
     if err:
         raise RuntimeError(f"myers slab kernel launch failed: CUDA error "
                            f"{err}")
@@ -160,10 +201,9 @@ def run_b(qlen: torch.Tensor, tlen: torch.Tensor, q0: torch.Tensor,
     _check(qlen, tlen, q0, q1, vq, mend, t, S, BLK)
     if not t.is_cuda:
         return myers_batch_from_planes(q0, q1, vq, mend, t, qlen, tlen)
-    planes, t8, qlen, tlen, N, outs = kernel_operands(
-        qlen, tlen, q0, q1, vq, mend, t, S)
-    if N:
-        run_kernel(planes, t8, qlen, tlen, N, outs, S, BLK)
+    *ops, outs = kernel_operands(qlen, tlen, q0, q1, vq, mend, t, S, BLK)
+    if t.shape[0]:
+        run_kernel(*ops, outs, S, BLK)
         LAUNCHES["run_b_cuda"] += 1
     return MyersResult(*outs)
 
@@ -219,12 +259,11 @@ def main(argv: Optional[List[str]] = None) -> List[Dict]:
                f"ms={ms:.4f} GCUPS={row['gcups']:.1f}  K1' ms={k1_ms:.4f} "
                f"K1' GCUPS={row['k1_gcups']:.1f}")
         if dev.type == "cuda":
-            # the launches alone: the wrappers' torch preprocessing differs
-            # (X1 takes query planes and transposed int8 targets, K1' the
-            # codes as they are)
+            # the launches alone (X1's wrapper only allocates its outputs;
+            # K1''s builds its route's operands)
             row["kernel_ms"] = time_ms(
                 lambda *k: run_kernel(*k, S=S, BLK=BLK),
-                [kernel_operands(*a, S=S) for a in sets], reps, dev)
+                [kernel_operands(*a, S=S, BLK=BLK) for a in sets], reps, dev)
             row["k1_kernel_ms"] = time_ms(
                 MC.run_kernel, [MC.kernel_operands(*a) for a in k1_sets],
                 reps, dev)

@@ -1,30 +1,41 @@
-"""Harness: banded SW by anti-diagonals, a warp per pair (X2), beside K3'.
+"""Harness: banded SW over the band window, three layouts (X2), beside K3'.
 
 Counterpart of exp/sw_variants.py.  ``sw_pallas_exp`` launches X2
-(``csrc/sw_variants.cu`` ``swv_kernel<PACKED, K, G, FLAGS>``), which
-replaces the Pallas kernels ``_kernel_v1`` (exp/sw_variants.py:32),
-``_kernel_v2`` (:95) and ``_kernel_v3`` (:326): K3's function (SWResult:
-score, qend, tend) swept along anti-diagonals over the query slots, with the
-per-slot band bounds of ``_dlohi`` and a reversed, padded target window.
+(``csrc/sw_variants.cu``), which replaces the Pallas kernels ``_kernel_v1``
+(exp/sw_variants.py:32), ``_kernel_v2`` (:95) and ``_kernel_v3`` (:326):
+K3's function (SWResult: score, qend, tend) swept along anti-diagonals over
+a window of S slots that follows the band (S = band + 1, rows i0(d) ..
+i0(d) + band), or over the query's Lq rows where band + 1 >= Lq.
 
 Variants, by the reference's names:
-  v1            int32 state, a warp per pair
-  v1no{ts,s1,mask,best}...  v1's timing ablations (compile-time flags;
-                never compared, and with no plain version)
-  v2            int16 state, two slots packed in 32 bits (SIMD + DPX);
+  v1            int32, a warp per pair (K slots a lane, 32 K >= S)
+  v1no{ts,s1,mask,best}...  v1's timing ablations (compile-time flags at
+                the timing shape's K 3; never compared, and with no plain
+                version)
+  v2            int16 state, two slots packed in 32 bits, a warp per pair;
                 raises unless every score and anti-diagonal fit int16
-  v3, v3g<G>    int32, a warp walks G pairs interleaved (G 4 by default)
+  v3, v3g<G>    int32, G pairs a warp (G 4 by default), floor(32 / G) lanes
+                a pair, all G advanced in the same step, each on its own
+                window; G must divide pair_tile, as the reference's slicing
+                h = P // G requires
 
-What bounds it on an H100: about 12 int32 operations per in-band cell, but a
-warp sweeps 32 K slots a step whatever the band (K = slots a lane); see
-csrc/sw_variants.cu for the design.  ``pair_tile`` sets the block: pair_tile
-/ 32 warps (1..8), 4 by default.  The reference's ``blk`` (anti-diagonals
-per window copy) has no counterpart: the whole window sits in shared memory.
+Routes (plan): the slots in registers (K slots a lane, built K in REG_KS;
+v2 H packed words a lane, built H in PACKED_HS); past them (S beyond 16
+slots a lane, or 512 in v2, or G > 32) the slots in memory, in shared
+memory or, past 227 KB a block, in a device scratch.  No query-length or
+band cap: the windows are staged 256 anti-diagonals at a time.
+
+What bounds it on an H100: about 12 int32 operations per in-band cell, but
+a warp sweeps all its slots a step whatever the band; see
+csrc/sw_variants.cu for the design.  ``pair_tile`` sets the block:
+pair_tile / 32 warps (1..8), 4 by default.  The reference's ``blk``
+(anti-diagonals per window copy) has its counterpart in the 256
+anti-diagonals a staged window serves.
 
 The wrapper checks dtype, shape and contiguity and raises on anything else.
-On a CUDA tensor it launches the kernel (or raises); on a CPU tensor it
-returns the plain version, ops.align.banded_sw_batch.  There is no
-fallback.
+On a CPU tensor it returns the plain version, ops.align.banded_sw_batch,
+before any check of the kernel's shape; on a CUDA tensor it launches the
+kernel (or raises).  There is no fallback.
 
     python -m hga_tpu_torch.exp.sw_variants [--time] [--variants v1,v2]
         [--band 64] [--device cuda|cpu]
@@ -34,7 +45,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,14 +63,15 @@ LAUNCHES: Dict[str, int] = {"v1": 0, "v2": 0, "v3": 0, "v1_ablation": 0}
 SMEM_MAX = 232448              # shared memory a block may opt in to (227 KB)
 I16_MAX = 32767
 FLAG_BITS = {"ts": 1, "s1": 2, "mask": 4, "best": 8}
-# (packed, G, flags) -> slots a lane (K) that csrc/sw_variants.cu builds
-BUILT: Dict[Tuple[bool, int, int], Tuple[int, ...]] = {
-    (False, 1, 0): (1, 2, 4, 8),
-    **{(False, 1, f): (4,) for f in range(1, 16)},
-    (False, 2, 0): (1, 2, 4),
-    (False, 4, 0): (1, 2, 4),
-    (True, 1, 0): (2, 4, 8),
-}
+CHUNK = 256                    # anti-diagonals a staged window serves
+REG_KS = (1, 2, 3, 4, 5, 6, 8, 9, 10, 12, 16)   # int32 slots a lane built
+PACKED_HS = (1, 2, 3, 4, 6, 8)                   # v2 words a lane built
+ABLATION_K = 3                 # the K v1's ablations are built at
+ROUTES = {"registers": 0, "packed": 1, "memory": 2}
+# every instantiation csrc/sw_variants.cu builds: (route, K, flags)
+BUILT = ([("registers", k, 0) for k in REG_KS]
+         + [("registers", ABLATION_K, f) for f in range(1, 16)]
+         + [("packed", h, 0) for h in PACKED_HS] + [("memory", 0, 0)])
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -74,19 +86,21 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(cuda_build.build("sw_variants"))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.hga_swv_launch.argtypes = [vp] * 4 + [ci] * 12 + [vp] * 4
+        lib.hga_swv_launch.argtypes = [vp] * 4 + [ci] * 12 + [vp] * 5
         lib.hga_swv_launch.restype = ci
-        lib.hga_swv_attrs.argtypes = [ci] * 4 + [ctypes.POINTER(ci)] * 2
+        lib.hga_swv_attrs.argtypes = [ci] * 3 + [ctypes.POINTER(ci)] * 2
         lib.hga_swv_attrs.restype = ci
         _LIB = lib
     return _LIB
 
 
 def parse_variant(variant: str) -> Tuple[bool, int, int]:
-    """(packed int16, pair groups G, ablation flags) of a variant name, as
+    """(packed int16, pairs a warp G, ablation flags) of a variant name, as
     the reference reads it."""
     if variant.startswith("v3"):
         g = int(variant[3:].lstrip("g") or 4) if len(variant) > 2 else 4
+        if g < 1:
+            raise ValueError(f"{variant}: G = {g} pair groups")
         return False, g, 0
     if variant.startswith("v1"):
         return False, 1, sum(bit for f, bit in FLAG_BITS.items()
@@ -97,27 +111,80 @@ def parse_variant(variant: str) -> Tuple[bool, int, int]:
                      "v3g<G>)")
 
 
-def slots_per_lane(variant: str, Lq: int) -> int:
-    """The smallest built K (slots a lane) with 32 K >= Lq."""
-    key = parse_variant(variant)
-    if key not in BUILT:
-        raise ValueError(f"no kernel for variant {variant!r}: built "
-                         f"{sorted(BUILT)} (packed, G, flags)")
-    for K in BUILT[key]:
-        if 32 * K >= Lq:
-            return K
-    raise ValueError(f"Lq={Lq} exceeds {32 * BUILT[key][-1]} slots of "
-                     f"variant {variant!r}")
+def window(Lq: int, Lt: int, band: int) -> Tuple[bool, int]:
+    """(query layout, slots a pair S): the band window of band + 1 slots, or
+    the query's Lq rows where band + 1 >= Lq (band clamped to Lq + Lt)."""
+    band = min(band, Lq + Lt)
+    return (True, Lq) if band + 1 >= Lq else (False, band + 1)
 
 
-def kernel_attrs(variant: str, Lq: int) -> Tuple[int, int]:
-    """(registers per thread, local bytes per thread) of the instantiation
-    that runs `variant` at query length Lq."""
+def pair_words(swept: int) -> int:
+    """int32 words of shared memory a pair on the register routes (the
+    staged windows for `swept` slots; csrc/sw_variants.cu pair_words)."""
+    return 2 * ((CHUNK // 2 + swept + 5) & ~1)
+
+
+def mem_words(S: int) -> int:
+    """int32 words a pair on the memory route: three rows of S + 2 and each
+    slot's best H and d."""
+    return 3 * (S + 2) + 2 * S
+
+
+class Plan(NamedTuple):
+    route: str      # "registers", "packed" or "memory"
+    K: int          # slots a lane (registers), words a lane (packed), 0
+    G: int          # pairs a warp
+    lanes: int      # lanes a pair (32 // G; 0 on the memory route)
+    S: int          # slots a pair
+    swept: int      # slots a pair sweeps a step (lanes x K, 64 H, or S)
+    query: bool     # the query layout (else the band window)
+    warps: int      # warps a block
+    smem: int       # dynamic shared memory a block, bytes
+    scratch: int    # int32 words of the memory route's device scratch
+
+
+def plan(variant: str, N: int, Lq: int, Lt: int, band: int,
+         pair_tile: int = 128) -> Plan:
+    """The route csrc/sw_variants.cu takes for `variant` at this shape:
+    the slots in registers where a built K (H) holds them and the windows
+    fit 227 KB a block, else the slots in memory."""
     packed, G, flags = parse_variant(variant)
-    K = slots_per_lane(variant, Lq)
+    warps = pair_tile // 32
+    query, S = window(Lq, Lt, band)
+    if packed:
+        H = next((h for h in PACKED_HS if 64 * h >= S), 0)
+        smem = warps * pair_words(64 * H) * 4
+        if H and smem <= SMEM_MAX:
+            return Plan("packed", H, 1, 32, S, 64 * H, query, warps, smem, 0)
+    else:
+        L = 32 // G if G <= 32 else 0
+        K = next((k for k in REG_KS if L and L * k >= S), 0)
+        smem = warps * G * pair_words(L * K) * 4
+        if flags and K != ABLATION_K:
+            raise ValueError(f"{variant} is built at {ABLATION_K} slots a "
+                             f"lane (S <= {32 * ABLATION_K}); S = {S} here")
+        if K and smem <= SMEM_MAX:
+            return Plan("registers", K, G, L, S, L * K, query, warps, smem,
+                        0)
+    if flags:
+        raise ValueError(f"{variant}: the ablations run on the register "
+                         "route only")
+    smem = warps * G * mem_words(S) * 4
+    scratch = 0
+    if smem > SMEM_MAX:
+        blocks = -(-N // (warps * G))
+        smem, scratch = 0, blocks * warps * G * mem_words(S)
+    return Plan("memory", 0, G, 0, S, S, query, warps, smem, scratch)
+
+
+def kernel_attrs(variant: str, Lq: int, Lt: int, band: int,
+                 pair_tile: int = 128) -> Tuple[int, int]:
+    """(registers per thread, local bytes per thread) of the instantiation
+    that runs `variant` at this shape."""
+    p = plan(variant, 1, Lq, Lt, band, pair_tile)
     regs, local = ctypes.c_int(), ctypes.c_int()
-    err = _lib().hga_swv_attrs(int(packed), K, G, flags, ctypes.byref(regs),
-                               ctypes.byref(local))
+    err = _lib().hga_swv_attrs(ROUTES[p.route], p.K, parse_variant(variant)[2],
+                               ctypes.byref(regs), ctypes.byref(local))
     if err:
         raise RuntimeError(f"cudaFuncGetAttributes failed with error {err}")
     return regs.value, local.value
@@ -126,8 +193,9 @@ def kernel_attrs(variant: str, Lq: int) -> Tuple[int, int]:
 def _dlohi(qlen: torch.Tensor, tlen: torch.Tensor, Lq: int, band: int):
     """Per-slot in-band anti-diagonal bounds (slot p -> i = p + 1): cell
     (i, d - i) is in the band and the lengths iff dlo <= d <= dhi (dhi -1:
-    never).  The kernel computes the same bounds in registers, with tlen
-    clamped to the target width as banded_sw_batch clamps it."""
+    never): the reference's bounds, which the kernel's query layout
+    computes in registers (tlen clamped to the target width, as
+    banded_sw_batch clamps it); the band window's follow its rows."""
     i = torch.arange(1, Lq + 1, dtype=torch.int32, device=qlen.device)[None]
     ql = qlen.to(torch.int32)[:, None]
     tl = tlen.to(torch.int32)[:, None]
@@ -152,23 +220,19 @@ def sw_pallas_exp(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
     if pair_tile % 32 or not 1 <= pair_tile // 32 <= 8:
         raise ValueError(f"pair_tile={pair_tile}: 32, 64, ..., 256 pairs "
                          "a block")
-    if packed and (max(match, 1) * Lq > I16_MAX or Lq + Lt > I16_MAX
+    if pair_tile % G:
+        raise ValueError(f"{variant}: G = {G} pair groups must divide "
+                         f"pair_tile={pair_tile}")
+    if packed and (max(match, 1) * Lq > I16_MAX or Lq + Lt > I16_MAX - 4
                    or min(mismatch, gap) < -I16_MAX):
         raise ValueError(f"v2 keeps scores and anti-diagonals in int16: "
                          f"Lq={Lq}, Lt={Lt}, match={match} exceed it")
-    K = slots_per_lane(variant, Lq)
     if not q.is_cuda:
         if flags:
             raise ValueError(f"{variant} is a timing ablation of v1: it runs "
                              "only as a kernel and has no plain version")
         return banded_sw_batch(q, t, qlen, tlen, band=band, match=match,
                                mismatch=mismatch, gap=gap)
-    win = Lt + 64 * K
-    smem = (pair_tile // 32) * (((win + 1) // 2 + 1) * 4 if packed
-                                else G * win * 4)
-    if smem > SMEM_MAX:
-        raise ValueError(f"the target windows take {smem} bytes of shared "
-                         f"memory a block > {SMEM_MAX}")
     outs = tuple(torch.zeros(N, dtype=torch.int32, device=q.device)
                  for _ in range(3))
     if N and Lq and Lt:
@@ -182,19 +246,55 @@ def run_kernel(q, t, qlen, tlen, outs, variant: str, band: int = 64,
                match: int = 2, mismatch: int = -4, gap: int = -3,
                pair_tile: int = 128) -> None:
     """Launch X2 on the current stream into outs = (score, qend, tend);
-    operands as sw_pallas_exp checks them."""
-    packed, G, flags = parse_variant(variant)
+    operands as sw_pallas_exp checks them.  The memory route's device
+    scratch, where it needs one, is allocated here; device memory that
+    cannot hold it raises with the byte count."""
     N, Lq = q.shape
+    Lt = t.shape[1]
+    p = plan(variant, N, Lq, Lt, band, pair_tile)
+    scratch = None
+    if p.scratch:
+        free, _ = torch.cuda.mem_get_info(q.device)
+        if 4 * p.scratch > free:
+            raise ValueError(f"the slots' device scratch takes "
+                             f"{4 * p.scratch} bytes; {free} are free")
+        scratch = torch.empty(p.scratch, dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _lib().hga_swv_launch(
             q.data_ptr(), t.data_ptr(), qlen.data_ptr(), tlen.data_ptr(), N,
-            Lq, t.shape[1], band, match, mismatch, gap, int(packed),
-            slots_per_lane(variant, Lq), G, flags, pair_tile // 32,
+            Lq, Lt, band, match, mismatch, gap, ROUTES[p.route], p.K, p.G,
+            parse_variant(variant)[2], p.warps,
+            None if scratch is None else scratch.data_ptr(),
             *(o.data_ptr() for o in outs), stream)
     if err:
-        raise RuntimeError(f"sw variant {variant} launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"sw variant {variant} launch failed ({p}): CUDA "
+                           f"error {err}")
+
+
+def swept_slot_steps(variant: str, qlen: torch.Tensor, tlen: torch.Tensor,
+                     Lq: int, Lt: int, band: int,
+                     pair_tile: int = 128) -> int:
+    """The slot-steps `variant`'s warps sweep on these lengths: each warp
+    runs its window's slots (idle lanes' included) over the anti-diagonals
+    from its first step to its pairs' last in-band one, in whole unrolled
+    bodies (2 steps; 4 in v2's band window; 1 on the memory route)."""
+    N = qlen.shape[0]
+    p = plan(variant, N, Lq, Lt, band, pair_tile)
+    band = min(band, Lq + Lt)
+    ql = qlen.to(torch.int64).clamp(0, Lq)
+    tl = tlen.to(torch.int64).clamp(max=Lt)
+    dend = torch.where(ql >= 1, ql + torch.minimum(tl, ql + band), 1)
+    pad = (-N) % p.G
+    dend = torch.cat([dend, dend.new_ones(pad)]).reshape(-1, p.G)
+    dend = dend.max(dim=1).values
+    if p.route == "memory":
+        return int(p.G * p.S * (dend - 1).clamp(min=0).sum())
+    d0 = 2 if p.query else 2 - (band & 1)
+    body = 4 if p.route == "packed" and not p.query else 2
+    steps = ((dend - d0 + 1).clamp(min=0) + body - 1) // body * body
+    per_warp = 64 * p.K if p.route == "packed" else 32 * p.K
+    return int(per_warp * steps.sum())
 
 
 def planted_inputs(N: int, Lq: int, Lt: int, seed: int = 0):
@@ -269,11 +369,10 @@ def timeit(variant: str, n_pairs: int = 4096, Lq: int = 128, Lt: int = 256,
            f"({ms:.3f} ms/call, {n_pairs} pairs, {dev.type})   K3' "
            f"{row['k3_gcups']:8.2f} GCUPS ({k3_ms:.3f} ms)")
     if variant != "v0":
-        # a warp sweeps all 32 K slots of each anti-diagonal up to its last
-        # one in band (dhi.max): the slot-steps it does beside the cells
-        _, dhi = _dlohi(sets[0][2], sets[0][3], Lq, band)
-        row["swept"] = int(32 * slots_per_lane(variant, Lq)
-                           * (dhi.max(dim=1).values - 1).sum())
+        # the slot-steps the variant's warps sweep beside the cells
+        row["swept"] = swept_slot_steps(variant, sets[0][2], sets[0][3],
+                                        Lq, Lt, band, pair_tile)
+        row["in_band"] = cells / row["swept"]
     if dev.type == "cuda":
         row["k3_kernel_ms"] = time_ms(
             AC.run_kernel, [AC.kernel_operands(*a, band=band) for a in sets],

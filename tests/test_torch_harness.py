@@ -16,6 +16,8 @@ from jax.experimental.pallas import tpu as pltpu
 import exp.myers_micro as JMM
 import exp.sw_variants as JSV
 import exp.vpu_micro as JVM
+from hga_tpu.ops.align import banded_sw_batch as jax_banded_sw_batch
+from hga_tpu.ops.myers import myers_batch as jax_myers_batch
 from hga_tpu.ops.myers import query_planes as jax_query_planes
 from hga_tpu_torch.exp import myers_micro as MM
 from hga_tpu_torch.exp import sw_variants as SV
@@ -115,10 +117,22 @@ def test_variant_names_parse_as_the_harness_reads_them():
     assert SV.parse_variant("v3g2") == (False, 2, 0)
     with pytest.raises(ValueError, match="unknown variant"):
         SV.parse_variant("v9")
-    assert [SV.slots_per_lane("v1", lq) for lq in (1, 32, 33, 128, 256)] \
-        == [1, 1, 2, 4, 8]
-    with pytest.raises(ValueError, match="exceeds"):
-        SV.slots_per_lane("v3", 129)
+    # the band window's slots (band + 1) at the timing shape, the query's
+    # past band + 1 >= Lq: v1 K 3 (96 slots), v3 8 lanes of K 9 a pair
+    assert SV.window(128, 256, 64) == (False, 65)
+    assert SV.window(40, 60, 200) == (True, 40)
+    assert [SV.plan(v, 4096, 128, 256, 64)[:3] for v in ("v1", "v3", "v2")] \
+        == [("registers", 3, 1), ("registers", 9, 4), ("packed", 2, 1)]
+    # past the old 128-slot cap of v3 (Lq 129), the plan's registers still
+    # hold the band window; the kernel's plain version equals the JAX one
+    assert SV.plan("v3", 64, 160, 200, 64)[:2] == ("registers", 9)
+    q, t, ql, tl = _sw_inputs(12, 64, 160, 200)
+    ref = jax_banded_sw_batch(jnp.asarray(q), jnp.asarray(t),
+                              jnp.asarray(ql), jnp.asarray(tl), band=64)
+    got = SV.sw_pallas_exp(*_t(q, t, ql, tl), band=64, variant="v3")
+    for f in SW_FIELDS:
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(getattr(ref, f)), err_msg=f)
 
 
 # ------------------------------------------------------------------ X1
@@ -247,11 +261,19 @@ def test_run_b_wrapper_rejects_bad_operands():
         MM.run_b(ql[:8], tl, *planes, t)
     with pytest.raises(ValueError, match="contiguous"):
         MM.run_b(ql, tl, *planes, t[:, ::2])
-    with pytest.raises(ValueError, match="exceeds"):      # 256 x 1024 bytes
+    with pytest.raises(ValueError, match="exceeds"):      # 32 warps' slabs
         MM.run_b(ql, tl, *planes, t, S=64, BLK=256)
-    wide = torch.zeros((64, MM.MAX_WORDS + 1), dtype=torch.int32)
-    with pytest.raises(ValueError, match="words"):
-        MM.run_b(ql, tl, wide, wide, wide, wide, t)
+    with pytest.raises(ValueError, match="no word"):
+        empty = torch.zeros((64, 0), dtype=torch.int32)
+        MM.run_b(ql, tl, empty, empty, empty, empty, t)
+    # past the old 24-word cap (W 25: Lq 775), equal to the JAX package
+    q, t, ql, tl = _myers_inputs(6, 64, 775, 48)
+    planes = TM.query_planes(*_t(q, ql), 25)
+    got = MM.run_b(*_t(ql, tl), *planes, *_t(t))
+    ref = jax_myers_batch(jnp.asarray(q), jnp.asarray(t), jnp.asarray(ql),
+                          jnp.asarray(tl))
+    np.testing.assert_array_equal(got.dist.numpy(), np.asarray(ref.dist))
+    np.testing.assert_array_equal(got.tend.numpy(), np.asarray(ref.tend))
 
 
 def test_sw_variants_wrapper_on_cpu_and_its_limits():
@@ -292,20 +314,33 @@ def test_cuda_harness_kernels_match_plain(cuda):
         got = VM.vpu_chains_cuda(xd, C, 16, reps=2)
         assert VM.LAUNCHES["vpu_chains_cuda"] == n + 1
         assert torch.equal(got.cpu(), VM.chains(x, C, 16).expand(2, 8, 128))
-    q, t, ql, tl = (a.to(cuda) for a in _t(*_myers_inputs(9, 1000, 40, 48)))
-    planes = TM.query_planes(q, ql, 2)
-    ref = TM.myers_batch(q, t, ql, tl)
-    for S, BLK in ((8, 8), (2, 32)):
-        n = MM.LAUNCHES["run_b_cuda"]
-        got = MM.run_b(ql, tl, *planes, t, S=S, BLK=BLK)
-        assert MM.LAUNCHES["run_b_cuda"] == n + 1
-        assert torch.equal(got.dist, ref.dist)
-        assert torch.equal(got.tend, ref.tend)
-    q, t, ql, tl = (a.to(cuda) for a in _t(*_sw_inputs(10, 300, 48, 96)))
-    ref = TA.banded_sw_batch(q, t, ql, tl, band=16)
-    for v in ("v1", "v2", "v3", "v3g2"):
-        n = SV.LAUNCHES[v[:2]]
-        got = SV.sw_pallas_exp(q, t, ql, tl, band=16, variant=v)
-        assert SV.LAUNCHES[v[:2]] == n + 1
-        for f in SW_FIELDS:
-            assert torch.equal(getattr(got, f), getattr(ref, f)), (v, f)
+    # X1: W 2, then past the old 24-word cap (W 25, 40; W 140 keeps its
+    # words in the device scratch), partial blocks and slabs
+    for seed, N, Lq, Lt, W in ((9, 1000, 40, 48, 2), (19, 300, 775, 70, 25),
+                               (29, 200, 1240, 90, 40),
+                               (39, 64, 4340, 50, 140)):
+        q, t, ql, tl = (a.to(cuda) for a in _t(*_myers_inputs(seed, N, Lq,
+                                                               Lt)))
+        planes = TM.query_planes(q, ql, W)
+        ref = TM.myers_batch(q, t, ql, tl)
+        for S, BLK in ((8, 8), (2, 32)):
+            n = MM.LAUNCHES["run_b_cuda"]
+            got = MM.run_b(ql, tl, *planes, t, S=S, BLK=BLK)
+            assert MM.LAUNCHES["run_b_cuda"] == n + 1
+            assert torch.equal(got.dist, ref.dist), (W, S, BLK)
+            assert torch.equal(got.tend, ref.tend), (W, S, BLK)
+    # X2 at the old shapes, past the old 256-slot caps (Lq 300 at band 64,
+    # Lq 320 at band 300), the query layout (band >= Lq) and v3g8 / v3g64
+    # (the slots in memory)
+    for seed, N, Lq, Lt, band in ((10, 300, 48, 96, 16), (11, 100, 300, 340, 64),
+                                  (13, 60, 320, 360, 300),
+                                  (14, 100, 40, 60, 200)):
+        q, t, ql, tl = (a.to(cuda) for a in _t(*_sw_inputs(seed, N, Lq, Lt)))
+        ref = TA.banded_sw_batch(q, t, ql, tl, band=band)
+        for v in ("v1", "v2", "v3", "v3g2", "v3g8", "v3g64"):
+            n = SV.LAUNCHES[v[:2]]
+            got = SV.sw_pallas_exp(q, t, ql, tl, band=band, variant=v)
+            assert SV.LAUNCHES[v[:2]] == n + 1
+            for f in SW_FIELDS:
+                assert torch.equal(getattr(got, f), getattr(ref, f)), \
+                    (v, band, Lq, f)

@@ -389,6 +389,30 @@ def moved(before: dict, now: dict) -> dict:
     return {k: now[k] - before[k] for k in now if now[k] != before[k]}
 
 
+def launch_counts() -> dict:
+    """The registry's launch counters (hga_tpu_torch/utils/spans), by
+    route; a route never launched reads 0."""
+    from hga_tpu_torch.utils import spans
+
+    return spans.launches()
+
+
+def zero_launches() -> None:
+    """Drop every launch counter of the registry (each reads 0 again)."""
+    from hga_tpu_torch.utils import spans
+
+    spans.reset(spans.LAUNCH)
+
+
+def restore(before: dict) -> None:
+    """Take back the launches counted since `before` (launch_counts()):
+    a timing loop's launches are no path's."""
+    from hga_tpu_torch.utils import spans
+
+    for k, v in (launch_counts() - before).items():
+        spans.count(spans.LAUNCH + k, -v)
+
+
 def to_dev(*xs):
     import torch
 
@@ -523,9 +547,9 @@ def phase_k1_shared(rng, MC, M):
         torch.cuda.synchronize()
         log(f"  plain version ({label}): {time.perf_counter() - t0:.1f} s")
         W, Lt = M.n_words(x[0].shape[1]), x[1].shape[1]
-        before = MC.LAUNCHES["myers_batch_cuda_shared"]
+        before = launch_counts()["myers_batch_cuda_shared"]
         got = MC.myers_batch_cuda(*args)
-        if MC.LAUNCHES["myers_batch_cuda_shared"] != before + 1:
+        if launch_counts()["myers_batch_cuda_shared"] != before + 1:
             fail(f"K1' {label}: myers_batch_cuda_shared did not count")
         r = MC.kernel_operands(*args)[4]
         errs += [eq(f"K1' {label} G {r.G} S {r.S} {f}", getattr(got, f),
@@ -609,9 +633,9 @@ def gate_check(MC, M, label, args, ref, dt, errs) -> None:
     W = M.n_words(args[0].shape[1])
     r = MC.kernel_operands(*args)[4]
     key = MC.gate_counter(r, False)
-    before = MC.LAUNCHES[key]
+    before = launch_counts()[key]
     got = MC.myers_batch_cuda(*args)
-    if MC.LAUNCHES[key] != before + 1:
+    if launch_counts()[key] != before + 1:
         fail(f"K1' {label}: {key} did not count")
     if (W > MC.REGISTER_MAX_WORDS) != (key == "myers_batch_cuda_wide"):
         fail(f"K1' {label} took {key}")
@@ -657,11 +681,11 @@ def planes_words(rng, MC, M):
         args = to_dev(*myers_edges(rng, N, lq, lq + 72,
                                    edges=(0, 1, 31, lq - 1, lq)))
         key = MC.planes_counter(MC.planes_route(lq))
-        before = dict(MC.LAUNCHES)
+        before = launch_counts()
         got = MC.myers_batch_planes_cuda(*args)
-        if moved(before, MC.LAUNCHES) != {key: 1}:
+        if moved(before, launch_counts()) != {key: 1}:
             fail(f"K2s at W {W}: counters moved "
-                 f"{moved(before, MC.LAUNCHES)}, not {key} once")
+                 f"{moved(before, launch_counts())}, not {key} once")
         ref = M.myers_batch_planes(*args)
         errs[key] += planes_eq(f"K2s W {W} (N {N}, {key})", got, ref)
         if W > MC.REGISTER_MAX_WORDS:
@@ -785,9 +809,9 @@ def votes_check(label, MC, PU, ops, nb, lpad, min_identity, weighted,
     else:
         r = MC.votes_route(Lq, ops[1].shape[1])
         key = MC.votes_counter(r)
-        before = MC.LAUNCHES[key]
+        before = launch_counts()[key]
         got, _ = MC.myers_votes_cuda(got_m, *args, **kw)
-        if MC.LAUNCHES[key] != before + 1:
+        if launch_counts()[key] != before + 1:
             fail(f"K2' {label}: {key} did not count its launch")
     name = (f"K2' {label} ({'wide, ' if r.wl else ''}"
             f"{'scratch' if r.scratch else 'smem'}, "
@@ -1113,10 +1137,10 @@ def phase_k3(rng, AC, A, plains):
         Lq, Lt = q.shape[1], t.shape[1]
         r = AC.route(Lq, Lt, band)
         key = AC.ROUTE_COUNTER[r.kind]
-        before = dict(AC.LAUNCHES)
+        before = launch_counts()
         got = AC.banded_sw_batch_cuda(*args, band=band)
-        if moved(before, AC.LAUNCHES) != {key: 1} or AC.LAUNCHES[rows]:
-            fail(f"K3 {label}: counters moved {moved(before, AC.LAUNCHES)}"
+        if moved(before, launch_counts()) != {key: 1} or launch_counts()[rows]:
+            fail(f"K3 {label}: counters moved {moved(before, launch_counts())}"
                  f" on the {r.kind} route (the row counter must stay 0)")
         if Lq == LONG_SW_LQ:
             ref, sec = plain_ref(plains, f"sw{band}", A.SWResult)
@@ -1200,7 +1224,7 @@ def short_only_cfg():
 
 
 @contextlib.contextmanager
-def stage_launches(MC, into: dict, where=None, name="arbitrate_contigs"):
+def stage_launches(into: dict, where=None, name="arbitrate_contigs"):
     """Count the kernel launches made inside one of the pipeline's stages,
     by default the arbitrate stage: models/pipeline calls the stage's
     function `name` through the module `where` (models/arbitration, or
@@ -1213,12 +1237,12 @@ def stage_launches(MC, into: dict, where=None, name="arbitrate_contigs"):
     inner = getattr(where, name)
 
     def counted(*a, **kw):
-        before = dict(MC.LAUNCHES)
+        before = launch_counts()
         try:
             return inner(*a, **kw)
         finally:
-            for k, v in MC.LAUNCHES.items():
-                into[k] = into.get(k, 0) + v - before[k]
+            for k, v in (launch_counts() - before).items():
+                into[k] = into.get(k, 0) + v
 
     setattr(where, name, counted)
     try:
@@ -1245,13 +1269,13 @@ def run_judged(label: str, genome_len: int, MC, workdir: str,
     log(f"  simulated {pr_s.n_reads} short + {pr_l.n_reads} long reads "
         f"in {time.perf_counter() - t0:.1f} s (long pad {pr_l.pad_len}, "
         f"repeats {repeats}, circular {circular})")
-    MC.reset_launches()
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     arb = {}
-    with stage_launches(MC, arb):
+    with stage_launches(arb):
         res, wall = SR.run(pr_s, pr_l, SR.judged_cfg(),
                            os.path.join(workdir, label), device="cuda")
-    launches = dict(MC.LAUNCHES)
+    launches = launch_counts()
     log(f"  launches on the main path: {json.dumps(launches)}; in the "
         f"arbitrate stage: {json.dumps(arb)}")
     for name in ("myers_batch_cuda", "myers_votes_cuda"):
@@ -1322,12 +1346,12 @@ def phase_genomes(genome_len: int, kinds, MC, workdir: str):
         paths[f"phase 10 {kind} pipeline"], out, genome, polished = \
             run_judged(f"p10_{kind}", genome_len, MC, workdir,
                        repeats=repeats, circular=circular)
-        MC.reset_launches()
+        zero_launches()
         t1 = time.perf_counter()
         seg = segment_identity(polished, genome, device="cuda")
         torch.cuda.synchronize()
         seg["seconds"] = round(time.perf_counter() - t1, 3)
-        launches = dict(MC.LAUNCHES)
+        launches = launch_counts()
         paths[f"phase 10 {kind} segment_identity"] = launches
         ev = out["eval"]
         log(f"  phase 10 {kind}: " + json.dumps(dict(
@@ -1531,12 +1555,11 @@ def card_twin(name: str, workdir: str, MC, AC):
     launches it made)."""
     import torch
 
-    MC.reset_launches()
-    AC.reset_launches()
+    zero_launches()
     t0 = time.perf_counter()
     n = twin_run(name, os.path.join(workdir, "cuda"), "cuda")
     torch.cuda.synchronize()
-    launches = dict(MC.LAUNCHES, **AC.LAUNCHES)
+    launches = launch_counts()
     log(f"  {name} on cuda: {n} in {time.perf_counter() - t0:.1f} s; "
         f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
     if n == 0:
@@ -1582,7 +1605,7 @@ def phase_cpu_equal(workdir: str, MC, AC):
             pad = 320 if name.endswith("300") else 112
             want = {AC.ROUTE_COUNTER[k]
                     for k in config3_routes(AC, pad, cfg.band)}
-            if {k for k in AC.LAUNCHES if launches[k]} != want:
+            if {k for k in AC.ROUTE_COUNTER.values() if launches[k]} != want:
                 fail(f"{name} (pad {pad}) launched {launches}, not {want}")
 
 
@@ -1593,7 +1616,7 @@ def p8_band128_card(workdir: str, MC, AC):
     records against the CPU side's, which runs with the other twins."""
     _, launches = card_twin("p8_band128", workdir, MC, AC)
     want = {AC.ROUTE_COUNTER[k] for k in config3_routes(AC, 320, P8_BAND)}
-    if {k for k in AC.LAUNCHES if launches[k]} != want:
+    if {k for k in AC.ROUTE_COUNTER.values() if launches[k]} != want:
         fail(f"p8_band128 launched {launches}, not {want}")
 
 
@@ -1655,16 +1678,16 @@ def e_hybrid(MC, workdir: str):
                                           pr_s.pad_len + 64 + 8))
     log(f"  {pr_s.n_reads} short reads (pad {pr_s.pad_len}, W {W}) + "
         f"{pr_l.n_reads} long reads; K2''s route at W {W}: {key}")
-    MC.reset_launches()
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     corr, pol = {}, {}
     t0 = time.perf_counter()
-    with stage_launches(MC, corr, PL, "correct_long_reads"), \
-            stage_launches(MC, pol, PL, "polish_contigs"):
+    with stage_launches(corr, PL, "correct_long_reads"), \
+            stage_launches(pol, PL, "polish_contigs"):
         res, wall = SR.run(pr_s, pr_l, SR.judged_cfg(),
                            os.path.join(workdir, "e100_hybrid"),
                            device="cuda")
-    launches = dict(MC.LAUNCHES)
+    launches = launch_counts()
     metrics, _ = SR.scale_metrics(res, genome, pr_s, pr_l, wall,
                                   E_GENOME / 1e6, False, False)
     ev = metrics["eval"]
@@ -1693,13 +1716,13 @@ def e_short(MC, pr_s, pr_l, workdir: str):
     from hga_tpu_torch.models.pipeline import run_pipeline
 
     cross_cfg, short_cfg = e_cfgs()
-    MC.reset_launches()
+    zero_launches()
     t0 = time.perf_counter()
     ov = compute_overlaps_cross(pr_s, pr_l, cross_cfg, device="cuda")
     t1 = time.perf_counter()
     res = run_pipeline(pr_s, None, short_cfg,
                        os.path.join(workdir, "e100_short"), device="cuda")
-    launches = dict(MC.LAUNCHES)
+    launches = launch_counts()
     log(f"  e config 3: {ov.n} records in {t1 - t0:.1f} s; short-read-only "
         f"pipeline: {res.stats['overlaps']['n']} overlaps, "
         f"{len(res.polished)} contigs in {time.perf_counter() - t1:.1f} s; "
@@ -1716,7 +1739,7 @@ def e_bench(MC, AC):
     line with bench.py's keys in its order; K1' and K3' must move."""
     from hga_tpu_torch import bench
 
-    before = (dict(MC.LAUNCHES), dict(AC.LAUNCHES))
+    before = launch_counts()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = bench.main([])
@@ -1728,7 +1751,7 @@ def e_bench(MC, AC):
     if rc or list(line) != keys or line["metric"] != \
             "overlap_dp_gcups_per_chip" or line["scored_sw_impl"] != "cuda_k3":
         fail(f"hga_tpu_torch.bench printed {lines[-1]}")
-    got = {**moved(before[0], MC.LAUNCHES), **moved(before[1], AC.LAUNCHES)}
+    got = moved(before, launch_counts())
     if got.get("myers_batch_cuda", 0) <= 0 or \
             got.get("banded_sw_batch_cuda", 0) <= 0:
         fail(f"hga_tpu_torch.bench moved {got}, not K1' and K3'")
@@ -1742,9 +1765,9 @@ def e_graft(AC, A):
     from hga_tpu_torch import graft_entry as GE
 
     fn, args = GE.entry()
-    before = dict(AC.LAUNCHES)
+    before = launch_counts()
     got = fn(*args)
-    step = moved(before, AC.LAUNCHES)
+    step = moved(before, launch_counts())
     if step != {"banded_sw_batch_cuda": 1}:
         fail(f"graft_entry.entry()'s step moved {step}, not K3' once")
     ref = A.banded_sw_batch(*args, **fn.keywords)
@@ -1790,8 +1813,7 @@ def phase_wide(workdir: str, MC, AC, A, jobs):
                 launches["myers_votes_cuda_wide"] <= 0:
             fail(f"{name}: K2''s wide route did not move: {launches}")
         paths[f"phase e {name}, {E_CUT} bp"] = launches
-    MC.reset_launches()
-    AC.reset_launches()
+    zero_launches()
     paths["phase e hga_tpu_torch.bench"] = e_bench(MC, AC)
     g_moved, rank_launches, err = e_graft(AC, A)
     paths["phase e graft_entry.entry()"] = g_moved
@@ -1911,12 +1933,12 @@ def bench_correction_path(cli, MC):
     """`hga-torch bench --what correction --pairs 4096` through cli.main:
     both engines (K2' for myers, whose counter must move)."""
     buf = io.StringIO()
-    MC.reset_launches()
+    zero_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["bench", "--what", "correction", "--pairs", "4096"])
     res = json.loads(buf.getvalue().strip().splitlines()[-1])
-    launches = dict(MC.LAUNCHES)
+    launches = launch_counts()
     log(f"  bench correction ({time.perf_counter() - t0:.1f} s): "
         f"{json.dumps(res)}")
     if rc != 0 or set(res) != {"myers", "sw"}:
@@ -1968,13 +1990,13 @@ def phase_profile(cli, workdir: str, MC):
     write_reads(s, pr_s)
     write_reads(lr, pr_l)
     prof = os.path.join(workdir, "pb_prof")
-    MC.reset_launches()
+    zero_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         rc = cli.main(["correct", "--short", s, "--long", lr, "-k", "15",
                        "-w", "5", "--band", "64", "-o",
                        os.path.join(workdir, "pb_corr"), "--profile", prof])
-    launches = dict(MC.LAUNCHES)
+    launches = launch_counts()
     wall = time.perf_counter() - t0
     if rc != 0:
         fail(f"hga-torch correct --profile: rc {rc}")
@@ -2068,7 +2090,7 @@ def phase_carry(rng, MC, M):
 
     log("phase c: K1''s carried-state mode vs myers_cols, bit-exact")
     errs = []
-    before = MC.LAUNCHES["myers_batch_cuda_carry"]
+    before = launch_counts()["myers_batch_cuda_carry"]
     cases = [("segment_identity shape (W 13, shared row, 4 kb genome: "
               "Lt 8001)", segment_inputs(rng, 4_000)),
              ("long-overlap shape (W 14, per-pair rows: N 4096, Lq 414, "
@@ -2079,7 +2101,7 @@ def phase_carry(rng, MC, M):
               myers_edges(rng, 1024, 20, 64))]
     for label, x in cases:
         errs += carry_case(rng, MC, M, label, x)
-    moved = MC.LAUNCHES["myers_batch_cuda_carry"] - before
+    moved = launch_counts()["myers_batch_cuda_carry"] - before
     if moved <= 0:
         fail("myers_batch_cuda_carry did not count")
     log(f"  myers_batch_cuda_carry moved by {moved}")
@@ -2140,7 +2162,7 @@ def phase_carry_wide(rng, MC, M):
     spare word past the query: per-pair rows, N 2048, Lt = Lq + 72), and
     on the wide route at W 48 (per-pair rows) and W 40 (a shared row of
     6,000 columns: windows); myers_batch_cuda_carry must move."""
-    before = MC.LAUNCHES["myers_batch_cuda_carry"]
+    before = launch_counts()["myers_batch_cuda_carry"]
     errs = []
     for lq in (800, 1023, 1488):
         errs += carry_case(
@@ -2150,7 +2172,7 @@ def phase_carry_wide(rng, MC, M):
                                                  1023, lq)))
     errs += carry_case(rng, MC, M, "W 40 (shared row: N 200, Lq 1240, "
                        "Lt 6000)", shared_edges(rng, 200, 1240, 6000))
-    if MC.LAUNCHES["myers_batch_cuda_carry"] <= before:
+    if launch_counts()["myers_batch_cuda_carry"] <= before:
         fail("myers_batch_cuda_carry did not count at W 26, 33, 40, 48")
     return max(errs)
 
@@ -2172,18 +2194,18 @@ def _w_distributed(reads: str, outdir: str, genome_fa: str):
 
     pr_s = convert.load_corrected(os.path.join(reads, "short.npz"))
     pr_l = convert.load_corrected(os.path.join(reads, "long.npz"))
-    MC.reset_launches()
+    zero_launches()
     arb = {}
     t0 = time.perf_counter()
-    with stage_launches(MC, arb):
+    with stage_launches(arb):
         res = run_pipeline(pr_s, pr_l, judged_cfg(),
                            os.path.join(outdir, f"run{HP.pid()}"),
                            device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(MC.LAUNCHES)
+    launches = launch_counts()
     genome = "".join(r.seq for r in iter_records(genome_fa))
-    MC.reset_launches()
+    zero_launches()
     t1 = time.perf_counter()
     seg = segment_identity(res.polished, genome, device="cuda",
                            mesh=make_mesh())
@@ -2195,7 +2217,7 @@ def _w_distributed(reads: str, outdir: str, genome_fa: str):
                          for k, v in res.stats["stages"].items()},
                 correction_detail=res.stats.get("correction_detail"),
                 overlaps=res.stats.get("overlaps"),
-                segments=seg, segment_launches=dict(MC.LAUNCHES))
+                segments=seg, segment_launches=launch_counts())
 
 
 def run_cli(argv, nproc: int = 0, timeout: int = 600):
@@ -2257,7 +2279,7 @@ def phase_distributed(genome_len: int, workdir: str, p4: dict):
             "pipeline_s", "stage_s", "work", "launches",
             "arbitrate_launches", "correction_detail", "overlaps")}))
         for name in ("myers_batch_cuda", "myers_votes_cuda"):
-            if o["launches"][name] <= 0:
+            if o["launches"].get(name, 0) <= 0:
                 fail(f"rank {r}: {name} never launched in the pipeline")
         if k2v_launches(o["arbitrate_launches"]) <= 0:
             fail(f"rank {r}: K2' never launched in the arbitrate stage")
@@ -2307,7 +2329,7 @@ def phase_distributed(genome_len: int, workdir: str, p4: dict):
         if seg["segment_dist"] != one["segment_dist"]:
             fail(f"ring segment_dist {seg['segment_dist']} != one rank's "
                  f"{one['segment_dist']}")
-        if o["segment_launches"]["myers_batch_cuda_carry"] <= 0:
+        if o["segment_launches"].get("myers_batch_cuda_carry", 0) <= 0:
             fail(f"rank {r}: the ring did not launch the carried-state mode")
         paths[f"phase c ring segment_identity, rank {r}"] = \
             o["segment_launches"]
@@ -2383,13 +2405,13 @@ def run_script(name: str, argv, MC, show: int = 40):
     import torch
 
     mod = importlib.import_module(f"hga_tpu_torch.exp.{name}")
-    MC.reset_launches()
+    zero_launches()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf), script_logging():
         ret = mod.main(list(argv))
     torch.cuda.synchronize()
-    launches = dict(MC.LAUNCHES)
+    launches = launch_counts()
     text = buf.getvalue()
     lines = text.splitlines()
     log(f"  {' '.join([name, *argv])}: {time.perf_counter() - t0:.1f} s, "
@@ -2617,15 +2639,15 @@ def phase_config3(genome_len: int, MC, AC, read_len: int = 100,
     log(f"  {pr_s.n_reads} short (pad {pr_s.pad_len}, band {cfg.band}: SW "
         f"routes {sorted(routes)}) + {pr_l.n_reads} long reads "
         f"({time.perf_counter() - t0:.1f} s to simulate or reuse)")
-    MC.reset_launches()
-    AC.reset_launches()
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rec = OV.compute_overlaps_cross(pr_s, pr_l, cfg, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(MC.LAUNCHES, **AC.LAUNCHES)
-    for name in ("myers_batch_cuda", *(AC.ROUTE_COUNTER[r] for r in routes)):
+    launches = launch_counts()
+    for name in ("myers_batch_cuda",
+                 *(AC.ROUTE_COUNTER[r] for r in routes)):
         if launches[name] <= 0:
             fail(f"{name} was never launched on the config-3 path")
     for kind, name in AC.ROUTE_COUNTER.items():
@@ -2671,7 +2693,7 @@ def config3_routes(AC, pad: int, band: int) -> set:
 
 
 def time_row(shape, wrapper, sets, kernel, kernel_sets, plain, cells, ops,
-             nbytes, counters, plain_ms=None):
+             nbytes, plain_ms=None):
     """CUDA-event times of a wrapper and of its kernel alone (20 calls over
     distinct input sets, warm) and of the plain version (one call, or
     `plain_ms` where the caller timed that call), the bound from `ops`
@@ -2680,13 +2702,12 @@ def time_row(shape, wrapper, sets, kernel, kernel_sets, plain, cells, ops,
     restored."""
     from hga_tpu_torch.utils import benchmarks as B
 
-    before = [dict(c) for c in counters]
+    before = launch_counts()
     ms = B.cuda_ms(wrapper, sets, 20)
     kern_ms = B.cuda_ms(kernel, kernel_sets, 20)
     if plain_ms is None and plain is not None:
         plain_ms = one_call_ms(plain, sets[0])
-    for c, b in zip(counters, before):
-        c.update(b)
+    restore(before)
     bound, by = B.bound_ms(ops, nbytes)
     row = dict(shape=shape, ms=ms, kernel_ms=kern_ms, plain_ms=plain_ms,
                bound_ms=bound, bound_by=by,
@@ -2733,7 +2754,7 @@ def gate_row(MC, M, sets):
     row = time_row(dict(N=N, Lq=Lq, Lt=Lt, W=W, G=G), MC.myers_batch_cuda,
                    sets, MC.run_kernel,
                    [MC.kernel_operands(*a, group=G) for a in sets],
-                   M.myers_batch, cells, ops, nbytes, [MC.LAUNCHES])
+                   M.myers_batch, cells, ops, nbytes)
     row.update(zip(("registers", "local_bytes"), MC.kernel_attrs(W, group=G)),
                blocks=MC.gate_blocks(N, G), designs={})
     for g in MC.gate_designs(W):
@@ -2769,12 +2790,12 @@ def shared_row(rng, MC, M, genome_len: int):
     shape, ops, nbytes = cost(cut)
     cut_row = time_row(shape, MC.myers_batch_cuda, cut, MC.run_kernel,
                        [MC.kernel_operands(*a) for a in cut], M.myers_batch,
-                       0, ops, nbytes, [MC.LAUNCHES])
+                       0, ops, nbytes)
     full = [to_dev(*segment_inputs(rng, genome_len)) for _ in range(2)]
     shape, ops, nbytes = cost(full)
-    before = dict(MC.LAUNCHES)
+    before = launch_counts()
     ms = B.cuda_ms(MC.myers_batch_cuda, full, 3)
-    MC.LAUNCHES.update(before)
+    restore(before)
     row = dict(shape=shape, ms=ms, plain_ms=cut_row["plain_ms"],
                plain_shape=cut_row["shape"], cut_shape=cut_row)
     row.update(window_times(MC, M, full, ops, nbytes, MC.kernel_operands,
@@ -2818,12 +2839,12 @@ def carry_row(rng, MC, M, genome_len: int, P: int = 2):
     shape, ops, nbytes = cost(cut)
     cut_row = time_row(shape, MC.myers_cols_cuda, cut, MC.run_carry_kernel,
                        [MC.carry_operands(*a) for a in cut], plain, 0, ops,
-                       nbytes, [MC.LAUNCHES])
+                       nbytes)
     full = sets_of(genome_len)
     shape, ops, nbytes = cost(full)
-    before = dict(MC.LAUNCHES)
+    before = launch_counts()
     ms = B.cuda_ms(MC.myers_cols_cuda, full, 3)
-    MC.LAUNCHES.update(before)
+    restore(before)
     row = dict(shape=shape, ms=ms, plain_ms=cut_row["plain_ms"],
                plain_shape=cut_row["shape"], cut_shape=cut_row)
     row.update(window_times(MC, M, full, ops, nbytes, MC.carry_operands,
@@ -2896,10 +2917,10 @@ def wide_rows(rng, MC, M, PU):
         sets = sets_of(4096, Lq)
         N, Lt = 4096, Lq + 72
         cells, ops, nbytes = myers_cost(N, Lq, Lt, False)
-        before = dict(MC.LAUNCHES)
+        before = launch_counts()
         reps = 3 if Lq > 4000 else 20
         ms = B.cuda_ms(MC.myers_batch_cuda, sets, reps)
-        MC.LAUNCHES.update(before)
+        restore(before)
         variants = [("wide", dict(wide=True))]
         if name == "W100":
             variants.append(("wide, words in the scratch",
@@ -3018,7 +3039,7 @@ def planes_row(MC, M, sets, thread: bool = False, plain: bool = True):
                         ring=r.ring, forced=thread), wrapper, sets,
                    MC.run_planes_kernel, kernel_sets,
                    M.myers_batch_planes if plain else None,
-                   *myers_cost(N, Lq, Lt, True), [MC.LAUNCHES])
+                   *myers_cost(N, Lq, Lt, True))
     del kernel_sets
     row.update(zip(("registers", "local_bytes"),
                    MC.kernel_attrs(W, planes=True, thread=thread)),
@@ -3148,7 +3169,7 @@ def votes_row(MC, PU, sets, nb, lpad, min_identity, plain_sets=None):
     held = len(sets) if plain_sets is None else plain_sets
     steps = votes = gated = 0
     plain_ms = None
-    before = dict(MC.LAUNCHES)
+    before = launch_counts()
     for i, a in enumerate(sets):      # the work of this run's data
         m = torch.zeros(size_all + 1, dtype=torch.int32, device="cuda")
         if i < held:
@@ -3175,7 +3196,7 @@ def votes_row(MC, PU, sets, nb, lpad, min_identity, plain_sets=None):
         gated += int(ok.sum()) / len(sets)
         steps += int((ql.long() + res.dist)[ok].sum()) / len(sets)
         votes += int(m[:size_all].sum()) / len(sets)
-    MC.LAUNCHES.update(before)
+    restore(before)
     cells, ops, nbytes = myers_cost(N, Lq, Lt, False)
     ops += steps * B.OPS_PER_WALK_STEP
     nbytes += 4 * 3 * N + 4 * votes
@@ -3190,7 +3211,7 @@ def votes_row(MC, PU, sets, nb, lpad, min_identity, plain_sets=None):
         lambda *a: MC.myers_votes_cuda(merged, *a, **kw), sets,
         MC.run_votes_kernel, [MC.votes_operands(merged, *a, **kw)
                               for a in sets],
-        None, cells, ops, nbytes, [MC.LAUNCHES], plain_ms=plain_ms)
+        None, cells, ops, nbytes, plain_ms=plain_ms)
     regs, local, blocks = MC.votes_attrs(r)
     row.update(registers=regs, local_bytes=local, smem_per_block=r.smem,
                blocks_per_sm=blocks, pairs_per_block=r.pairs,
@@ -3223,7 +3244,7 @@ def votes_times(rng, MC, PU, CR):
         kernel_ms=ms, pct_of_bound=100 * row["bound_ms"] / ms,
         registers=regs, local_bytes=local, smem_per_block=rs.smem,
         blocks_per_sm=blocks)
-    n_before = dict(MC.LAUNCHES)
+    n_before = launch_counts()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     prep_ms = votes_ms = host_ms = 0.0
     reps = 8
@@ -3239,7 +3260,7 @@ def votes_times(rng, MC, PU, CR):
             host_ms += 1e3 * (time.perf_counter() - t0) / reps
             prep_ms += ev[0].elapsed_time(ev[1]) / reps
             votes_ms += ev[1].elapsed_time(ev[2]) / reps
-    MC.LAUNCHES.update(n_before)
+    restore(n_before)
     split = dict(prep_ms=round(prep_ms, 4), votes_ms=round(votes_ms, 4),
                  batch_ms=round(prep_ms + votes_ms, 4),
                  prep_share=round(prep_ms / (prep_ms + votes_ms), 4),
@@ -3328,7 +3349,7 @@ def sw_row(AC, A, sets, band, kind=None, beside=None, plain_ms=None):
         wrapper, dev_sets, AC.run_kernel, kernel_sets,
         lambda *x: A.banded_sw_batch(*x, band=band), cells,
         cells * B.SW_OPS_PER_CELL, 4 * N * (Lq + Lt) + 8 * N + 12 * N,
-        [AC.LAUNCHES], plain_ms=plain_ms)
+        plain_ms=plain_ms)
     row.update(zip(("registers", "local_bytes"), AC.kernel_attrs(r)),
                K=r.K, warps=r.warps, nw=r.nw, smem=r.smem,
                warps_per_sm=AC.warps_per_sm(r))
@@ -3572,7 +3593,7 @@ X1_TIMES = ((4096, 31, 192, 32, 8), (8192, 128, 192, 32, 8),
 X2_TIMES = ((4096, 1000, 1072, 64), (4096, 320, 392, 300))
 
 
-def x_more_rows(MM, SV, M, A, MC, AC, counters):
+def x_more_rows(MM, SV, M, A, MC, AC):
     """X1 and X2 at X1_TIMES and X2_TIMES: kernel and wrapper ms (CUDA
     events, 20 launches on 2 input sets, warm), bound and share, registers,
     the layout, and K1' or K3's route's kernel on the same inputs.  Their
@@ -3582,7 +3603,7 @@ def x_more_rows(MM, SV, M, A, MC, AC, counters):
 
     from hga_tpu_torch.utils import benchmarks as B
 
-    before = [dict(c) for c in counters]
+    before = launch_counts()
     x1 = []
     for N, Lq, Lt, BLK, S in X1_TIMES:
         ops, (q, t, ql, tl) = MM.prep(N, Lq, Lt, "cuda")
@@ -3637,8 +3658,7 @@ def x_more_rows(MM, SV, M, A, MC, AC, counters):
                 **dict(zip(("registers", "local_bytes"),
                            SV.kernel_attrs(v, Lq, Lt, band)))))
             log(f"  X2 {json.dumps(x2[-1])}")
-    for c, b in zip(counters, before):
-        c.update(b)
+    restore(before)
     return x1, x2
 
 
@@ -3652,7 +3672,6 @@ def x_times(x3_rows, x1_rows, sv_rows, VM, MM, SV, M, A, MC, AC):
 
     from hga_tpu_torch.utils import benchmarks as B
 
-    counters = [VM.LAUNCHES, MM.LAUNCHES, SV.LAUNCHES]
     rows = {}
     # X1 at the harness's first shape (N 4096, Lq 128, Lt 192, W 5)
     N, Lq, Lt, BLK, S = MM.SHAPES[0]
@@ -3667,7 +3686,7 @@ def x_times(x3_rows, x1_rows, sv_rows, VM, MM, SV, M, A, MC, AC):
         lambda ql, tl, q0, q1, vq, mend, t: M.myers_batch_from_planes(
             q0, q1, vq, mend, t, ql, tl),
         N * Lq * Lt, N * Lt * W * B.OPS_PER_WORD_COLUMN,
-        16 * N * W + 4 * N * Lt + 8 * N + 8 * N, counters)
+        16 * N * W + 4 * N * Lt + 8 * N + 8 * N)
     rows["run_b_cuda"].update(zip(("registers", "local_bytes"),
                                   MM.kernel_attrs(W)))
     g = MM.slab_geometry(N, W, S, BLK)
@@ -3693,8 +3712,7 @@ def x_times(x3_rows, x1_rows, sv_rows, VM, MM, SV, M, A, MC, AC):
             lambda *a: SV.run_kernel(*a, variant=v, band=band),
             [(*a, o) for a, o in zip(sets, outs)],
             lambda *a: A.banded_sw_batch(*a, band=band), cells,
-            cells * B.SW_OPS_PER_CELL, 4 * N * (Lq + Lt) + 8 * N + 12 * N,
-            counters)
+            cells * B.SW_OPS_PER_CELL, 4 * N * (Lq + Lt) + 8 * N + 12 * N)
         rows[f"sw_variants_{v}"].update(zip(("registers", "local_bytes"),
                                             SV.kernel_attrs(v, Lq, Lt, band)))
         p = SV.plan(v, N, Lq, Lt, band)
@@ -3709,7 +3727,7 @@ def x_times(x3_rows, x1_rows, sv_rows, VM, MM, SV, M, A, MC, AC):
     rows["sw_variants_v3"]["v3g2"] = {
         k: r[k] for r in sv_rows if r["variant"] == "v3g2"
         for k in ("ms", "kernel_ms", "gcups", "swept", "in_band")}
-    x1, x2 = x_more_rows(MM, SV, M, A, MC, AC, counters)
+    x1, x2 = x_more_rows(MM, SV, M, A, MC, AC)
     rows["run_b_cuda"]["more"] = x1
     for v in ("v1", "v2", "v3"):
         rows[f"sw_variants_{v}"]["more"] = [r for r in x2
@@ -3732,7 +3750,7 @@ def x_times(x3_rows, x1_rows, sv_rows, VM, MM, SV, M, A, MC, AC):
         lambda x, o: VM.run_kernel(x, C, steps, o),
         [(x, o) for (x,), o in zip(xs, outs)],
         lambda x: VM.chains(x.repeat(reps, 1), C, steps), 0,
-        instr * elems, 8 * elems, counters)
+        instr * elems, 8 * elems)
     rows["vpu_chains_cuda"].update(
         zip(("registers", "local_bytes"), VM.kernel_attrs(C, steps)),
         lane_ops_per_s=best["lane_ops_per_s"],
@@ -3756,31 +3774,30 @@ def phase_measurement(rng, VM, MM, SV, M, A, MC, AC, cuda_build):
     dpx = sass_dpx(cuda_build)
     log(f"  X2 SASS integer max / add-max instructions: {json.dumps(dpx)}")
     # the harnesses as a user runs them: python -m hga_tpu_torch.exp.<name>
-    for mod in (VM, MM, SV):
-        mod.reset_launches()
+    before = launch_counts()
     t0 = time.perf_counter()
     x3_rows = VM.main([])
     x1_rows = MM.main([])
     sv_rows = SV.main(["--time", "--variants",
                        "v1,v2,v3,v3g2,v1nots,v1nos1,v1nomask,v1nobest"])
-    harness = dict(VM.LAUNCHES, **MM.LAUNCHES, **{
-        f"sw_variants_{k}": n for k, n in SV.LAUNCHES.items()})
+    # the harness kernels' launches alone: main() times K1' and K3' beside
+    # them, and a timing loop's launches are no path's
+    got = launch_counts() - before
+    harness = {name: got[name] for name in (
+        "vpu_chains_cuda", "run_b_cuda", *SV.COUNTER.values())}
     log(f"  harnesses ({time.perf_counter() - t0:.1f} s), launches: "
         f"{json.dumps(harness)}")
-    for name in ("vpu_chains_cuda", "run_b_cuda", "sw_variants_v1",
-                 "sw_variants_v2", "sw_variants_v3",
-                 "sw_variants_v1_ablation"):
-        if harness[name] <= 0:
+    for name, n in harness.items():
+        if n <= 0:
             fail(f"{name} was never launched by the harnesses")
     if not all(r["ok"] for r in x1_rows):
         fail("myers_micro main(): X1 differs from the plain version")
     if not all("share" in r for r in x3_rows if "C" in r):
         fail("vpu_micro main(): no SASS add/max count")
-    MC.reset_launches()
-    AC.reset_launches()
+    zero_launches()
     t0 = time.perf_counter()
     bench = bench_path(cli)
-    launches = dict(MC.LAUNCHES, **AC.LAUNCHES)
+    launches = launch_counts()
     log(f"  bench ({time.perf_counter() - t0:.1f} s), launches: "
         f"{json.dumps(launches)}")
     for name in ("myers_batch_cuda", "banded_sw_batch_cuda"):

@@ -44,11 +44,9 @@ from hga_tpu_torch.ops.myers import (MyersResult, myers_batch,
                                      myers_batch_from_planes, n_words,
                                      query_planes)
 from hga_tpu_torch.ops import myers_cuda as MC
+from hga_tpu_torch.utils import spans
 from hga_tpu_torch.utils.benchmarks import time_ms
 from hga_tpu_torch.utils.device import resolve_device
-
-# launches of the kernel by its wrapper (reset with reset_launches())
-LAUNCHES: Dict[str, int] = {"run_b_cuda": 0}
 
 SMEM_MAX = 232448 - 32 * 2 * 8  # dynamic shared memory a block (227 KB less
                                 # the kernel's 32 x 2 mbarriers)
@@ -57,11 +55,6 @@ REGISTER_WORDS = 4              # words a lane kept in registers (W <= 128)
 PLANES = 6                      # q0, q1, vq, mend, pv, mv: a word's state
 
 _LIB: Optional[ctypes.CDLL] = None
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -203,8 +196,8 @@ def run_b(qlen: torch.Tensor, tlen: torch.Tensor, q0: torch.Tensor,
         return myers_batch_from_planes(q0, q1, vq, mend, t, qlen, tlen)
     *ops, outs = kernel_operands(qlen, tlen, q0, q1, vq, mend, t, S, BLK)
     if t.shape[0]:
-        run_kernel(*ops, outs, S, BLK)
-        LAUNCHES["run_b_cuda"] += 1
+        with spans.launch("run_b_cuda"):
+            run_kernel(*ops, outs, S, BLK)
     return MyersResult(*outs)
 
 

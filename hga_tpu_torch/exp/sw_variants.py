@@ -54,11 +54,14 @@ from hga_tpu_torch.ops import cuda_build
 from hga_tpu_torch.ops.align import (SWResult, banded_sw_batch, check_scores,
                                      sw_cells)
 from hga_tpu_torch.ops import align_cuda as AC
+from hga_tpu_torch.utils import spans
 from hga_tpu_torch.utils.benchmarks import time_ms
 from hga_tpu_torch.utils.device import resolve_device
 
-# launches of each variant's kernel by the wrapper (reset_launches())
-LAUNCHES: Dict[str, int] = {"v1": 0, "v2": 0, "v3": 0, "v1_ablation": 0}
+# the name of each variant's launches by the wrapper (spans.launch); v1's
+# timing ablations count apart
+COUNTER = {"v1": "sw_variants_v1", "v2": "sw_variants_v2",
+           "v3": "sw_variants_v3", "v1_ablation": "sw_variants_v1_ablation"}
 
 SMEM_MAX = 232448              # shared memory a block may opt in to (227 KB)
 I16_MAX = 32767
@@ -74,11 +77,6 @@ BUILT = ([("registers", k, 0) for k in REG_KS]
          + [("packed", h, 0) for h in PACKED_HS] + [("memory", 0, 0)])
 
 _LIB: Optional[ctypes.CDLL] = None
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -236,9 +234,9 @@ def sw_pallas_exp(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
     outs = tuple(torch.zeros(N, dtype=torch.int32, device=q.device)
                  for _ in range(3))
     if N and Lq and Lt:
-        run_kernel(q, t, qlen, tlen, outs, variant, band, match, mismatch,
-                   gap, pair_tile)
-        LAUNCHES["v1_ablation" if flags else variant[:2]] += 1
+        with spans.launch(COUNTER["v1_ablation" if flags else variant[:2]]):
+            run_kernel(q, t, qlen, tlen, outs, variant, band, match,
+                       mismatch, gap, pair_tile)
     return SWResult(*outs)
 
 

@@ -37,11 +37,9 @@ import numpy as np
 import torch
 
 from hga_tpu_torch.ops import cuda_build
+from hga_tpu_torch.utils import spans
 from hga_tpu_torch.utils.benchmarks import INT32_OPS_PER_S, time_ms
 from hga_tpu_torch.utils.device import resolve_device
-
-# launches of the kernel by its wrapper (reset with reset_launches())
-LAUNCHES: Dict[str, int] = {"vpu_chains_cuda": 0}
 
 THREADS = 128                 # one element a thread (csrc kThreads)
 RESIDENT_THREADS_PER_SM = 2048
@@ -52,11 +50,6 @@ ADD_MAX_OPS = ("IADD3", "IADD", "VIADD", "IMNMX", "VIMNMX", "VIADDMNMX")
 BF16_TFLOPS = 989.0           # H100 SXM dense bf16 (NVIDIA data sheet)
 
 _LIB: Optional[ctypes.CDLL] = None
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -136,8 +129,8 @@ def vpu_chains_cuda(x: torch.Tensor, C: int = 1, steps: int = 2048,
         raise ValueError(f"no kernel for C={C}, STEPS={steps}: built "
                          f"{sorted(BUILT)}")
     out = torch.empty((reps, *x.shape), dtype=torch.int32, device=x.device)
-    run_kernel(x, C, steps, out)
-    LAUNCHES["vpu_chains_cuda"] += 1
+    with spans.launch("vpu_chains_cuda"):
+        run_kernel(x, C, steps, out)
     return out
 
 

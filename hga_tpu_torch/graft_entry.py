@@ -73,16 +73,14 @@ def _dryrun_rank(device: str) -> Dict:
     from hga_tpu_torch.config import AssemblerConfig
     from hga_tpu_torch.io.encode import pack_reads
     from hga_tpu_torch.models.pipeline import run_pipeline
-    from hga_tpu_torch.ops import align_cuda as AC
     from hga_tpu_torch.ops import count as C
-    from hga_tpu_torch.ops import myers_cuda as MC
     from hga_tpu_torch.ops.align import SWResult
     from hga_tpu_torch.ops.kmer import words_to_tensor
     from hga_tpu_torch.ops.myers_cuda import myers_batch_cuda
     from hga_tpu_torch.parallel import collectives as PC
     from hga_tpu_torch.parallel.mesh import make_mesh, shard_batch_fn
     from hga_tpu_torch.parallel.ring_myers import myers_ring
-    from hga_tpu_torch.utils import sim
+    from hga_tpu_torch.utils import sim, spans
 
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -161,8 +159,7 @@ def _dryrun_rank(device: str) -> Dict:
     assert res.polished and all(len(s) > 0 for _, s in res.polished)
 
     lst = lambda x: x.cpu().tolist()
-    launches = {k: v for L in (MC.LAUNCHES, AC.LAUNCHES)
-                for k, v in L.items() if v}
+    launches = {k: v for k, v in spans.launches().items() if v}
     return dict(hist=lst(hist), hist_bucketed=lst(hist_b),
                 overflow=int(overflow), overflow_bucketed=int(of_b),
                 sw_score=lst(sw.score), sw_qend=lst(sw.qend),

@@ -39,7 +39,6 @@ for XLA compiles, and the output does not depend on the pad.
 from __future__ import annotations
 
 import logging
-import time
 from typing import List, Tuple
 
 import numpy as np
@@ -50,6 +49,7 @@ from hga_tpu_torch.io.encode import (PackedReads, decode_bases, pack_reads,
 from hga_tpu_torch.models.overlap_long import (_argsort_keys,
                                                _chain_representatives)
 from hga_tpu_torch.models.seeding import extract_seed_entries
+from hga_tpu_torch.utils import spans
 from hga_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -238,28 +238,28 @@ def arbitrate_contigs(
     from hga_tpu_torch.models.correction import consensus_backbones
 
     dev = resolve_device(device)
-    t0 = time.perf_counter()
-    seqs = [s for _, s in contigs]
-    pr_c = pack_reads(seqs, names=[n for n, _ in contigs],
-                      category=np.ones(len(seqs), np.int32),
-                      pad_len=_contig_pad(max(len(s) for s in seqs)))
-    if rare_cap <= 0:
-        cov_l = float(pr_long.length.sum()) / max(1, sum(map(len, seqs)))
-        rare_cap = max(6, int(1.6 * cov_l) + 2)
-    q, t, rel, pos_q, pos_t = _place_long_reads(pr_long, pr_c, cfg, rare_cap,
-                                                device=dev)
-    if q.size == 0:
-        log.info("arbitration: no placeable long reads — contigs unchanged")
-        return contigs
-    rq, rt, rrel, rpq, rpt, rgid, _ = _chain_representatives(
-        q, t, rel, pos_q, pos_t, cfg.min_shared_minimizers)
-    if rq.size == 0:
-        return contigs
-    read, contig, crel, qa, qb, dd = _chunk_table(
-        rq, rt, rrel, rpq, rpt, rgid,
-        pr_long.length.astype(np.int64), pr_c.length.astype(np.int64),
-        cfg.k)
-    t_place = time.perf_counter() - t0
+    with spans.span("arbitration.place") as sp_place:
+        seqs = [s for _, s in contigs]
+        pr_c = pack_reads(seqs, names=[n for n, _ in contigs],
+                          category=np.ones(len(seqs), np.int32),
+                          pad_len=_contig_pad(max(len(s) for s in seqs)))
+        if rare_cap <= 0:
+            cov_l = float(pr_long.length.sum()) / max(1, sum(map(len, seqs)))
+            rare_cap = max(6, int(1.6 * cov_l) + 2)
+        q, t, rel, pos_q, pos_t = _place_long_reads(pr_long, pr_c, cfg,
+                                                    rare_cap, device=dev)
+        if q.size == 0:
+            log.info("arbitration: no placeable long reads — contigs "
+                     "unchanged")
+            return contigs
+        rq, rt, rrel, rpq, rpt, rgid, _ = _chain_representatives(
+            q, t, rel, pos_q, pos_t, cfg.min_shared_minimizers)
+        if rq.size == 0:
+            return contigs
+        read, contig, crel, qa, qb, dd = _chunk_table(
+            rq, rt, rrel, rpq, rpt, rgid,
+            pr_long.length.astype(np.int64), pr_c.length.astype(np.int64),
+            cfg.k)
 
     # drop degenerate chunks (shorter than a seed — nothing to vote)
     keep_c = (qb - qa) >= max(32, cfg.k)
@@ -271,30 +271,31 @@ def arbitrate_contigs(
     # materialize chunk reads (host; raw codes sliced from the long plane
     # via FLAT indexing — a codes[read] row gather would materialize
     # (n_chunks, Lpad) for nothing)
-    t1 = time.perf_counter()
-    codes = unpack_codes(pr_long.packed)
-    Lp = codes.shape[1]
-    flat = codes.reshape(-1)
-    clen = (qb - qa).astype(np.int64)
-    pad_k = ((CHUNK + cfg.k + 15) // 16) * 16
-    xs = np.arange(pad_k)[None, :]
-    gidx = read[:, None] * Lp + np.clip(xs + qa[:, None], 0, Lp - 1)
-    win = np.where(xs < clen[:, None], flat[gidx], 0).astype(np.uint8)
-    chunk_seqs = [decode_bases(win[i, :clen[i]]) for i in range(win.shape[0])]
-    pr_chunks = pack_reads(chunk_seqs, pad_len=pad_k)
-    t_mat = time.perf_counter() - t1
+    with spans.span("arbitration.mat") as sp_mat:
+        codes = unpack_codes(pr_long.packed)
+        Lp = codes.shape[1]
+        flat = codes.reshape(-1)
+        clen = (qb - qa).astype(np.int64)
+        pad_k = ((CHUNK + cfg.k + 15) // 16) * 16
+        xs = np.arange(pad_k)[None, :]
+        gidx = read[:, None] * Lp + np.clip(xs + qa[:, None], 0, Lp - 1)
+        win = np.where(xs < clen[:, None], flat[gidx], 0).astype(np.uint8)
+        chunk_seqs = [decode_bases(win[i, :clen[i]])
+                      for i in range(win.shape[0])]
+        pr_chunks = pack_reads(chunk_seqs, pad_len=pad_k)
 
-    t2 = time.perf_counter()
-    cands = (np.arange(len(chunk_seqs), dtype=np.int32),
-             contig.astype(np.int32), crel.astype(np.int32),
-             dd.astype(np.int32))
-    arb_cfg = cfg.replace(min_pileup_depth=cfg.arb_min_depth)
-    out = consensus_backbones(pr_c, pr_chunks, arb_cfg, device=dev,
-                              cands=cands, mesh=mesh)
-    t_vote = time.perf_counter() - t2
+    with spans.span("arbitration.vote") as sp_vote:
+        cands = (np.arange(len(chunk_seqs), dtype=np.int32),
+                 contig.astype(np.int32), crel.astype(np.int32),
+                 dd.astype(np.int32))
+        arb_cfg = cfg.replace(min_pileup_depth=cfg.arb_min_depth)
+        out = consensus_backbones(pr_c, pr_chunks, arb_cfg, device=dev,
+                                  cands=cands, mesh=mesh)
     LAST_TIMINGS.clear()
-    LAST_TIMINGS.update(place_s=round(t_place, 3), mat_s=round(t_mat, 3),
-                        vote_s=round(t_vote, 3), n_chunks=len(chunk_seqs),
+    LAST_TIMINGS.update(place_s=round(sp_place.seconds, 3),
+                        mat_s=round(sp_mat.seconds, 3),
+                        vote_s=round(sp_vote.seconds, 3),
+                        n_chunks=len(chunk_seqs),
                         rare_cap=rare_cap)
     log.info("arbitration: %s", LAST_TIMINGS)
     return [(n, s) for (n, _), s in zip(contigs, out)]

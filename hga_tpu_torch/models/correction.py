@@ -32,7 +32,6 @@ are order-free int32 adds, so the buffer is the one-device buffer.
 from __future__ import annotations
 
 import logging
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -49,6 +48,7 @@ from hga_tpu_torch.ops.kmer import unpack_bases, words_to_tensor
 from hga_tpu_torch.ops.myers_cuda import myers_votes_cuda
 from hga_tpu_torch.ops.pairs import candidate_pairs
 from hga_tpu_torch.parallel import hostpart as HP
+from hga_tpu_torch.utils import spans
 from hga_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -296,14 +296,13 @@ def consensus_backbones(
     if min_score is None:
         min_score = cfg.min_overlap_score
 
-    t_cand0 = time.perf_counter()
-    if cands is not None:
-        a, b, rel, diag = cands
-    else:
-        a, b, rel, diag = find_candidates_cross(
-            reads, backbones, cfg, solid=solid, seed_index=seed_index,
-            device=dev)
-    t_cand = time.perf_counter() - t_cand0
+    with spans.span("correction.cand") as sp_cand:
+        if cands is not None:
+            a, b, rel, diag = cands
+        else:
+            a, b, rel, diag = find_candidates_cross(
+                reads, backbones, cfg, solid=solid, seed_index=seed_index,
+                device=dev)
     log.info("correction: %d read->backbone candidates for %d backbones",
              len(a), nb)
     batch_pairs = min(batch_pairs,
@@ -341,38 +340,38 @@ def consensus_backbones(
 
     bytes_up = 0
     t_prep = 0.0
-    t_loop0 = time.perf_counter()
-    for s in range(0, len(a), batch_pairs):
-        t_b0 = time.perf_counter()
-        aa = a[s : s + batch_pairs].astype(np.int64)
-        bb = b[s : s + batch_pairs].astype(np.int64)
-        rr = rel[s : s + batch_pairs].astype(np.int64)
-        dd = diag[s : s + batch_pairs].astype(np.int64)
-        nbatch = aa.shape[0]
-        P = batch_pairs
-        if nbatch < P:
-            padn = P - nbatch
-            aa = np.pad(aa, (0, padn))
-            bb = np.pad(bb, (0, padn))
-            rr = np.pad(rr, (0, padn))
-            dd = np.pad(dd, (0, padn))
-        args = _prep(cfg.band, Lq, Wt, r_dev, rlen_dev, rqw_dev, b_dev,
-                     blen_dev, i64(aa), i64(bb), i64(rr), i64(dd), nbatch)
-        merged = step(merged, *args)
-        bytes_up += 4 * 4 * P
-        t_prep += time.perf_counter() - t_b0
+    with spans.span("correction.loop") as sp_loop:
+        for s in range(0, len(a), batch_pairs):
+            with spans.span("correction.batch") as sp:
+                aa = a[s : s + batch_pairs].astype(np.int64)
+                bb = b[s : s + batch_pairs].astype(np.int64)
+                rr = rel[s : s + batch_pairs].astype(np.int64)
+                dd = diag[s : s + batch_pairs].astype(np.int64)
+                nbatch = aa.shape[0]
+                P = batch_pairs
+                if nbatch < P:
+                    padn = P - nbatch
+                    aa = np.pad(aa, (0, padn))
+                    bb = np.pad(bb, (0, padn))
+                    rr = np.pad(rr, (0, padn))
+                    dd = np.pad(dd, (0, padn))
+                args = _prep(cfg.band, Lq, Wt, r_dev, rlen_dev, rqw_dev,
+                             b_dev, blen_dev, i64(aa), i64(bb), i64(rr),
+                             i64(dd), nbatch)
+                merged = step(merged, *args)
+                bytes_up += 4 * 4 * P
+            t_prep += sp.seconds
 
-    t_drain0 = time.perf_counter()
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t_drain = time.perf_counter() - t_drain0
+        with spans.span("correction.drain") as sp_drain:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
     LAST_TIMINGS.clear()
     LAST_TIMINGS.update(
-        cand_s=round(t_cand, 3), n_pairs=len(a),
+        cand_s=round(sp_cand.seconds, 3), n_pairs=len(a),
         n_batches=-(-len(a) // batch_pairs) if len(a) else 0,
         host_prep_s=round(t_prep, 3),
-        loop_s=round(time.perf_counter() - t_loop0, 3),
-        drain_s=round(t_drain, 3), dev_prep=True,
+        loop_s=round(sp_loop.seconds, 3),
+        drain_s=round(sp_drain.seconds, 3), dev_prep=True,
         bytes_up=bytes_up)
     log.info("correction consensus: %s", LAST_TIMINGS)
 
@@ -493,15 +492,14 @@ def _correct_once(pr_short: PackedReads, pr_long: PackedReads,
         groups = [g[slice(*HP.block_range(len(g)))] for g in groups]
     whole = partition or len(groups) > 1
 
-    t_idx0 = time.perf_counter()
-    if whole and kw.get("seed_index") is None:
-        from hga_tpu_torch.models.overlap_long import build_seed_index
+    with spans.span("correction.index") as sp_idx:
+        if whole and kw.get("seed_index") is None:
+            from hga_tpu_torch.models.overlap_long import build_seed_index
 
-        kw = dict(kw)
-        kw["seed_index"] = build_seed_index(
-            pr_short, cfg, solid=kw.get("solid"),
-            device=kw.get("device", "cuda"))
-    t_idx = time.perf_counter() - t_idx0
+            kw = dict(kw)
+            kw["seed_index"] = build_seed_index(
+                pr_short, cfg, solid=kw.get("solid"),
+                device=kw.get("device", "cuda"))
 
     # query the index ONCE for the whole long-read set and slice candidates
     # per group.  Split over ranks, each rank expands only its own
@@ -509,17 +507,17 @@ def _correct_once(pr_short: PackedReads, pr_long: PackedReads,
     # set, so its candidates are the one-process run's (the reference
     # counts over the rank's block, which changes them)
     g_all = None
-    t_gc0 = time.perf_counter()
-    if whole:
-        mine = np.sort(np.concatenate(groups)) if partition else None
-        g_all = find_candidates_cross(
-            pr_short, pr_long, cfg, solid=kw.get("solid"),
-            seed_index=kw.get("seed_index"), device=kw.get("device", "cuda"),
-            b_mine=mine)
-    t_gc = time.perf_counter() - t_gc0
+    with spans.span("correction.gcand") as sp_gc:
+        if whole:
+            mine = np.sort(np.concatenate(groups)) if partition else None
+            g_all = find_candidates_cross(
+                pr_short, pr_long, cfg, solid=kw.get("solid"),
+                seed_index=kw.get("seed_index"),
+                device=kw.get("device", "cuda"), b_mine=mine)
 
     corrected: List[Optional[str]] = [None] * n
-    totals: dict = {"index_s": round(t_idx, 3), "gcand_s": round(t_gc, 3)}
+    totals: dict = {"index_s": round(sp_idx.seconds, 3),
+                    "gcand_s": round(sp_gc.seconds, 3)}
     for g in groups:
         HP.note("corr_backbones", len(g))
         if len(g) == 0:

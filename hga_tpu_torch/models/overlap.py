@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -44,6 +43,7 @@ from hga_tpu_torch.ops.myers import MyersResult
 from hga_tpu_torch.ops.myers_cuda import myers_batch_cuda
 from hga_tpu_torch.parallel import hostpart as HP
 from hga_tpu_torch.parallel.mesh import shard_batch_fn
+from hga_tpu_torch.utils import spans
 from hga_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -328,18 +328,23 @@ def _check_refine(cfg: AssemblerConfig) -> None:
                          f"got {cfg.overlap_refine!r}")
 
 
-def _records(outs, len_a, len_b, t_gate, t_ref0, n0, n_f, what,
-             partition: bool):
+def _records(outs, len_a, len_b, partition: bool) -> OverlapRecords:
     """Concatenate the refine batches into OverlapRecords (gathered in rank
     order when `partition`; a rank without survivors still joins the
-    gather) and record the gate/refine split in LAST_TIMINGS."""
+    gather)."""
     cat = {k: (np.concatenate(v) if v else np.zeros(0, np.int32))
            for k, v in outs.items()}
     if partition:
         cat = HP.allgather_concat(cat)
-    rec = OverlapRecords(a_len=len_a[cat["a"]].astype(np.int32),
-                         b_len=len_b[cat["b"]].astype(np.int32), **cat)
-    t_ref = time.perf_counter() - t_ref0
+    return OverlapRecords(a_len=len_a[cat["a"]].astype(np.int32),
+                          b_len=len_b[cat["b"]].astype(np.int32), **cat)
+
+
+def _split(rec: OverlapRecords, sp_gate, sp_ref, n0: int, n_f: int,
+           what: str) -> OverlapRecords:
+    """Record the gate/refine split (the two spans' seconds) in
+    LAST_TIMINGS."""
+    t_gate, t_ref = sp_gate.seconds, sp_ref.seconds
     LAST_TIMINGS.update(gate_s=round(t_gate, 3), refine_s=round(t_ref, 3),
                         gate_pairs=n0, refine_pairs=n_f)
     log.info("%s: %d candidates -> %d overlaps "
@@ -395,10 +400,10 @@ def compute_overlaps(
                 cands.diag[sl].astype(np.int64),
                 lambda off: _window_gather(t_or, lb, off, Wt))
 
-    t_gate0 = time.perf_counter()
-    f_a, f_b, f_rel, f_diag, f_dist, f_tend, f_qs, f_seg = _gate(
-        (cands.a, cands.b, cands.rel, cands.diag), prep, cfg, edit, Wt, dev)
-    t_gate = time.perf_counter() - t_gate0
+    with spans.span("overlap.gate") as sp_gate:
+        f_a, f_b, f_rel, f_diag, f_dist, f_tend, f_qs, f_seg = _gate(
+            (cands.a, cands.b, cands.rel, cands.diag), prep, cfg, edit, Wt,
+            dev)
     n_f = f_a.shape[0]
     log.info("overlap gate: %d candidates -> %d pass edit-rate filter",
              cands.n_pairs, n_f)
@@ -406,45 +411,46 @@ def compute_overlaps(
         return _empty()
 
     # ---- pass 2: survivor coordinates ----
-    t_ref0 = time.perf_counter()
-    outs = {k: [] for k in _FIELDS}
-    for s in range(0, n_f, BATCH_PAIRS):
-        sl = slice(s, s + BATCH_PAIRS)
-        a, b, rel = f_a[sl], f_b[sl], f_rel[sl]
-        dist = f_dist[sl]
-        lb = lengths[b]
-        t_or = _oriented_codes(codes[b], lb, rel == 1)
-        if cfg.overlap_refine == "myers":
-            diag, dist = f_diag[sl].astype(np.int64), dist.astype(np.int64)
-            qs, seg = f_qs[sl], f_seg[sl]
-            lb = lb.astype(np.int64)
-            off_m = qs - diag - cfg.band // 2       # the gate's window base
-            t_win = _window_gather(t_or, lb, off_m, Wt)
-            b_or_start, ok = _myers_refine(codes[a], qs, seg, dist, off_m,
-                                           t_win, edit, Wt, dev)
-            b_or_start = np.clip(b_or_start, 0, lb)
-            b_or_end = np.clip(off_m + f_tend[sl], b_or_start, lb)
-            score = cfg.match * np.maximum(seg - dist, 0)
-            keep = ok & (score >= cfg.min_overlap_score)
-            a_start, a_end = qs, qs + seg
-        else:
-            # expected j - i = pos_b_oriented - pos_a = -diag: shift t so
-            # the band is centred, keeping `band` slack to the left
-            off = -f_diag[sl] - cfg.band // 2
-            t_win = _window_gather(t_or, lb.astype(np.int64), off, Wt)
-            score, a_start, a_end, tstart, tend, rscore = _sw_refine(
-                codes[a], t_win, lengths[a], sw, cfg, dev)
-            b_or_start, b_or_end = tstart + off, tend + off
-            keep = ((score >= cfg.min_overlap_score)
-                    & ((a_end - a_start) >= cfg.min_overlap_len)
-                    & (rscore >= score))  # the reverse pass reproduces it
-        b_fwd_start = np.where(rel == 1, lb - b_or_end, b_or_start)
-        b_fwd_end = np.where(rel == 1, lb - b_or_start, b_or_end)
-        for k, v in zip(_FIELDS, (a, b, rel, score, a_start, a_end,
-                                  b_fwd_start, b_fwd_end, dist)):
-            outs[k].append(v[keep].astype(np.int32))
-    return _records(outs, lengths, lengths, t_gate, t_ref0, cands.n_pairs,
-                    n_f, "overlap", partition)
+    with spans.span("overlap.refine") as sp_ref:
+        outs = {k: [] for k in _FIELDS}
+        for s in range(0, n_f, BATCH_PAIRS):
+            sl = slice(s, s + BATCH_PAIRS)
+            a, b, rel = f_a[sl], f_b[sl], f_rel[sl]
+            dist = f_dist[sl]
+            lb = lengths[b]
+            t_or = _oriented_codes(codes[b], lb, rel == 1)
+            if cfg.overlap_refine == "myers":
+                diag, dist = f_diag[sl].astype(np.int64), dist.astype(np.int64)
+                qs, seg = f_qs[sl], f_seg[sl]
+                lb = lb.astype(np.int64)
+                # the gate's window base
+                off_m = qs - diag - cfg.band // 2
+                t_win = _window_gather(t_or, lb, off_m, Wt)
+                b_or_start, ok = _myers_refine(codes[a], qs, seg, dist, off_m,
+                                               t_win, edit, Wt, dev)
+                b_or_start = np.clip(b_or_start, 0, lb)
+                b_or_end = np.clip(off_m + f_tend[sl], b_or_start, lb)
+                score = cfg.match * np.maximum(seg - dist, 0)
+                keep = ok & (score >= cfg.min_overlap_score)
+                a_start, a_end = qs, qs + seg
+            else:
+                # expected j - i = pos_b_oriented - pos_a = -diag: shift t so
+                # the band is centred, keeping `band` slack to the left
+                off = -f_diag[sl] - cfg.band // 2
+                t_win = _window_gather(t_or, lb.astype(np.int64), off, Wt)
+                score, a_start, a_end, tstart, tend, rscore = _sw_refine(
+                    codes[a], t_win, lengths[a], sw, cfg, dev)
+                b_or_start, b_or_end = tstart + off, tend + off
+                keep = ((score >= cfg.min_overlap_score)
+                        & ((a_end - a_start) >= cfg.min_overlap_len)
+                        & (rscore >= score))  # the reverse pass reproduces it
+            b_fwd_start = np.where(rel == 1, lb - b_or_end, b_or_start)
+            b_fwd_end = np.where(rel == 1, lb - b_or_start, b_or_end)
+            for k, v in zip(_FIELDS, (a, b, rel, score, a_start, a_end,
+                                      b_fwd_start, b_fwd_end, dist)):
+                outs[k].append(v[keep].astype(np.int32))
+        rec = _records(outs, lengths, lengths, partition)
+    return _split(rec, sp_gate, sp_ref, cands.n_pairs, n_f, "overlap")
 
 
 def compute_overlaps_cross(
@@ -515,10 +521,9 @@ def compute_overlaps_cross(
         return q, la, lb, -base_off, lambda off: b_gather(bb, lb, off)
 
     n0 = len(a)
-    t_gate0 = time.perf_counter()
-    f_a, f_b, f_rel, f_diag, f_dist, f_tend, f_qs, f_seg = _gate(
-        (a, b, rel, diag), prep, cfg, edit, Wt, dev)
-    t_gate = time.perf_counter() - t_gate0
+    with spans.span("overlap.gate") as sp_gate:
+        f_a, f_b, f_rel, f_diag, f_dist, f_tend, f_qs, f_seg = _gate(
+            (a, b, rel, diag), prep, cfg, edit, Wt, dev)
     n_f = f_a.shape[0]
     log.info("overlap-cross gate: %d candidates -> %d pass edit-rate filter",
              n0, n_f)
@@ -526,41 +531,42 @@ def compute_overlaps_cross(
         return _empty()
 
     # ---- pass 2: survivor coordinates ----
-    t_ref0 = time.perf_counter()
-    outs = {k: [] for k in _FIELDS}
-    for s in range(0, n_f, BATCH_PAIRS):
-        sl = slice(s, s + BATCH_PAIRS)
-        aa, bb, rr = f_a[sl], f_b[sl], f_rel[sl]
-        dist = f_dist[sl]
-        q, la, lb, flip, base_off = oriented(
-            aa, bb, rr, f_diag[sl].astype(np.int64))
-        if cfg.overlap_refine == "myers":
-            dist = dist.astype(np.int64)
-            qs, seg = f_qs[sl], f_seg[sl]
-            # the gate ran with diag = -base_off: off_m = qs - diag - band/2
-            off_m = qs + base_off - cfg.band // 2
-            t_win = b_gather(bb, lb, off_m)
-            b_start, ok = _myers_refine(q, qs, seg, dist, off_m, t_win,
-                                        edit, Wt, dev)
-            b_start = np.clip(b_start, 0, lb)
-            b_end = np.clip(off_m + f_tend[sl], b_start, lb)
-            q_start, q_end = qs, qs + seg
-            score = cfg.match * np.maximum(seg - dist, 0)
-            keep = ok & (score >= cfg.min_overlap_score)
-        else:
-            off = base_off - cfg.band // 2
-            t_win = b_gather(bb, lb, off)
-            score, q_start, q_end, t_start, t_end, rscore = _sw_refine(
-                q, t_win, pr_a.length[aa], sw, cfg, dev)
-            b_start, b_end = t_start + off, t_end + off
-            keep = ((score >= cfg.min_overlap_score)
-                    & ((q_end - q_start) >= cfg.min_overlap_len)
-                    & (rscore >= score))
-        # oriented-a coordinates -> the read's forward frame
-        a_start = np.where(flip, la - q_end, q_start)
-        a_end = np.where(flip, la - q_start, q_end)
-        for k, v in zip(_FIELDS, (aa, bb, rr, score, a_start, a_end,
-                                  b_start, b_end, dist)):
-            outs[k].append(v[keep].astype(np.int32))
-    return _records(outs, pr_a.length, pr_b.length, t_gate, t_ref0, n0, n_f,
-                    "overlap-cross", partition)
+    with spans.span("overlap.refine") as sp_ref:
+        outs = {k: [] for k in _FIELDS}
+        for s in range(0, n_f, BATCH_PAIRS):
+            sl = slice(s, s + BATCH_PAIRS)
+            aa, bb, rr = f_a[sl], f_b[sl], f_rel[sl]
+            dist = f_dist[sl]
+            q, la, lb, flip, base_off = oriented(
+                aa, bb, rr, f_diag[sl].astype(np.int64))
+            if cfg.overlap_refine == "myers":
+                dist = dist.astype(np.int64)
+                qs, seg = f_qs[sl], f_seg[sl]
+                # the gate ran with diag = -base_off:
+                # off_m = qs - diag - band/2
+                off_m = qs + base_off - cfg.band // 2
+                t_win = b_gather(bb, lb, off_m)
+                b_start, ok = _myers_refine(q, qs, seg, dist, off_m, t_win,
+                                            edit, Wt, dev)
+                b_start = np.clip(b_start, 0, lb)
+                b_end = np.clip(off_m + f_tend[sl], b_start, lb)
+                q_start, q_end = qs, qs + seg
+                score = cfg.match * np.maximum(seg - dist, 0)
+                keep = ok & (score >= cfg.min_overlap_score)
+            else:
+                off = base_off - cfg.band // 2
+                t_win = b_gather(bb, lb, off)
+                score, q_start, q_end, t_start, t_end, rscore = _sw_refine(
+                    q, t_win, pr_a.length[aa], sw, cfg, dev)
+                b_start, b_end = t_start + off, t_end + off
+                keep = ((score >= cfg.min_overlap_score)
+                        & ((q_end - q_start) >= cfg.min_overlap_len)
+                        & (rscore >= score))
+            # oriented-a coordinates -> the read's forward frame
+            a_start = np.where(flip, la - q_end, q_start)
+            a_end = np.where(flip, la - q_start, q_end)
+            for k, v in zip(_FIELDS, (aa, bb, rr, score, a_start, a_end,
+                                      b_start, b_end, dist)):
+                outs[k].append(v[keep].astype(np.int32))
+        rec = _records(outs, pr_a.length, pr_b.length, partition)
+    return _split(rec, sp_gate, sp_ref, n0, n_f, "overlap-cross")

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -46,6 +45,7 @@ from hga_tpu_torch.models.seeding import (SeedingResult, extract_seed_entries,
                                          solid_mask)
 from hga_tpu_torch.ops.kmer import words_to_tensor
 from hga_tpu_torch.parallel import hostpart as HP
+from hga_tpu_torch.utils import spans
 from hga_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -578,25 +578,24 @@ def compute_overlaps_long(
     tm: Dict[str, float] = dict(index_s=0.0, anchor_s=0.0, chain_s=0.0,
                                 segprep_s=0.0, dp_s=0.0, n_anchors=0,
                                 n_pairs=0, n_segments=0, bytes_up=0)
-    t0 = time.perf_counter()
-
-    # ---- sorted minimizer index (host arrays; one global sort) ----
-    ent = extract_seed_entries(pr, cfg, device=dev)
-    key = (ent.hi.astype(np.uint64) << 32) | ent.lo.astype(np.uint64)
-    order = np.argsort(key, kind="stable")
-    srt_key = key[order]
-    srt_read = ent.read[order]
-    srt_pos = ent.pos[order]
-    srt_strand = ent.strand[order]
-    rnew = np.ones(srt_key.shape[0], bool)
-    rnew[1:] = srt_key[1:] != srt_key[:-1]
-    run_id_sorted = np.cumsum(rnew) - 1
-    run_start = np.nonzero(rnew)[0]
-    run_len = np.diff(np.append(run_start, srt_key.shape[0]))
-    ent_run = np.empty(srt_key.shape[0], np.int64)
-    ent_run[order] = run_id_sorted                # run id per ORIGINAL entry
-    dev_reads = _device_seg_reads(pr, dev)
-    tm["index_s"] = time.perf_counter() - t0
+    with spans.span("overlap_long.index") as sp:
+        # ---- sorted minimizer index (host arrays; one global sort) ----
+        ent = extract_seed_entries(pr, cfg, device=dev)
+        key = (ent.hi.astype(np.uint64) << 32) | ent.lo.astype(np.uint64)
+        order = np.argsort(key, kind="stable")
+        srt_key = key[order]
+        srt_read = ent.read[order]
+        srt_pos = ent.pos[order]
+        srt_strand = ent.strand[order]
+        rnew = np.ones(srt_key.shape[0], bool)
+        rnew[1:] = srt_key[1:] != srt_key[:-1]
+        run_id_sorted = np.cumsum(rnew) - 1
+        run_start = np.nonzero(rnew)[0]
+        run_len = np.diff(np.append(run_start, srt_key.shape[0]))
+        ent_run = np.empty(srt_key.shape[0], np.int64)
+        ent_run[order] = run_id_sorted          # run id per ORIGINAL entry
+        dev_reads = _device_seg_reads(pr, dev)
+    tm["index_s"] = sp.seconds
     tm["dev_prep"] = True
 
     out = {f: [] for f in ("a", "b", "rel", "score", "a_start", "a_end",
@@ -605,26 +604,26 @@ def compute_overlaps_long(
     # ascending query read, so any chunking of a contiguous read block
     # concatenates to the same order
     r_lo, r_hi = HP.block_range(n) if partition else (0, n)
-    spans = [(s, min(r_hi, s + chunk_reads))
-             for s in range(r_lo, r_hi, chunk_reads)]
+    chunks = [(s, min(r_hi, s + chunk_reads))
+              for s in range(r_lo, r_hi, chunk_reads)]
     HP.note("long_query_reads", r_hi - r_lo)
-    for ci, (q_lo, q_hi) in enumerate(spans):
+    for ci, (q_lo, q_hi) in enumerate(chunks):
         if ci % 4 == 0:
             log.info("overlap-long: chunk %d/%d (reads %d-%d)",
-                     ci, len(spans), q_lo, q_hi)
-        t1 = time.perf_counter()
-        a_q, a_t, a_rel, a_pq, a_pt = _anchors_for_chunk(
-            q_lo, q_hi, ent.read, ent.pos, ent.strand, srt_key, srt_read,
-            srt_pos, srt_strand, run_start, run_len, ent_run, read_len,
-            k, cfg.max_seed_freq)
-        t2 = time.perf_counter()
-        tm["anchor_s"] += t2 - t1
+                     ci, len(chunks), q_lo, q_hi)
+        with spans.span("overlap_long.anchor") as sp:
+            a_q, a_t, a_rel, a_pq, a_pt = _anchors_for_chunk(
+                q_lo, q_hi, ent.read, ent.pos, ent.strand, srt_key,
+                srt_read, srt_pos, srt_strand, run_start, run_len, ent_run,
+                read_len, k, cfg.max_seed_freq)
+        tm["anchor_s"] += sp.seconds
         tm["n_anchors"] += int(a_q.size)
         if a_q.size == 0:
             continue
-        rq, rt, rrel, rpq, rpt, rgid, rcnt = _chain_representatives(
-            a_q, a_t, a_rel, a_pq, a_pt, cfg.min_shared_minimizers)
-        tm["chain_s"] += time.perf_counter() - t2
+        with spans.span("overlap_long.chain") as sp:
+            rq, rt, rrel, rpq, rpt, rgid, rcnt = _chain_representatives(
+                a_q, a_t, a_rel, a_pq, a_pt, cfg.min_shared_minimizers)
+        tm["chain_s"] += sp.seconds
         if rq.size == 0:
             continue
         res = _align_chains(rq, rt, rrel, rpq, rpt, rgid, rcnt, read_len,
@@ -656,121 +655,123 @@ def _align_chains(rq, rt, rrel, rpq, rpt, rgid, rcnt, read_len, cfg, edit,
     """Cut each chain into segments, run batched Myers, aggregate per pair."""
     if tm is None:
         tm = {}
-    t_sp0 = time.perf_counter()
-    # group boundaries over representatives (gid sorted)
-    gnew = np.ones(rq.shape[0], bool)
-    gnew[1:] = rgid[1:] != rgid[:-1]
-    g_first = np.nonzero(gnew)[0]
-    g_len = np.diff(np.append(g_first, rq.shape[0]))
-    n_pairs = g_first.shape[0]
-    pair_of_rep = np.cumsum(gnew) - 1
+    with spans.span("overlap_long.segprep") as sp:
+        # group boundaries over representatives (gid sorted)
+        gnew = np.ones(rq.shape[0], bool)
+        gnew[1:] = rgid[1:] != rgid[:-1]
+        g_first = np.nonzero(gnew)[0]
+        g_len = np.diff(np.append(g_first, rq.shape[0]))
+        n_pairs = g_first.shape[0]
+        pair_of_rep = np.cumsum(gnew) - 1
 
-    la = read_len[rq[g_first]]
-    lb = read_len[rt[g_first]]
-    d_first = rpq[g_first] - rpt[g_first]
-    last = g_first + g_len - 1
-    d_last = rpq[last] - rpt[last]
-    # chain span extended to the read ends along the local end diagonals,
-    # clipped by target availability (same segment algebra as the gate)
-    qs = np.maximum(0, d_first)
-    qe = np.minimum(la, lb + d_last)
-    valid_pair = qe - qs >= cfg.min_overlap_len
-    # anchor-density prefilter (wall-clock only; the full-span DP gate is
-    # the correctness backstop): a true overlap at w<=16 keeps >= ~1 shared
-    # minimizer per ~70 bases even for 10%-error raw reads, so a chain
-    # whose span exceeds 500 bases/anchor is a seed collision between
-    # unrelated reads — rejecting it here skips its (now fully split and
-    # aligned, hence expensive) segment DPs
-    valid_pair &= rcnt[g_first].astype(np.int64) * ANCHOR_DENSITY_FLOOR >= (
-        qe - qs)
+        la = read_len[rq[g_first]]
+        lb = read_len[rt[g_first]]
+        d_first = rpq[g_first] - rpt[g_first]
+        last = g_first + g_len - 1
+        d_last = rpq[last] - rpt[last]
+        # chain span extended to the read ends along the local end diagonals,
+        # clipped by target availability (same segment algebra as the gate)
+        qs = np.maximum(0, d_first)
+        qe = np.minimum(la, lb + d_last)
+        valid_pair = qe - qs >= cfg.min_overlap_len
+        # anchor-density prefilter (wall-clock only; the full-span DP gate is
+        # the correctness backstop): a true overlap at w<=16 keeps >= ~1 shared
+        # minimizer per ~70 bases even for 10%-error raw reads, so a chain
+        # whose span exceeds 500 bases/anchor is a seed collision between
+        # unrelated reads — rejecting it here skips its (now fully split and
+        # aligned, hence expensive) segment DPs
+        valid_pair &= (rcnt[g_first].astype(np.int64) * ANCHOR_DENSITY_FLOOR
+                       >= qe - qs)
 
-    # ---- segment table ----
-    # one segment per (rep boundary): [prev_cut, cut) on the query axis;
-    # cut points = rep positions, plus the extended ends
-    seg_pair, seg_q0, seg_q1, seg_t0, seg_t1, seg_kind = [], [], [], [], [], []
-    # vectorized: segment i spans reps (i-1, i) inside a group; ends are
-    # handled by substituting the extended bounds
-    rep_q = rpq
-    rep_t = rpt
-    prev = np.arange(rq.shape[0]) - 1
-    is_first = gnew
-    pid = pair_of_rep
-    # inner segments: from rep[prev] to rep[i] (same group, not first)
-    inner = ~is_first
-    if inner.any():
-        seg_pair.append(pid[inner])
-        seg_q0.append(rep_q[prev[inner]])
-        seg_q1.append(rep_q[inner] + k)
-        seg_t0.append(rep_t[prev[inner]])
-        seg_t1.append(rep_t[inner] + k)
-        seg_kind.append(np.zeros(int(inner.sum()), np.int8))
-    # head segment: extended start -> first rep (aligned REVERSED: free
-    # target start becomes a free end, giving the exact b_start)
-    seg_pair.append(pid[g_first])
-    seg_q0.append(qs)
-    seg_q1.append(rep_q[g_first] + k)
-    seg_t0.append(qs - d_first)
-    seg_t1.append(rep_t[g_first] + k)
-    seg_kind.append(np.full(n_pairs, 1, np.int8))
-    # tail segment: last rep -> extended end (free target end -> exact b_end)
-    seg_pair.append(pid[last])
-    seg_q0.append(rep_q[last])
-    seg_q1.append(qe)
-    seg_t0.append(rep_t[last])
-    seg_t1.append(qe - d_last)
-    seg_kind.append(np.full(n_pairs, 2, np.int8))
-
-    seg_pair = np.concatenate(seg_pair)
-    seg_q0 = np.concatenate(seg_q0)
-    seg_q1 = np.concatenate(seg_q1)
-    seg_t0 = np.concatenate(seg_t0)
-    seg_t1 = np.concatenate(seg_t1)
-    seg_kind = np.concatenate(seg_kind)
-
-    # drop degenerate/invalid segments and segments of invalid pairs
-    ok = (seg_q1 > seg_q0) & valid_pair[seg_pair]
-    seg_pair, seg_q0, seg_q1, seg_t0, seg_t1, seg_kind = (
-        x[ok] for x in (seg_pair, seg_q0, seg_q1, seg_t0, seg_t1, seg_kind))
-
-    Lq_seg = SEG + 2 * k                      # static query capacity
-    Wt_seg = Lq_seg + 2 * SLACK
-    # Segments longer than the capacity are SPLIT into <= Lq_seg sub-
-    # segments with target cuts linearly interpolated between the segment's
-    # anchored ends, so the ENTIRE claimed span is aligned and charged
-    # distance.  (A previous revision clamped oversized segments to the
-    # capacity instead: only 414 of a multi-kb anchor gap was aligned while
-    # the full gap stayed in the identity denominator, so a spurious
-    # 2-anchor chain between UNRELATED reads collected ~0.5 edits/base on
-    # its few clamped windows yet passed the edit-rate gate — measured at
-    # judged scale as 15,236 fabricated overlaps joining loci megabases
-    # apart, the direct cause of the 32-contig fragmentation.)  For true
-    # overlaps reps sit every <= SEG bases, so splitting only triggers on
-    # anchor deserts and leaves dense chains byte-identical.
-    span_q = seg_q1 - seg_q0
-    n_sub = np.maximum(1, -(-span_q // Lq_seg))
-    if (n_sub > 1).any():
-        tot = int(n_sub.sum())
-        ridx = np.repeat(np.arange(seg_pair.shape[0]), n_sub)
-        j = np.arange(tot) - np.repeat(np.cumsum(n_sub) - n_sub, n_sub)
-        nsr = n_sub[ridx]
-        span_t = seg_t1 - seg_t0
-        qa = seg_q0[ridx] + (span_q[ridx] * j) // nsr
-        qb = seg_q0[ridx] + (span_q[ridx] * (j + 1)) // nsr
-        ta = seg_t0[ridx] + (span_t[ridx] * j) // nsr
-        tb = seg_t0[ridx] + (span_t[ridx] * (j + 1)) // nsr
-        kind = seg_kind[ridx].copy()
-        # the head's free-target-end sub is the OUTERMOST one (j == 0,
-        # contains qs -> b_start); the tail's is the last (contains qe)
-        kind[(seg_kind[ridx] == 1) & (j > 0)] = 0
-        kind[(seg_kind[ridx] == 2) & (j < nsr - 1)] = 0
+        # ---- segment table ----
+        # one segment per (rep boundary): [prev_cut, cut) on the query axis;
+        # cut points = rep positions, plus the extended ends
         seg_pair, seg_q0, seg_q1, seg_t0, seg_t1, seg_kind = (
-            seg_pair[ridx], qa, qb, ta, tb, kind)
+            [], [], [], [], [], [])
+        # vectorized: segment i spans reps (i-1, i) inside a group; ends are
+        # handled by substituting the extended bounds
+        rep_q = rpq
+        rep_t = rpt
+        prev = np.arange(rq.shape[0]) - 1
+        is_first = gnew
+        pid = pair_of_rep
+        # inner segments: from rep[prev] to rep[i] (same group, not first)
+        inner = ~is_first
+        if inner.any():
+            seg_pair.append(pid[inner])
+            seg_q0.append(rep_q[prev[inner]])
+            seg_q1.append(rep_q[inner] + k)
+            seg_t0.append(rep_t[prev[inner]])
+            seg_t1.append(rep_t[inner] + k)
+            seg_kind.append(np.zeros(int(inner.sum()), np.int8))
+        # head segment: extended start -> first rep (aligned REVERSED: free
+        # target start becomes a free end, giving the exact b_start)
+        seg_pair.append(pid[g_first])
+        seg_q0.append(qs)
+        seg_q1.append(rep_q[g_first] + k)
+        seg_t0.append(qs - d_first)
+        seg_t1.append(rep_t[g_first] + k)
+        seg_kind.append(np.full(n_pairs, 1, np.int8))
+        # tail segment: last rep -> extended end (free target end -> exact
+        # b_end)
+        seg_pair.append(pid[last])
+        seg_q0.append(rep_q[last])
+        seg_q1.append(qe)
+        seg_t0.append(rep_t[last])
+        seg_t1.append(qe - d_last)
+        seg_kind.append(np.full(n_pairs, 2, np.int8))
 
-    n_seg = seg_pair.shape[0]
-    tm["n_pairs"] = tm.get("n_pairs", 0) + n_pairs
-    tm["n_segments"] = tm.get("n_segments", 0) + n_seg
-    tm["segprep_s"] = (tm.get("segprep_s", 0.0)
-                       + time.perf_counter() - t_sp0)
+        seg_pair = np.concatenate(seg_pair)
+        seg_q0 = np.concatenate(seg_q0)
+        seg_q1 = np.concatenate(seg_q1)
+        seg_t0 = np.concatenate(seg_t0)
+        seg_t1 = np.concatenate(seg_t1)
+        seg_kind = np.concatenate(seg_kind)
+
+        # drop degenerate/invalid segments and segments of invalid pairs
+        ok = (seg_q1 > seg_q0) & valid_pair[seg_pair]
+        seg_pair, seg_q0, seg_q1, seg_t0, seg_t1, seg_kind = (
+            x[ok]
+            for x in (seg_pair, seg_q0, seg_q1, seg_t0, seg_t1, seg_kind))
+
+        Lq_seg = SEG + 2 * k                      # static query capacity
+        Wt_seg = Lq_seg + 2 * SLACK
+        # Segments longer than the capacity are SPLIT into <= Lq_seg sub-
+        # segments with target cuts linearly interpolated between the segment's
+        # anchored ends, so the ENTIRE claimed span is aligned and charged
+        # distance.  (A previous revision clamped oversized segments to the
+        # capacity instead: only 414 of a multi-kb anchor gap was aligned while
+        # the full gap stayed in the identity denominator, so a spurious
+        # 2-anchor chain between UNRELATED reads collected ~0.5 edits/base on
+        # its few clamped windows yet passed the edit-rate gate — measured at
+        # judged scale as 15,236 fabricated overlaps joining loci megabases
+        # apart, the direct cause of the 32-contig fragmentation.)  For true
+        # overlaps reps sit every <= SEG bases, so splitting only triggers on
+        # anchor deserts and leaves dense chains byte-identical.
+        span_q = seg_q1 - seg_q0
+        n_sub = np.maximum(1, -(-span_q // Lq_seg))
+        if (n_sub > 1).any():
+            tot = int(n_sub.sum())
+            ridx = np.repeat(np.arange(seg_pair.shape[0]), n_sub)
+            j = np.arange(tot) - np.repeat(np.cumsum(n_sub) - n_sub, n_sub)
+            nsr = n_sub[ridx]
+            span_t = seg_t1 - seg_t0
+            qa = seg_q0[ridx] + (span_q[ridx] * j) // nsr
+            qb = seg_q0[ridx] + (span_q[ridx] * (j + 1)) // nsr
+            ta = seg_t0[ridx] + (span_t[ridx] * j) // nsr
+            tb = seg_t0[ridx] + (span_t[ridx] * (j + 1)) // nsr
+            kind = seg_kind[ridx].copy()
+            # the head's free-target-end sub is the OUTERMOST one (j == 0,
+            # contains qs -> b_start); the tail's is the last (contains qe)
+            kind[(seg_kind[ridx] == 1) & (j > 0)] = 0
+            kind[(seg_kind[ridx] == 2) & (j < nsr - 1)] = 0
+            seg_pair, seg_q0, seg_q1, seg_t0, seg_t1, seg_kind = (
+                seg_pair[ridx], qa, qb, ta, tb, kind)
+
+        n_seg = seg_pair.shape[0]
+        tm["n_pairs"] = tm.get("n_pairs", 0) + n_pairs
+        tm["n_segments"] = tm.get("n_segments", 0) + n_seg
+    tm["segprep_s"] = tm.get("segprep_s", 0.0) + sp.seconds
     dist_sum = np.zeros(n_pairs, np.int64)
     t_begin = np.zeros(n_pairs, np.int64)     # exact b_start (oriented)
     t_end = np.zeros(n_pairs, np.int64)       # exact b_end (oriented)
@@ -785,36 +786,37 @@ def _align_chains(rq, rt, rrel, rpq, rpt, rgid, rcnt, read_len, cfg, edit,
     i64 = lambda x: torch.from_numpy(
         np.ascontiguousarray(x, dtype=np.int64)).to(ddev)
     for s in range(0, n_seg, seg_batch):
-        t_w0 = time.perf_counter()
-        sl = slice(s, min(n_seg, s + seg_batch))
-        p = seg_pair[sl]
-        nbv = p.shape[0]
-        P = seg_batch
-        q0v = np.pad(seg_q0[sl], (0, P - nbv))
-        q1v = np.pad(seg_q1[sl], (0, P - nbv))
-        t0v = np.pad(seg_t0[sl], (0, P - nbv))
-        kindv = np.pad(seg_kind[sl], (0, P - nbv))
-        pv = np.pad(p, (0, P - nbv))
+        with spans.span("overlap_long.segprep") as sp:
+            sl = slice(s, min(n_seg, s + seg_batch))
+            p = seg_pair[sl]
+            nbv = p.shape[0]
+            P = seg_batch
+            q0v = np.pad(seg_q0[sl], (0, P - nbv))
+            q1v = np.pad(seg_q1[sl], (0, P - nbv))
+            t0v = np.pad(seg_t0[sl], (0, P - nbv))
+            kindv = np.pad(seg_kind[sl], (0, P - nbv))
+            pv = np.pad(p, (0, P - nbv))
 
-        qid = q_of_pair[pv]
-        tid = t_of_pair[pv]
-        relv = rel_of_pair[pv]
-        seglen = np.where(np.arange(P) < nbv, q1v - q0v, 0).astype(np.int64)
-        head = kindv == 1
-        t_or0 = t0v - SLACK
-        twin_len = np.minimum(seglen + 2 * SLACK, Wt_seg)
-        t_dp0 = time.perf_counter()
-        tm["segprep_s"] = tm.get("segprep_s", 0.0) + t_dp0 - t_w0
+            qid = q_of_pair[pv]
+            tid = t_of_pair[pv]
+            relv = rel_of_pair[pv]
+            seglen = np.where(np.arange(P) < nbv, q1v - q0v,
+                              0).astype(np.int64)
+            head = kindv == 1
+            t_or0 = t0v - SLACK
+            twin_len = np.minimum(seglen + 2 * SLACK, Wt_seg)
+        tm["segprep_s"] = tm.get("segprep_s", 0.0) + sp.seconds
         tm["bytes_up"] = tm.get("bytes_up", 0) + 7 * 4 * P
-        seglen_d = i64(seglen)
-        qwin, t_or = _seg_prep(packed_flat, rlen_dev, i64(qid), i64(tid),
-                               i64(relv), i64(q0v), seglen_d, i64(t0v),
-                               i64(kindv), wwords, k)
-        r = edit(qwin, t_or, seglen_d.to(torch.int32),
-                 i64(twin_len).to(torch.int32))
-        dist = r.dist.cpu().numpy().astype(np.int64)[:nbv]
-        tend = r.tend.cpu().numpy().astype(np.int64)[:nbv]
-        tm["dp_s"] = tm.get("dp_s", 0.0) + time.perf_counter() - t_dp0
+        with spans.span("overlap_long.dp") as sp:
+            seglen_d = i64(seglen)
+            qwin, t_or = _seg_prep(packed_flat, rlen_dev, i64(qid), i64(tid),
+                                   i64(relv), i64(q0v), seglen_d, i64(t0v),
+                                   i64(kindv), wwords, k)
+            r = edit(qwin, t_or, seglen_d.to(torch.int32),
+                     i64(twin_len).to(torch.int32))
+            dist = r.dist.cpu().numpy().astype(np.int64)[:nbv]
+            tend = r.tend.cpu().numpy().astype(np.int64)[:nbv]
+        tm["dp_s"] = tm.get("dp_s", 0.0) + sp.seconds
         # tend-1 is the last aligned window column for forward tails; a
         # reversed head's window col x maps to t_or0 + twin_len - 1 - x
         hb = head[:nbv]

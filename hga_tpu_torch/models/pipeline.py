@@ -25,15 +25,16 @@ arbitration's votes are summed over the ranks, and only rank 0 writes.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
 import logging
 import os
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from hga_tpu_torch import convert
 from hga_tpu_torch.config import AssemblerConfig
@@ -50,6 +51,7 @@ from hga_tpu_torch.models.seeding import find_candidates
 from hga_tpu_torch.models.spectrum import count_reads
 from hga_tpu_torch.parallel import hostpart as HP
 from hga_tpu_torch.parallel.mesh import auto_mesh
+from hga_tpu_torch.utils import spans
 from hga_tpu_torch.utils.device import resolve_device
 
 log = logging.getLogger(__name__)
@@ -184,8 +186,10 @@ class PipelineResult:
 class _Stage:
     """Artifact-checkpointed stage runner with digest-based resume."""
 
-    def __init__(self, outdir: str, resume: bool, cfg: AssemblerConfig):
+    def __init__(self, outdir: str, resume: bool, cfg: AssemblerConfig,
+                 dev: torch.device):
         self.outdir = outdir
+        self.dev = dev
         self.resume = resume
         self.digest = hashlib.sha256(cfg.to_json().encode()).hexdigest()[:16]
         self.stats: Dict = {"stages": {}}
@@ -205,8 +209,15 @@ class _Stage:
         except (OSError, json.JSONDecodeError):
             return False
 
-    def done(self, name: str, t0: float, inputs_digest: str = "") -> None:
-        dt = time.perf_counter() - t0
+    @contextlib.contextmanager
+    def run(self, name: str, inputs_digest: str = ""):
+        """Time a stage in the span ``stage.<name>``; the device is
+        synchronised once at its end, so its seconds hold its device work."""
+        with spans.span("stage." + name) as sp:
+            yield
+            if self.dev.type == "cuda":
+                torch.cuda.synchronize(self.dev)
+        dt = sp.seconds
         self.stats["stages"][name] = {"seconds": round(dt, 3)}
         if HP.is_main():  # one writer per (possibly shared) outdir
             with open(self._meta_path(name), "w") as fh:
@@ -237,11 +248,30 @@ def run_pipeline(
         # cannot be known fresh on every rank at once
         log.warning("multi-process run: disabling --resume")
         resume = False
-    main = HP.is_main()
     if mesh is not None:
         log.info("pipeline: mesh of %d ranks", mesh.size)
-    st = _Stage(outdir, resume, cfg)
-    t_all = time.perf_counter()
+    st = _Stage(outdir, resume, cfg, dev)
+    before = spans.counters()
+    with spans.span("pipeline.run") as sp_all:
+        contigs, polished = _run_stages(st, pr_short, pr_long, cfg, dev,
+                                        mesh)
+    st.stats["total_seconds"] = round(sp_all.seconds, 3)
+    # what this run counted: launches by kernel route, bytes by layer
+    st.stats["counters"] = dict(spans.counters() - before)
+    if HP.is_main():
+        with open(os.path.join(outdir, "run_metrics.json"), "w") as fh:
+            json.dump(st.stats, fh, indent=2)
+    return PipelineResult(contigs=contigs, polished=polished,
+                          stats=st.stats)
+
+
+def _run_stages(st: _Stage, pr_short: Optional[PackedReads],
+                pr_long: Optional[PackedReads], cfg: AssemblerConfig,
+                dev: torch.device, mesh) -> Tuple[List, List]:
+    """run_pipeline's stages in order: (contigs, polished); st.stats gets
+    each stage's numbers."""
+    main = HP.is_main()
+    outdir = st.outdir
     inputs = _inputs_digest(pr_short, pr_long)
     path = lambda f: os.path.join(outdir, f)
 
@@ -252,11 +282,10 @@ def run_pipeline(
         if st.fresh("spectrum", inputs) and os.path.exists(path("spectrum.npz")):
             spec = convert.load_spectrum(path("spectrum.npz"))
         else:
-            t0 = time.perf_counter()
-            spec = count_reads(pr_short, cfg, device=dev, mesh=mesh)
-            if main:
-                spec.save(path("spectrum.npz"))
-            st.done("spectrum", t0, inputs)
+            with st.run("spectrum", inputs):
+                spec = count_reads(pr_short, cfg, device=dev, mesh=mesh)
+                if main:
+                    spec.save(path("spectrum.npz"))
         st.stats["spectrum"] = {"distinct": spec.n_distinct,
                                 "threshold": spec.threshold}
         # derive the repeat mask cap from estimated coverage: the spectrum's
@@ -301,10 +330,10 @@ def run_pipeline(
         if "v" not in _sidx:
             from hga_tpu_torch.models.overlap_long import build_seed_index
 
-            t_i0 = time.perf_counter()
-            _sidx["v"] = build_seed_index(pr_short, cfg, solid=solid,
-                                          device=dev)
-            st.stats["seed_index_s"] = round(time.perf_counter() - t_i0, 3)
+            with spans.span("pipeline.seed_index") as sp:
+                _sidx["v"] = build_seed_index(pr_short, cfg, solid=solid,
+                                              device=dev)
+            st.stats["seed_index_s"] = round(sp.seconds, 3)
         return _sidx["v"]
 
     # --- stage: correction (config 5a) ---
@@ -314,16 +343,16 @@ def run_pipeline(
                 path("corrected.npz")):
             asm_reads = convert.load_corrected(path("corrected.npz"))
         else:
-            t0 = time.perf_counter()
-            if pr_short is not None:
-                asm_reads = correct_long_reads(
-                    pr_short, pr_long, cfg_corr, device=dev, solid=solid,
-                    seed_index=short_seed_index(), mesh=mesh)
-            else:
-                asm_reads = pr_long
-            if main:
-                asm_reads.save(path("corrected.npz"))
-            st.done("corrected", t0, inputs)
+            with st.run("corrected", inputs):
+                if pr_short is not None:
+                    asm_reads = correct_long_reads(
+                        pr_short, pr_long, cfg_corr, device=dev,
+                        solid=solid, seed_index=short_seed_index(),
+                        mesh=mesh)
+                else:
+                    asm_reads = pr_long
+                if main:
+                    asm_reads.save(path("corrected.npz"))
             st.stats["correction_detail"] = dict(CT)
     if asm_reads is None:
         raise ValueError("no reads given")
@@ -337,28 +366,26 @@ def run_pipeline(
         else:
             from hga_tpu_torch.models import overlap_long as OL
 
-            t0 = time.perf_counter()
-            ov = OL.compute_overlaps_long(asm_reads, cfg, device=dev,
-                                          mesh=mesh)
-            ov_timings = dict(OL.LAST_TIMINGS)
-            if main:
-                ov.save(path("overlaps.npz"))
-            st.done("overlaps", t0, inputs)
+            with st.run("overlaps", inputs):
+                ov = OL.compute_overlaps_long(asm_reads, cfg, device=dev,
+                                              mesh=mesh)
+                ov_timings = dict(OL.LAST_TIMINGS)
+                if main:
+                    ov.save(path("overlaps.npz"))
     else:
         # --- stage: candidates (config 2) ---
         if st.fresh("candidates", inputs) and os.path.exists(
                 path("candidates.npz")):
             cands = convert.load_candidates(path("candidates.npz"))
         else:
-            t0 = time.perf_counter()
-            # solid-seed masking applies when assembling the short reads
-            # directly; corrected long reads keep all seeds
-            cands = find_candidates(
-                asm_reads, cfg, solid=solid if pr_long is None else None,
-                device=dev)
-            if main:
-                cands.save(path("candidates.npz"))
-            st.done("candidates", t0, inputs)
+            with st.run("candidates", inputs):
+                # solid-seed masking applies when assembling the short
+                # reads directly; corrected long reads keep all seeds
+                cands = find_candidates(
+                    asm_reads, cfg, solid=solid if pr_long is None else None,
+                    device=dev)
+                if main:
+                    cands.save(path("candidates.npz"))
         st.stats["candidates"] = {"n": cands.n_pairs}
 
         # --- stage: overlaps (config 3: Myers gate + refine) ---
@@ -366,27 +393,25 @@ def run_pipeline(
                 path("overlaps.npz")):
             ov = convert.load_overlaps(path("overlaps.npz"))
         else:
-            t0 = time.perf_counter()
-            ov = compute_overlaps(asm_reads, cands, cfg, device=dev,
-                                  mesh=mesh)
-            ov_timings = dict(OV_TIMINGS)
-            if main:
-                ov.save(path("overlaps.npz"))
-            st.done("overlaps", t0, inputs)
+            with st.run("overlaps", inputs):
+                ov = compute_overlaps(asm_reads, cands, cfg, device=dev,
+                                      mesh=mesh)
+                ov_timings = dict(OV_TIMINGS)
+                if main:
+                    ov.save(path("overlaps.npz"))
     st.stats["overlaps"] = {"n": ov.n, **ov_timings}
 
     # --- stage: assembly (config 4) ---
     if st.fresh("assembly", inputs) and os.path.exists(path("contigs.fasta")):
         contigs = [(r.name, r.seq) for r in iter_records(path("contigs.fasta"))]
     else:
-        t0 = time.perf_counter()
-        res = assemble(asm_reads, ov, cfg, device=dev)
-        contigs = res.contigs
-        if main:
-            write_fasta(path("contigs.fasta"), res.contigs)
-            with open(path("assembly.gfa"), "w") as fh:
-                fh.write(res.to_gfa(asm_reads.names, asm_reads.length))
-        st.done("assembly", t0, inputs)
+        with st.run("assembly", inputs):
+            res = assemble(asm_reads, ov, cfg, device=dev)
+            contigs = res.contigs
+            if main:
+                write_fasta(path("contigs.fasta"), res.contigs)
+                with open(path("assembly.gfa"), "w") as fh:
+                    fh.write(res.to_gfa(asm_reads.names, asm_reads.length))
         st.stats["assembly"] = {
             "contigs": len(res.contigs),
             "edges_raw": res.n_edges_raw,
@@ -405,37 +430,31 @@ def run_pipeline(
             contigs = [(r.name, r.seq)
                        for r in iter_records(path("arbitrated.fasta"))]
         else:
-            t0 = time.perf_counter()
-            contigs = ARB.arbitrate_contigs(contigs, pr_long, cfg,
-                                            device=dev, mesh=mesh)
-            if main:
-                write_fasta(path("arbitrated.fasta"), contigs)
-            st.done("arbitrate", t0, inputs)
+            with st.run("arbitrate", inputs):
+                contigs = ARB.arbitrate_contigs(contigs, pr_long, cfg,
+                                                device=dev, mesh=mesh)
+                if main:
+                    write_fasta(path("arbitrated.fasta"), contigs)
             st.stats["arbitrate_detail"] = dict(ARB.LAST_TIMINGS)
 
     # --- stage: polish (config 5b) ---
     polished = contigs
     if pr_short is not None and contigs:
-        t0 = time.perf_counter()
         pol_tot: Dict = {}
-        for p in range(max(1, cfg.polish_passes)):
-            if p:
-                log.info("polish pass %d/%d", p + 1, cfg.polish_passes)
-            polished = polish_contigs(polished, pr_short, cfg, device=dev,
-                                      solid=solid, mesh=mesh,
-                                      seed_index=short_seed_index())
-            for key, v in CT.items():  # sum the split across passes
-                if isinstance(v, (int, float)) and not isinstance(v, bool):
-                    pol_tot[key] = round(pol_tot.get(key, 0) + v, 3)
-        if main:
-            write_fasta(path("polished.fasta"), polished)
-        st.done("polish", t0, inputs)
+        with st.run("polish", inputs):
+            for p in range(max(1, cfg.polish_passes)):
+                if p:
+                    log.info("polish pass %d/%d", p + 1, cfg.polish_passes)
+                polished = polish_contigs(polished, pr_short, cfg,
+                                          device=dev, solid=solid, mesh=mesh,
+                                          seed_index=short_seed_index())
+                for key, v in CT.items():  # sum the split across passes
+                    if isinstance(v, (int, float)) and \
+                            not isinstance(v, bool):
+                        pol_tot[key] = round(pol_tot.get(key, 0) + v, 3)
+            if main:
+                write_fasta(path("polished.fasta"), polished)
         st.stats["polish_detail"] = pol_tot
-
-    st.stats["total_seconds"] = round(time.perf_counter() - t_all, 3)
+    # the config the stages ran with, the derived caps included
     st.stats["config"] = json.loads(cfg.to_json())
-    if main:
-        with open(path("run_metrics.json"), "w") as fh:
-            json.dump(st.stats, fh, indent=2)
-    return PipelineResult(contigs=contigs, polished=polished,
-                          stats=st.stats)
+    return contigs, polished

@@ -26,6 +26,7 @@ from hga_tpu_torch.config import AssemblerConfig
 from hga_tpu_torch.io.encode import PackedReads
 from hga_tpu_torch.ops import count as C
 from hga_tpu_torch.ops import kmer as K
+from hga_tpu_torch.utils import spans
 from hga_tpu_torch.utils.device import resolve_device
 from hga_tpu_torch.utils.oracle import solid_threshold_from_hist
 
@@ -70,11 +71,20 @@ class SpectrumResult:
 def _batch_keys(pr: PackedReads, sel: np.ndarray, k: int,
                 device: torch.device) -> torch.Tensor:
     """Canonical k-mer keys of reads `sel` (invalid slots = sentinel key)."""
-    kb = K.extract_kmers(K.words_to_tensor(pr.packed[sel], device),
-                         K.words_to_tensor(pr.bad[sel], device),
-                         torch.from_numpy(pr.length[sel]).to(device), k)
-    key = C.pack_key(kb.hi, kb.lo)
-    return torch.where(kb.valid, key, C.SENTINEL_KEY).reshape(-1)
+    with spans.span("spectrum.batch_prep"):
+        packed = np.ascontiguousarray(pr.packed[sel], dtype=np.uint32)
+        bad = np.ascontiguousarray(pr.bad[sel], dtype=np.uint32)
+        length = np.ascontiguousarray(pr.length[sel])
+    with spans.span("spectrum.h2d"):
+        args = (K.words_to_tensor(packed, device),
+                K.words_to_tensor(bad, device),
+                torch.from_numpy(length).to(device))
+    spans.count("spectrum.h2d_bytes", packed.nbytes + bad.nbytes
+                + length.nbytes)
+    with spans.span("spectrum.extract"):
+        kb = K.extract_kmers(*args, k)
+        key = C.pack_key(kb.hi, kb.lo)
+        return torch.where(kb.valid, key, C.SENTINEL_KEY).reshape(-1)
 
 
 def count_reads(
@@ -90,13 +100,22 @@ def count_reads(
     global sort counts every batch's keys at once.  With a mesh of several
     ranks, owner-shard counting (see the module docstring).
     """
-    dev = resolve_device(device)
-    idx = np.arange(pr.n_reads)
-    if category is not None:
-        idx = idx[pr.category == category]
+    with spans.span("spectrum.count_reads"):
+        spans.count("spectrum.calls")
+        dev = resolve_device(device)
+        with spans.span("spectrum.batch_prep"):     # the rows to count
+            idx = np.arange(pr.n_reads)
+            if category is not None:
+                idx = idx[pr.category == category]
+        if mesh is not None and mesh.size > 1:
+            return _count_reads_mesh(idx, pr, cfg, dev, mesh)
+        return _count_reads(idx, pr, cfg, dev)
+
+
+def _count_reads(idx: np.ndarray, pr: PackedReads, cfg: AssemblerConfig,
+                 dev: torch.device) -> SpectrumResult:
+    """count_reads of the reads `idx` on one device."""
     B = cfg.batch_reads
-    if mesh is not None and mesh.size > 1:
-        return _count_reads_mesh(idx, pr, cfg, dev, mesh)
     parts = [_batch_keys(pr, idx[s:s + B], cfg.k, dev)
              for s in range(0, len(idx), B)]
     if not parts:
@@ -106,20 +125,27 @@ def count_reads(
         return SpectrumResult(hi=z, lo=z.copy(), count=np.zeros(0, np.int32),
                               hist=hist, threshold=int(thr), k=cfg.k,
                               distinct=0)
-    key = torch.cat(parts)
-    del parts
-    keys, counts = C.count_keys(key, torch.ones_like(key))
-    del key
+    with spans.span("spectrum.count"):
+        key = torch.cat(parts)
+        del parts
+        keys, counts = C.count_keys(key, torch.ones_like(key))
+        del key
     distinct = int(keys.shape[0])
-    c = torch.clamp(counts, 0, cfg.max_count)
-    hist = torch.bincount(c, minlength=cfg.max_count + 1).to(
-        torch.int32).cpu().numpy()
-    thr = cfg.solid_threshold or solid_threshold_from_hist(hist)
-    solid = counts >= thr
-    hi, lo = C.unpack_key(keys[solid])
-    hi = hi.cpu().numpy().astype(np.uint32)
-    lo = lo.cpu().numpy().astype(np.uint32)
-    cnt = counts[solid].to(torch.int32).cpu().numpy()
+    with spans.span("spectrum.hist"):
+        c = torch.clamp(counts, 0, cfg.max_count)
+        hist = torch.bincount(c, minlength=cfg.max_count + 1).to(
+            torch.int32).cpu().numpy()
+        thr = cfg.solid_threshold or solid_threshold_from_hist(hist)
+    with spans.span("spectrum.solid_out"):
+        solid = counts >= thr
+        hi, lo = C.unpack_key(keys[solid])
+        cnt = counts[solid].to(torch.int32)
+        # host metadata: no synchronisation
+        spans.count("spectrum.d2h_bytes",
+                    hist.nbytes + hi.nbytes + lo.nbytes + cnt.nbytes)
+        hi = hi.cpu().numpy().astype(np.uint32)
+        lo = lo.cpu().numpy().astype(np.uint32)
+        cnt = cnt.cpu().numpy()
     log.info("spectrum: %d distinct %d-mers (%d solid), threshold=%d",
              distinct, cfg.k, hi.size, thr)
     return SpectrumResult(hi=hi, lo=lo, count=cnt, hist=hist,
@@ -152,9 +178,11 @@ def _count_reads_mesh(idx: np.ndarray, pr: PackedReads, cfg: AssemblerConfig,
             bad = np.pad(bad, ((0, pad), (0, 0)))
             length = np.pad(length, (0, pad))
         mine = slice(mesh.rank * nb, (mesh.rank + 1) * nb)
-        args = (K.words_to_tensor(packed[mine], dev),
-                K.words_to_tensor(bad[mine], dev),
-                torch.from_numpy(length[mine]).to(dev))
+        ship = (packed[mine], bad[mine], length[mine])
+        spans.count("spectrum.h2d_bytes", sum(x.nbytes for x in ship))
+        args = (K.words_to_tensor(ship[0], dev),
+                K.words_to_tensor(ship[1], dev),
+                torch.from_numpy(ship[2]).to(dev))
         ck, overflow = PC.count_kmers_bucketed(mesh, *args, cfg.k, bucket_cap)
         if overflow > 0:
             log.info("spectrum: bucket overflow, retrying at worst case")
@@ -163,9 +191,12 @@ def _count_reads_mesh(idx: np.ndarray, pr: PackedReads, cfg: AssemblerConfig,
         # concatenates [s * seg, s * seg + n_s) over s
         part = {"hi": HP.fetch(ck.hi[:ck.n]), "lo": HP.fetch(ck.lo[:ck.n]),
                 "count": HP.fetch(ck.count[:ck.n])}
+        spans.count("spectrum.d2h_bytes",
+                    sum(x.nbytes for x in part.values()))
         parts.append(HP.allgather_concat(part))
     if parts:
         cat = {f: np.concatenate([p[f] for p in parts]) for f in parts[0]}
+        spans.count("spectrum.h2d_bytes", sum(x.nbytes for x in cat.values()))
         merged = C.sort_and_count(*(torch.from_numpy(cat[f]).to(dev)
                                     for f in ("hi", "lo", "count")))
         hist = C.spectrum_histogram(merged, cfg.max_count).cpu().numpy()
@@ -173,6 +204,8 @@ def _count_reads_mesh(idx: np.ndarray, pr: PackedReads, cfg: AssemblerConfig,
         hi = merged.hi[:n].cpu().numpy().astype(np.uint32)
         lo = merged.lo[:n].cpu().numpy().astype(np.uint32)
         cnt = merged.count[:n].cpu().numpy()
+        spans.count("spectrum.d2h_bytes", hist.nbytes + cnt.nbytes
+                    + merged.hi[:n].nbytes + merged.lo[:n].nbytes)
     else:
         hist = np.zeros(cfg.max_count + 1, np.int64)
         hi = np.zeros(0, np.uint32)

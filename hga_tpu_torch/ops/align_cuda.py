@@ -56,18 +56,16 @@ port.  The library is built at first use from ``csrc/sw.cu``
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from hga_tpu_torch.ops import cuda_build
 from hga_tpu_torch.ops.align import SWResult, banded_sw_batch, check_scores
+from hga_tpu_torch.utils import spans
 
-# launches of each route's kernel by the wrapper (reset with reset_launches())
-LAUNCHES: Dict[str, int] = {"banded_sw_batch_cuda": 0,
-                            "banded_sw_batch_cuda_band": 0,
-                            "banded_sw_batch_cuda_wide": 0,
-                            "banded_sw_batch_cuda_rows": 0}
+# the name of each route's launches by the wrapper (spans.launch: a span and
+# a counter of the registry, utils/spans)
 ROUTE_COUNTER = {"diag": "banded_sw_batch_cuda",
                  "band": "banded_sw_batch_cuda_band",
                  "wide": "banded_sw_batch_cuda_wide",
@@ -104,11 +102,6 @@ class BandGeometry(NamedTuple):
     qwin: int
     thi: int
     twin: int
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -374,6 +367,7 @@ def banded_sw_batch_cuda(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
                                mismatch=mismatch, gap=gap)
     r, *ops, outs = kernel_operands(q, t, qlen, tlen, band)
     if q.shape[0]:
-        run_kernel(r, *ops, outs, match=match, mismatch=mismatch, gap=gap)
-        LAUNCHES[ROUTE_COUNTER[r.kind]] += 1
+        with spans.launch(ROUTE_COUNTER[r.kind]):
+            run_kernel(r, *ops, outs, match=match, mismatch=mismatch,
+                       gap=gap)
     return SWResult(*outs)

@@ -93,19 +93,16 @@ from hga_tpu_torch.ops.myers import (MyersResult, myers_batch,
                                      pack_state, query_planes, state_result,
                                      unpack_state, window_halo)
 from hga_tpu_torch.ops.pileup import myers_votes
+from hga_tpu_torch.utils import spans
 
-# launches of each kernel by its wrapper (reset with reset_launches()); K1'
-# counts its wide route and its two modes apart, K2' its plane homes and
-# its wide route
-LAUNCHES: Dict[str, int] = {"myers_batch_cuda": 0,
-                            "myers_batch_cuda_wide": 0,
-                            "myers_batch_cuda_shared": 0,
-                            "myers_batch_cuda_carry": 0,
-                            "myers_votes_cuda": 0,
-                            "myers_votes_cuda_scratch": 0,
-                            "myers_votes_cuda_wide": 0,
-                            "myers_batch_planes_cuda": 0,
-                            "myers_batch_planes_cuda_wide": 0}
+# each wrapper names its launches by the route it took (spans.launch: a span
+# and a counter of the registry, utils/spans): K1' counts its wide route and
+# its two modes apart, K2' its plane homes and its wide route
+LAUNCH_COUNTERS = ("myers_batch_cuda", "myers_batch_cuda_wide",
+                   "myers_batch_cuda_shared", "myers_batch_cuda_carry",
+                   "myers_votes_cuda", "myers_votes_cuda_scratch",
+                   "myers_votes_cuda_wide", "myers_batch_planes_cuda",
+                   "myers_batch_planes_cuda_wide")
 
 THREADS = 128              # threads a block, K1', K2s and K2
 GATE_WARPS = THREADS // 32
@@ -162,11 +159,6 @@ _LIB: Optional[ctypes.CDLL] = None        # K2s and K2 (csrc/myers.cu)
 _GATE_LIB: Optional[ctypes.CDLL] = None   # K1' (csrc/myers_gate.cu)
 _VOTES_LIB: Optional[ctypes.CDLL] = None  # K2' (csrc/myers_votes.cu)
 _SMS: Dict[int, int] = {}                 # SMs by CUDA device index
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -563,8 +555,8 @@ def myers_batch_cuda(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
         return myers_batch(q, t, qlen, tlen)
     *ops, outs = kernel_operands(q, t, qlen, tlen)
     if q.shape[0]:
-        run_kernel(*ops, outs)
-        LAUNCHES[gate_counter(ops[4], ops[5])] += 1
+        with spans.launch(gate_counter(ops[4], ops[5])):
+            run_kernel(*ops, outs)
     return MyersResult(*outs)
 
 
@@ -620,8 +612,8 @@ def myers_cols_cuda(q: torch.Tensor, t: torch.Tensor, qlen: torch.Tensor,
         return st, state_result(qlen, st)
     *ops, outs = carry_operands(q, t, qlen, tlen, state, j0)
     if N:
-        run_carry_kernel(*ops, outs)
-        LAUNCHES["myers_batch_cuda_carry"] += 1
+        with spans.launch("myers_batch_cuda_carry"):
+            run_carry_kernel(*ops, outs)
     return unpack_state(outs[0], W), MyersResult(*outs[1:])
 
 
@@ -635,8 +627,8 @@ def myers_batch_planes_cuda(q: torch.Tensor, t: torch.Tensor,
         return myers_batch_planes(q, t, qlen, tlen)
     r, ins, outs = planes_operands(q, t, qlen, tlen)
     if q.shape[0]:
-        run_planes_kernel(r, ins, outs)
-        LAUNCHES[planes_counter(r)] += 1
+        with spans.launch(planes_counter(r)):
+            run_planes_kernel(r, ins, outs)
     return MyersResult(dist=outs[0], tend=outs[1]), outs[2], outs[3]
 
 
@@ -837,5 +829,6 @@ def myers_votes_cuda(merged: torch.Tensor, q: torch.Tensor, t: torch.Tensor,
         merged, q, t, qlen, tlen, bb, off, lb, qw, min_identity=min_identity,
         size_v=size_v, lpad=lpad, ins_slots=ins_slots, max_steps=max_steps)
     if q.shape[0]:
-        LAUNCHES[votes_counter(r)] += run_votes_kernel(r, *ops, outs)
+        with spans.launch(votes_counter(r)) as sp:
+            sp.n = run_votes_kernel(r, *ops, outs)
     return MyersResult(*outs), merged

@@ -17,6 +17,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from hga_tpu_torch.io.encode import encode_bases, revcomp_str
+from hga_tpu_torch.utils import spans
 
 
 def n50(lengths: Sequence[int]) -> int:
@@ -139,6 +140,11 @@ def segment_identity(contigs: List[Tuple[str, str]], reference: str,
     DP streams through the ring engine (parallel/ring_myers.py, K1''s
     carried-state mode), each rank holding Lt / P columns.
     """
+    with spans.span("evalseg.segment_identity"):
+        return _segment_identity(contigs, reference, seg, batch, device, mesh)
+
+
+def _segment_identity(contigs, reference, seg, batch, device, mesh):
     import torch
 
     from hga_tpu_torch.config import AssemblerConfig
@@ -150,44 +156,52 @@ def segment_identity(contigs: List[Tuple[str, str]], reference: str,
         return dict(segment_identity=0.0, n_segments=0)
     dev = resolve_device(device)
     P = mesh.size if mesh is not None else 1
-    # shared target: genome . sentinel . revcomp(genome), sentinel-padded
-    # to a multiple of the mesh size (the ring's chunks)
-    g_fwd, _ = encode_bases(reference)
-    g_rc = 3 - g_fwd[::-1]
-    t_true = len(g_fwd) * 2 + 1
-    Lt = pad_to_multiple(t_true, P)
-    t_row = np.full(Lt, SENT_BASE, np.int32)
-    t_row[: len(g_fwd)] = g_fwd
-    t_row[len(g_fwd) + 1 : t_true] = g_rc
-    t1 = torch.from_numpy(t_row[None, :]).to(dev)
+    with spans.span("evalseg.encode_reference"):
+        # shared target: genome . sentinel . revcomp(genome), sentinel-
+        # padded to a multiple of the mesh size (the ring's chunks)
+        g_fwd, _ = encode_bases(reference)
+        g_rc = 3 - g_fwd[::-1]
+        t_true = len(g_fwd) * 2 + 1
+        Lt = pad_to_multiple(t_true, P)
+        t_row = np.full(Lt, SENT_BASE, np.int32)
+        t_row[: len(g_fwd)] = g_fwd
+        t_row[len(g_fwd) + 1 : t_true] = g_rc
+    with spans.span("evalseg.h2d"):
+        t1 = torch.from_numpy(t_row[None, :]).to(dev)
 
-    # cut contigs into fixed-width segments
-    qs, ql = [], []
-    for _, s in contigs:
-        codes, _ = encode_bases(s)
-        for o in range(0, len(s), seg):
-            piece = codes[o : o + seg].astype(np.int32)
-            row = np.full(seg, SENT_BASE, np.int32)
-            row[: piece.size] = piece
-            qs.append(row)
-            ql.append(piece.size)
-    q = np.stack(qs)
-    ql = np.array(ql, np.int32)
+    with spans.span("evalseg.cut"):
+        # cut contigs into fixed-width segments
+        qs, ql = [], []
+        for _, s in contigs:
+            codes, _ = encode_bases(s)
+            for o in range(0, len(s), seg):
+                piece = codes[o : o + seg].astype(np.int32)
+                row = np.full(seg, SENT_BASE, np.int32)
+                row[: piece.size] = piece
+                qs.append(row)
+                ql.append(piece.size)
+        q = np.stack(qs)
+        ql = np.array(ql, np.int32)
     n_seg = q.shape[0]
 
     edit = default_edit(AssemblerConfig(), mesh)
     B = 1 if P == 1 else max(2 * P, 8)  # batches padded for the ring
     total_dist = 0
     for s0 in range(0, n_seg, batch):
-        qb, qlb = q[s0 : s0 + batch], ql[s0 : s0 + batch]
-        pad = -qb.shape[0] % B
-        qb = np.pad(qb, ((0, pad), (0, 0)), constant_values=SENT_BASE)
-        qlb = np.pad(qlb, (0, pad))
-        tlb = torch.full((qb.shape[0],), t_true, dtype=torch.int32,
-                         device=dev)
-        r = edit(torch.from_numpy(qb).to(dev), t1,
-                 torch.from_numpy(qlb).to(dev), tlb)
-        total_dist += int(r.dist.to(torch.int64).sum())
+        with spans.span("evalseg.h2d"):
+            qb, qlb = q[s0 : s0 + batch], ql[s0 : s0 + batch]
+            pad = -qb.shape[0] % B
+            qb = np.pad(qb, ((0, pad), (0, 0)), constant_values=SENT_BASE)
+            qlb = np.pad(qlb, (0, pad))
+            tlb = torch.full((qb.shape[0],), t_true, dtype=torch.int32,
+                             device=dev)
+            args = (torch.from_numpy(qb).to(dev), t1,
+                    torch.from_numpy(qlb).to(dev), tlb)
+        with spans.span("evalseg.sweep"):
+            r = edit(*args)
+        del args            # the batch's codes leave before the next's come
+        with spans.span("evalseg.reduce"):
+            total_dist += int(r.dist.to(torch.int64).sum())
     span = int(ql.sum())
     return dict(segment_identity=1.0 - total_dist / max(span, 1),
                 n_segments=int(n_seg), segment_dist=int(total_dist))

@@ -12,6 +12,7 @@ from hga_tpu.ops import align as JA
 from hga_tpu.ops.align_pallas import banded_sw_batch_pallas
 from hga_tpu_torch.ops import align as TA
 from hga_tpu_torch.ops import align_cuda as TAC
+from hga_tpu_torch.utils import spans
 
 FIELDS = ("score", "qend", "tend")
 
@@ -138,12 +139,12 @@ def test_sw_cells_matches_jax():
 
 def test_wrapper_on_cpu_runs_the_plain_version_without_launching():
     q, t, ql, tl = _t(*_edges(1, 16, 40, 40))
-    before = TAC.LAUNCHES["banded_sw_batch_cuda"]
+    before = spans.launches()["banded_sw_batch_cuda"]
     got = TAC.banded_sw_batch_cuda(q, t, ql, tl, band=16)
     ref = TA.banded_sw_batch(q, t, ql, tl, band=16)
     for f in FIELDS:
         assert torch.equal(getattr(got, f), getattr(ref, f)), f
-    assert TAC.LAUNCHES["banded_sw_batch_cuda"] == before
+    assert spans.launches()["banded_sw_batch_cuda"] == before
     empty = TAC.banded_sw_batch_cuda(q[:0], t[:0], ql[:0], tl[:0], band=16)
     assert all(x.shape == (0,) and x.dtype == torch.int32 for x in empty)
 
@@ -166,10 +167,10 @@ def test_wrapper_rejects_bad_operands():
 def test_cuda_kernel_matches_plain(cuda):
     for case, (make, band, Lq, Lt) in sorted(CASES.items()):
         q, t, ql, tl = (x.to(cuda) for x in _t(*make(7, 300, Lq, Lt)))
-        before = TAC.LAUNCHES["banded_sw_batch_cuda"]
+        before = spans.launches()["banded_sw_batch_cuda"]
         got = TAC.banded_sw_batch_cuda(q, t, ql, tl, band=band)
         ref = TA.banded_sw_batch(q, t, ql, tl, band=band)
-        assert TAC.LAUNCHES["banded_sw_batch_cuda"] == before + 1
+        assert spans.launches()["banded_sw_batch_cuda"] == before + 1
         for f in FIELDS:
             assert torch.equal(getattr(got, f).cpu(),
                                getattr(ref, f).cpu()), (case, f)

@@ -19,6 +19,7 @@ from hga_tpu_torch.ops import myers as TM
 from hga_tpu_torch.ops import myers_cuda as TMC
 from hga_tpu_torch.utils import evalx as TE
 from hga_tpu_torch.utils import sim
+from hga_tpu_torch.utils import spans
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -172,7 +173,7 @@ def test_shared_target_mode_rules():
     ops = TMC.kernel_operands(q, row, one, one)
     assert ops[5] is True and ops[1] is row        # the row as given
     assert TMC.kernel_operands(q, q, one, one)[5] is False
-    assert "myers_batch_cuda_shared" in TMC.LAUNCHES
+    assert "myers_batch_cuda_shared" in TMC.LAUNCH_COUNTERS
     # K2 and K2' keep one target row a pair; K1' takes 1 or N rows only
     with pytest.raises(ValueError):
         TMC.myers_batch_planes_cuda(q, row, one, one)
@@ -188,8 +189,8 @@ def test_cuda_shared_target_matches_plain(cuda):
         args = [torch.from_numpy(x).to(cuda)
                 for x in _shared_inputs(16, *shape)]
         ref = TM.myers_batch(*args)
-        n = TMC.LAUNCHES["myers_batch_cuda_shared"]
+        n = spans.launches()["myers_batch_cuda_shared"]
         got = TMC.myers_batch_cuda(*args)
-        assert TMC.LAUNCHES["myers_batch_cuda_shared"] == n + 1
+        assert spans.launches()["myers_batch_cuda_shared"] == n + 1
         assert torch.equal(got.dist, ref.dist)
         assert torch.equal(got.tend, ref.tend)

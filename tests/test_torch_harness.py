@@ -24,6 +24,7 @@ from hga_tpu_torch.exp import sw_variants as SV
 from hga_tpu_torch.exp import vpu_micro as VM
 from hga_tpu_torch.ops import align as TA
 from hga_tpu_torch.ops import myers as TM
+from hga_tpu_torch.utils import spans
 
 SW_FIELDS = ("score", "qend", "tend")
 INT32_MAX = 2**31 - 1
@@ -220,12 +221,12 @@ def test_vpu_chains_plain_matches_pallas_interpret(C, start):
 
 def test_vpu_chains_wrapper_on_cpu_repeats_the_plain_version():
     x = torch.arange(256, dtype=torch.int32).reshape(2, 128)
-    before = dict(VM.LAUNCHES)
+    before = spans.launches()
     got = VM.vpu_chains_cuda(x, 4, 16, reps=3)
     assert got.shape == (3, 2, 128)
     for r in range(3):
         assert torch.equal(got[r], VM.chains(x, 4, 16))
-    assert VM.LAUNCHES == before
+    assert spans.launches() == before
 
 
 def test_vpu_chains_wrapper_rejects_bad_operands():
@@ -245,11 +246,11 @@ def test_vpu_chains_wrapper_rejects_bad_operands():
 def test_run_b_wrapper_on_cpu_runs_the_plain_version_without_launching():
     q, t, ql, tl = _t(*_myers_inputs(5, 200, 40, 48))
     planes = TM.query_planes(q, ql, 2)
-    before = dict(MM.LAUNCHES)
+    before = spans.launches()
     got = MM.run_b(ql, tl, *planes, t, S=2, BLK=8)
     ref = TM.myers_batch(q, t, ql, tl)
     assert torch.equal(got.dist, ref.dist) and torch.equal(got.tend, ref.tend)
-    assert MM.LAUNCHES == before
+    assert spans.launches() == before
 
 
 def test_run_b_wrapper_rejects_bad_operands():
@@ -278,13 +279,13 @@ def test_run_b_wrapper_rejects_bad_operands():
 
 def test_sw_variants_wrapper_on_cpu_and_its_limits():
     q, t, ql, tl = _t(*_sw_inputs(8, 32, 32, 64))
-    before = dict(SV.LAUNCHES)
+    before = spans.launches()
     for v in ("v1", "v2", "v3", "v3g2"):
         got = SV.sw_pallas_exp(q, t, ql, tl, band=8, variant=v)
         ref = TA.banded_sw_batch(q, t, ql, tl, band=8)
         for f in SW_FIELDS:
             assert torch.equal(getattr(got, f), getattr(ref, f)), (v, f)
-    assert SV.LAUNCHES == before
+    assert spans.launches() == before
     with pytest.raises(ValueError, match="ablation"):
         SV.sw_pallas_exp(q, t, ql, tl, band=8, variant="v1nots")
     with pytest.raises(ValueError, match="int32"):
@@ -310,9 +311,9 @@ def test_cuda_harness_kernels_match_plain(cuda):
     x[0, :3] = torch.tensor([INT32_MAX - 5, INT32_MAX, -2**31])
     xd = x.to(cuda)
     for C in (1, 2, 4, 8):
-        n = VM.LAUNCHES["vpu_chains_cuda"]
+        n = spans.launches()["vpu_chains_cuda"]
         got = VM.vpu_chains_cuda(xd, C, 16, reps=2)
-        assert VM.LAUNCHES["vpu_chains_cuda"] == n + 1
+        assert spans.launches()["vpu_chains_cuda"] == n + 1
         assert torch.equal(got.cpu(), VM.chains(x, C, 16).expand(2, 8, 128))
     # X1: W 2, then past the old 24-word cap (W 25, 40; W 140 keeps its
     # words in the device scratch), partial blocks and slabs
@@ -324,9 +325,9 @@ def test_cuda_harness_kernels_match_plain(cuda):
         planes = TM.query_planes(q, ql, W)
         ref = TM.myers_batch(q, t, ql, tl)
         for S, BLK in ((8, 8), (2, 32)):
-            n = MM.LAUNCHES["run_b_cuda"]
+            n = spans.launches()["run_b_cuda"]
             got = MM.run_b(ql, tl, *planes, t, S=S, BLK=BLK)
-            assert MM.LAUNCHES["run_b_cuda"] == n + 1
+            assert spans.launches()["run_b_cuda"] == n + 1
             assert torch.equal(got.dist, ref.dist), (W, S, BLK)
             assert torch.equal(got.tend, ref.tend), (W, S, BLK)
     # X2 at the old shapes, past the old 256-slot caps (Lq 300 at band 64,
@@ -338,9 +339,9 @@ def test_cuda_harness_kernels_match_plain(cuda):
         q, t, ql, tl = (a.to(cuda) for a in _t(*_sw_inputs(seed, N, Lq, Lt)))
         ref = TA.banded_sw_batch(q, t, ql, tl, band=band)
         for v in ("v1", "v2", "v3", "v3g2", "v3g8", "v3g64"):
-            n = SV.LAUNCHES[v[:2]]
+            n = spans.launches()[SV.COUNTER[v[:2]]]
             got = SV.sw_pallas_exp(q, t, ql, tl, band=band, variant=v)
-            assert SV.LAUNCHES[v[:2]] == n + 1
+            assert spans.launches()[SV.COUNTER[v[:2]]] == n + 1
             for f in SW_FIELDS:
                 assert torch.equal(getattr(got, f), getattr(ref, f)), \
                     (v, band, Lq, f)

@@ -14,6 +14,7 @@ from hga_tpu.ops.myers_pallas import (myers_batch_pallas,
 from hga_tpu_torch.ops import myers as TM
 from hga_tpu_torch.ops import myers_cuda as TMC
 from hga_tpu_torch.utils import oracle
+from hga_tpu_torch.utils import spans
 
 
 @pytest.fixture
@@ -217,7 +218,7 @@ def test_word_caps_by_kernel():
             else:
                 with pytest.raises(ValueError, match="query words"):
                     build()
-    assert sorted(TMC.LAUNCHES) == sorted([
+    assert sorted(TMC.LAUNCH_COUNTERS) == sorted([
         "myers_batch_cuda", "myers_batch_cuda_wide",
         "myers_batch_cuda_shared", "myers_batch_cuda_carry",
         "myers_votes_cuda", "myers_votes_cuda_scratch",
@@ -250,12 +251,12 @@ def test_wide_queries_match_jax(Lq):
     ql = np.array([Lq, Lq - 1, 744, 745, 0, 1], np.int32)
     tl = np.array([Lt, Lt, Lt - 5, Lt, Lt, 7], np.int32)
     ref = JM.myers_batch(*_j(q, t, ql, tl))
-    n = dict(TMC.LAUNCHES)
+    n = spans.launches()
     got = TMC.myers_batch_cuda(*_t(q, t, ql, tl))
     st, carry = TMC.myers_cols_cuda(*_t(q, t, ql, tl), TM.myers_init_state(
         torch.from_numpy(ql), TM.n_words(Lq)))
     planes, _, _ = TMC.myers_batch_planes_cuda(*_t(q, t, ql, tl))
-    assert TMC.LAUNCHES == n                 # CPU tensors: no counter moves
+    assert spans.launches() == n             # CPU tensors: no counter moves
     for res in (got, carry, planes):
         np.testing.assert_array_equal(res.dist.numpy(), np.asarray(ref.dist))
         np.testing.assert_array_equal(res.tend.numpy(), np.asarray(ref.tend))

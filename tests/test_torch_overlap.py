@@ -30,6 +30,7 @@ from hga_tpu_torch.models import seeding as TS
 from hga_tpu_torch.ops import align_cuda as TAC
 from hga_tpu_torch.ops import pairs as TP
 from hga_tpu_torch.utils import sim
+from hga_tpu_torch.utils import spans
 
 FIX = os.path.join(os.path.dirname(__file__), "fixtures")
 FIELDS = ("a", "b", "rel", "score", "a_start", "a_end", "b_start", "b_end",
@@ -283,10 +284,10 @@ def test_find_candidates_cross_indexed_routes_match_jax(monkeypatch):
 
 def test_cpu_overlaps_launch_no_kernel():
     # the CPU path runs the plain versions: no kernel launch is counted
-    before = TAC.LAUNCHES["banded_sw_batch_cuda"]
+    before = spans.launches()["banded_sw_batch_cuda"]
     ds = _placement()
     TO.compute_overlaps_cross(*_cross_reads(tpack, ds),
                               TCfg(**dict(KW, overlap_refine="sw")),
                               device="cpu")
-    assert TAC.LAUNCHES["banded_sw_batch_cuda"] == before
+    assert spans.launches()["banded_sw_batch_cuda"] == before
     assert torch.cuda.is_available() or TAC._LIB is None

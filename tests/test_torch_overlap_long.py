@@ -14,6 +14,7 @@ from hga_tpu_torch.io.encode import pack_reads as tpack
 from hga_tpu_torch.models import overlap_long as TOL
 from hga_tpu_torch.ops import myers_cuda as TMC
 from hga_tpu_torch.utils import sim
+from hga_tpu_torch.utils import spans
 
 FIELDS = ("a", "b", "rel", "score", "a_start", "a_end", "b_start", "b_end",
           "a_len", "b_len", "dist")
@@ -65,5 +66,5 @@ def test_overlaps_artifact_round_trip(runs, tmp_path):
 
 def test_cpu_run_launches_no_kernel(runs):
     # the CPU path runs the plain versions: no kernel launch is counted
-    assert TMC.LAUNCHES["myers_batch_cuda"] == 0
+    assert spans.launches()["myers_batch_cuda"] == 0
     assert torch.cuda.is_available() or TMC._LIB is None

@@ -67,7 +67,7 @@ def test_cli_pipeline_and_eval(tmp_path, capsys):
                 ["pipeline", "--short", str(tmp_path / "short.fasta"),
                  *FLAGS], "asm")
     assert _same_file(out, "polished.fasta")
-    assert set(out["torch"][1]) == set(out["jax"][1])
+    assert set(out["torch"][1]) == set(out["jax"][1]) | {"counters"}
     evals = []
     for main, extra, tag in ((jmain, [], "jax"),
                              (tmain, ["--device", "cpu"], "torch")):
@@ -127,7 +127,7 @@ def test_cli_simulate_fastq_quality_pipeline(tmp_path, capsys):
                  "--short", os.path.join(simdir, "short.fastq"),
                  "--long", os.path.join(simdir, "long.fasta")], "runq")
     assert _same_file(out, "polished.fasta")
-    assert set(out["torch"][1]) == set(out["jax"][1])
+    assert set(out["torch"][1]) == set(out["jax"][1]) | {"counters"}
 
 
 def test_cli_correct_sw_engine(hybrid_files, tmp_path, capsys):

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 from hga_tpu.ops import myers as JM
 from hga_tpu_torch.ops import myers as TM
 from hga_tpu_torch.ops import myers_cuda as TMC
+from hga_tpu_torch.utils import spans
 
 M31 = (1 << 31) - 1
 
@@ -185,9 +186,9 @@ def test_planes_wrapper_past_24_words_matches_jax(W):
     word cap) and equals the JAX package; no counter moves."""
     q, t, ql, tl = _inputs(100 + W, 10, W, 64)
     ref, rpv, rmv = JM.myers_batch_planes(*_j(q, t, ql, tl))
-    n = dict(TMC.LAUNCHES)
+    n = spans.launches()
     got, gpv, gmv = TMC.myers_batch_planes_cuda(*_t(q, t, ql, tl))
-    assert TMC.LAUNCHES == n
+    assert spans.launches() == n
     for g, r in ((got.dist, ref.dist), (got.tend, ref.tend), (gpv, rpv),
                  (gmv, rmv)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
@@ -237,7 +238,7 @@ def test_planes_routes(monkeypatch):
         m.setattr(torch, "empty", oom)
         with pytest.raises(ValueError, match="10,394,009,600 bytes"):
             TMC.planes_alloc(4096, 100, 3172, torch.device("cpu"))
-    assert sorted(k for k in TMC.LAUNCHES if "planes" in k) == [
+    assert sorted(k for k in TMC.LAUNCH_COUNTERS if "planes" in k) == [
         "myers_batch_planes_cuda", "myers_batch_planes_cuda_wide"]
 
 

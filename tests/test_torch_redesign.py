@@ -22,6 +22,7 @@ from hga_tpu_torch.ops import align as TA
 from hga_tpu_torch.ops import align_cuda as TAC
 from hga_tpu_torch.ops import myers as TM
 from hga_tpu_torch.ops import myers_cuda as TMC
+from hga_tpu_torch.utils import spans
 
 PAYLOAD = 31
 M31 = (1 << 31) - 1
@@ -376,7 +377,6 @@ def test_sw_routes_and_geometry():
                                  "band": "banded_sw_batch_cuda_band",
                                  "wide": "banded_sw_batch_cuda_wide",
                                  "rows": "banded_sw_batch_cuda_rows"}
-    assert set(TAC.LAUNCHES) == set(TAC.ROUTE_COUNTER.values())
 
 
 # ------------------------------------------------------------------ the card
@@ -391,9 +391,9 @@ def test_cuda_gate_kernel_matches_plain_both_designs(cuda):
             TMC.run_kernel(*ops, outs)
             assert torch.equal(outs[0], ref.dist), (W, G)
             assert torch.equal(outs[1], ref.tend), (W, G)
-        n = TMC.LAUNCHES["myers_batch_cuda"]
+        n = spans.launches()["myers_batch_cuda"]
         got = TMC.myers_batch_cuda(*args)
-        assert TMC.LAUNCHES["myers_batch_cuda"] == n + 1
+        assert spans.launches()["myers_batch_cuda"] == n + 1
         assert torch.equal(got.dist, ref.dist)
 
 
@@ -405,9 +405,9 @@ def test_cuda_sw_routes_match_plain(cuda):
             args = [x.to(cuda) for x in _t(*_sw_inputs(Lq, 300, Lq, Lt,
                                                         band))]
             key = TAC.ROUTE_COUNTER[TAC.route(Lq, Lt, band).kind]
-            n = TAC.LAUNCHES[key]
+            n = spans.launches()[key]
             got = TAC.banded_sw_batch_cuda(*args, band=band)
-            assert TAC.LAUNCHES[key] == n + 1
+            assert spans.launches()[key] == n + 1
             ref = TA.banded_sw_batch(*args, band=band)
             for f in SW_FIELDS:
                 assert torch.equal(getattr(got, f), getattr(ref, f)), \

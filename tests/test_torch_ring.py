@@ -19,6 +19,7 @@ import torch
 from hga_tpu_torch.ops import myers as TM
 from hga_tpu_torch.ops import myers_cuda as TMC
 from hga_tpu_torch.parallel.launch import launch
+from hga_tpu_torch.utils import spans
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # (P, blocks_per_dev, shared target)
@@ -286,7 +287,7 @@ def test_cuda_carry_mode_matches_plain(cuda):
         st_h = TM.myers_init_state(host[2], W)
         st_d = TM.myers_init_state(dev[2], W)
         j0 = 0
-        before = TMC.LAUNCHES["myers_batch_cuda_carry"]
+        before = spans.launches()["myers_batch_cuda_carry"]
         for c in CHUNKS:
             cut = lambda x: x[:, j0:j0 + c].contiguous()
             st_h, r_h = TMC.myers_cols_cuda(host[0], cut(host[1]), host[2],
@@ -297,4 +298,5 @@ def test_cuda_carry_mode_matches_plain(cuda):
             j0 += c
         assert torch.equal(r_d.dist.cpu(), r_h.dist)
         assert torch.equal(r_d.tend.cpu(), r_h.tend)
-        assert TMC.LAUNCHES["myers_batch_cuda_carry"] == before + len(CHUNKS)
+        assert spans.launches()["myers_batch_cuda_carry"] == \
+            before + len(CHUNKS)

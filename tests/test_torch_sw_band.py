@@ -25,6 +25,7 @@ from hga_tpu.ops import align as JA
 from hga_tpu.ops.align_pallas import banded_sw_batch_pallas
 from hga_tpu_torch.ops import align as TA
 from hga_tpu_torch.ops import align_cuda as TAC
+from hga_tpu_torch.utils import spans
 
 SW_FIELDS = ("score", "qend", "tend")
 BIG = 1 << 30
@@ -292,7 +293,7 @@ def test_sw_routes_three_kinds():
     assert TAC.route(30000, 30100, 64)[:3] == ("wide", 3, 4)
     assert TAC.rows_route(1000, 1000, 960).scratch is True
     assert TAC.ROUTE_COUNTER["band"] == "banded_sw_batch_cuda_band"
-    assert set(TAC.LAUNCHES) == set(TAC.ROUTE_COUNTER.values())
+    assert len(set(TAC.ROUTE_COUNTER.values())) == len(TAC.ROUTE_COUNTER)
 
 
 def test_sw_band_geometry():
@@ -325,12 +326,12 @@ def test_sw_band_geometry():
 
 def test_wrapper_on_cpu_takes_the_plain_version_at_lq_320():
     q, t, ql, tl = _t(*_sw_inputs(5, 12, 320, 392, 64))
-    before = dict(TAC.LAUNCHES)
+    before = spans.launches()
     got = TAC.banded_sw_batch_cuda(q, t, ql, tl, band=64)
     ref = TA.banded_sw_batch(q, t, ql, tl, band=64)
     for f in SW_FIELDS:
         assert torch.equal(getattr(got, f), getattr(ref, f)), f
-    assert TAC.LAUNCHES == before
+    assert spans.launches() == before
 
 
 @pytest.mark.cuda
@@ -340,9 +341,9 @@ def test_cuda_band_kernel_matches_plain(cuda):
                          (100, 58000, 64)):
         args = [x.to(cuda) for x in _t(*_sw_inputs(Lq, 300, Lq, Lt, band))]
         assert TAC.route(Lq, Lt, band).kind == "band"
-        n = TAC.LAUNCHES["banded_sw_batch_cuda_band"]
+        n = spans.launches()["banded_sw_batch_cuda_band"]
         got = TAC.banded_sw_batch_cuda(*args, band=band)
-        assert TAC.LAUNCHES["banded_sw_batch_cuda_band"] == n + 1
+        assert spans.launches()["banded_sw_batch_cuda_band"] == n + 1
         ref = TA.banded_sw_batch(*args, band=band)
         for f in SW_FIELDS:
             assert torch.equal(getattr(got, f), getattr(ref, f)), \

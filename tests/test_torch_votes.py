@@ -30,6 +30,7 @@ from hga_tpu_torch.models import correction as TCR
 from hga_tpu_torch.ops import myers as TM
 from hga_tpu_torch.ops import myers_cuda as TMC
 from hga_tpu_torch.ops import pileup as TPU
+from hga_tpu_torch.utils import spans
 
 PAYLOAD = 31
 M31 = (1 << 31) - 1
@@ -177,12 +178,12 @@ def port_votes(b, min_identity, weighted, max_steps):
     q, t, ql, tl, bb, off, lb, qw, nb, lpad = b
     size_v, size_all = sizes(nb, lpad)
     merged = torch.zeros(size_all + 1, dtype=torch.int32)
-    n = dict(TMC.LAUNCHES)
+    n = spans.launches()
     res, out = TMC.myers_votes_cuda(
         merged, *_t(q, t, ql, tl, bb, off, lb, qw if weighted else None),
         min_identity=min_identity, size_v=size_v, lpad=lpad,
         ins_slots=SLOTS, max_steps=max_steps)
-    assert out is merged and TMC.LAUNCHES == n     # no kernel on the CPU
+    assert out is merged and spans.launches() == n  # no kernel on the CPU
     return merged[:size_all].numpy(), res.dist.numpy(), res.tend.numpy()
 
 
@@ -554,13 +555,12 @@ def test_votes_routes_and_banks():
     assert TMC.votes_launch_pairs(TMC.votes_route(800, 872), 4096) == 4096
     huge = TMC.votes_route(31 * 12000, 100)           # words past SMEM_MAX
     assert huge.words and huge.smem < TMC.SMEM_MAX
-    assert set(TMC.LAUNCHES) == {"myers_batch_cuda", "myers_batch_cuda_wide",
-                                 "myers_batch_cuda_shared",
-                                 "myers_batch_cuda_carry", "myers_votes_cuda",
-                                 "myers_votes_cuda_scratch",
-                                 "myers_votes_cuda_wide",
-                                 "myers_batch_planes_cuda",
-                                 "myers_batch_planes_cuda_wide"}
+    assert set(TMC.LAUNCH_COUNTERS) == {
+        "myers_batch_cuda", "myers_batch_cuda_wide",
+        "myers_batch_cuda_shared", "myers_batch_cuda_carry",
+        "myers_votes_cuda", "myers_votes_cuda_scratch",
+        "myers_votes_cuda_wide", "myers_batch_planes_cuda",
+        "myers_batch_planes_cuda_wide"}
     # at W 1, 2 and 4 the DP's 64-bit plane stores of a half-warp (the
     # lanes a shared-memory access serves together) hit distinct banks
     for Lq in (31, 62, 112):
@@ -594,10 +594,10 @@ def test_cuda_votes_kernel_matches_plain(cuda):
             ref, _ = TPU.myers_votes(ref_m, *a, **kw)
             r = TMC.votes_route(Lq, t.shape[1])
             key = TMC.votes_counter(r)
-            n = TMC.LAUNCHES[key]
+            n = spans.launches()[key]
             got_m = torch.zeros_like(ref_m)
             got, _ = TMC.myers_votes_cuda(got_m, *a, **kw)
-            assert TMC.LAUNCHES[key] == n + 1
+            assert spans.launches()[key] == n + 1
             assert torch.equal(got.dist, ref.dist)
             assert torch.equal(got.tend, ref.tend)
             assert torch.equal(got_m[:size_all], ref_m[:size_all])

@@ -25,6 +25,7 @@ from hga_tpu_torch.models import seeding as TS
 from hga_tpu_torch.ops import myers as TM
 from hga_tpu_torch.ops import myers_cuda as TMC
 from hga_tpu_torch.utils import sim
+from hga_tpu_torch.utils import spans
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -71,7 +72,7 @@ def test_plain_versions_past_34_words_match_jax():
     """At W 35, 48, 64, 65 and 100 the K1' wrapper, its carried-state mode
     (over 2 and 3 chunks) and K2's on CPU tensors equal the JAX engine:
     dist, tend, the carried state, the Pv/Mv planes; no counter moves."""
-    n = dict(TMC.LAUNCHES)
+    n = spans.launches()
     for W in (35, 48, 64, 65, 100):
         q, t, ql, tl = _wide_inputs(W)
         ref = JM.myers_batch(*_j(q, t, ql, tl))
@@ -100,7 +101,7 @@ def test_plain_versions_past_34_words_match_jax():
             jp = JM.myers_batch_planes(*_j(q, t, ql, tl))
             for a, b in zip(planes[1:], jp[1:]):
                 np.testing.assert_array_equal(a.numpy(), np.asarray(b))
-    assert TMC.LAUNCHES == n                 # CPU tensors: no counter moves
+    assert spans.launches() == n             # CPU tensors: no counter moves
 
 
 def test_compute_overlaps_on_long_reads_matches_jax():

@@ -10,6 +10,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
   0. card facts: nvidia-smi name/power limit, torch and CUDA versions
   1. build the CUDA kernels from hga_tpu_torch/csrc (one nvcc per source,
      in parallel, sm_90a), timed; registers/spills per instantiation
+  k. the k-mer key kernel (kmer_keys, csrc/kmer.cu) == its plain version
+     (ops/kmer._keys_plain), bit for bit, at the count's batch shape
+     (65,536 reads of 7 words, k 21), at k 1, 16, 17 and 32 on pads 16,
+     288 and 1,024, and on a one-read tail batch, N bases on the borders of
+     packed and bad-flag words, lengths 0 to the pad; one launch a call;
+     count_reads(device="cuda") of a 60 kb read set == the CPU's, field
+     for field, one launch a batch; then the kernel's time (launches
+     queued behind a sleep), the wrapper's, the plain version's and the
+     byte bound at the count's shape
   2. K1' (myers_batch_cuda) == its plain PyTorch version, bit-exact, through
      the wrapper and in the other design (G 1 or group_width(W)), at the
      long-overlap shape (N 4096, Lq 414, Lt 478), the config-3 gate shape
@@ -193,7 +202,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 Phase 5 also runs config 3 (100 bp and 300 bp reads) and the
 short-read-only pipeline (8 kb genome) on cuda and on cpu, byte-identical.
-Phases run in the order 0 1 2 3 7 c(kernel) 4 8 a c b d 5 e 6 9 (phases c
+Phases run in the order 0 1 k 2 3 7 c(kernel) 4 8 a c b d 5 e 6 9 (phases c
 and d run phase 4 when it is not asked for; phase c's CLI runs beside
 phases b and d).  The CPU side of the card == CPU runs of phases 5, 8, b
 and e runs in processes of its own (TWIN_THREADS) at the lowest priority
@@ -267,6 +276,9 @@ KERNELS = {
                        "exp/sw_variants.py:326"),
     "vpu_chains_cuda": ("hga_tpu_torch/csrc/vpu_micro.cu",
                         "exp/vpu_micro.py:16"),
+    # no TPU kernel: the JAX package's extraction is plain jnp
+    "kmer_keys": ("hga_tpu_torch/csrc/kmer.cu",
+                  "none (hga_tpu/ops/kmer.py extract_kmers is plain jnp)"),
 }
 
 
@@ -304,6 +316,7 @@ _PTXAS_ENTRY = (
     ("X2", r"swv_packed_kernelILi(\d+)E", lambda g: f"v2H{g[0]}"),
     ("X2", r"swv_mem_kernel", lambda g: "memory"),
     ("X3", r"vpu_kernelILi(\d+)ELi(\d+)E", lambda g: f"C{g[0]}S{g[1]}"),
+    ("kmer", r"kmer_keys_kernelILi(\d+)E", lambda g: f"V{g[0]}"),
 )
 
 
@@ -440,6 +453,125 @@ def gate_inputs(rng):
 
 
 # ---------------------------------------------------------------- phases
+
+def kmer_inputs(rng, R: int, pad: int):
+    """A batch of R reads padded to `pad` as count_reads ships it: random
+    packed words, N flags on the borders of packed (16) and bad-flag (32)
+    words in every third read and at random elsewhere, lengths from 0 to
+    the pad (most of them pad - 12, as 100 bp reads padded to 112)."""
+    import numpy as np
+
+    packed = rng.integers(0, 2**32, (R, pad // 16),
+                          dtype=np.uint64).astype(np.uint32)
+    bad = np.zeros((R, -(-pad // 32)), np.uint32)
+    for b in (15, 16, 31, 32, 47, 48, 63, 64):
+        if b < pad:
+            rows = np.arange(0, R, 3)[rng.random(-(-R // 3)) < 0.5]
+            bad[rows, b >> 5] |= np.uint32(1 << (b & 31))
+    r, p = np.nonzero(rng.random((R, pad)) < 0.002)
+    np.bitwise_or.at(bad, (r, p >> 5), (np.uint32(1) << (p & 31).astype(
+        np.uint32)))
+    length = np.full(R, max(0, pad - 12), np.int32)
+    ragged = rng.random(R) < 0.25
+    length[ragged] = rng.integers(0, pad + 1, int(ragged.sum()))
+    return packed.view(np.int32), bad.view(np.int32), length
+
+
+def queued_ms(fn, sets, reps: int = 50) -> float:
+    """Device ms a call of `fn`, its launches queued behind a sleep on the
+    stream so that the host's launch cost does not pace them (CUDA
+    events)."""
+    import torch
+
+    for a in sets:
+        fn(*a)
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    s.record()
+    for r in range(reps):
+        fn(*sets[r % len(sets)])
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def phase_kmer(rng):
+    """Phase k: the k-mer key kernel against its plain version, its launch
+    count, count_reads on the card against the CPU, then its times.
+    Returns (max error, launches by path, the kernel's row)."""
+    import numpy as np
+    import torch
+
+    from hga_tpu_torch.config import AssemblerConfig
+    from hga_tpu_torch.io.encode import pack_reads
+    from hga_tpu_torch.models.spectrum import count_reads
+    from hga_tpu_torch.ops import kmer as K
+    from hga_tpu_torch.ops import kmer_cuda as KC
+    from hga_tpu_torch.utils import benchmarks as B
+    from hga_tpu_torch.utils import sim
+
+    t0 = time.perf_counter()
+    cases = [("the count's batch", 65536, 112, 21)] + [
+        (f"pad {pad}, k {k}", 4099, pad, k) for pad in (16, 288, 1024)
+        for k in (1, 16, 17, 32) if k <= pad] + [
+        ("a one-read tail", 1, 112, 21)]
+    before = launch_counts()
+    for label, R, pad, k in cases:
+        args = to_dev(*kmer_inputs(rng, R, pad))
+        got = K.kmer_keys(*args, k)
+        torch.cuda.synchronize()
+        eq(f"kmer_keys {label} (R {R}, W {pad // 16}, k {k})", got,
+           K._keys_plain(*args, k))
+    n = (launch_counts() - before)[KC.COUNTER]
+    if n != len(cases):
+        fail(f"kmer_keys launched {n} times for {len(cases)} calls")
+
+    ds = sim.make_dataset(genome_len=60_000, short_cov=20, long_cov=0,
+                          seed=18, short_err=0.01)
+    pr = pack_reads(ds.short_seqs, names=ds.short_names, pad_len=112)
+    cfg = AssemblerConfig(k=21, batch_reads=4096)
+    before = launch_counts()
+    card = count_reads(pr, cfg, device="cuda")
+    path = launch_counts() - before
+    cpu = count_reads(pr, cfg, device="cpu")
+    batches = -(-pr.n_reads // cfg.batch_reads)
+    if path[KC.COUNTER] != batches:
+        fail(f"count_reads launched kmer_keys {path[KC.COUNTER]} times for "
+             f"{batches} batches")
+    for f in ("hi", "lo", "count", "hist"):
+        if not np.array_equal(getattr(card, f), getattr(cpu, f)):
+            fail(f"count_reads on the card: {f} differs from the CPU's")
+    if (card.threshold, card.n_distinct) != (cpu.threshold, cpu.n_distinct):
+        fail("count_reads on the card: threshold or distinct total differs")
+    log(f"  ok: count_reads card == CPU ({pr.n_reads} reads, {batches} "
+        f"batches, {card.n_distinct} distinct, {card.hi.size} solid)")
+
+    R, W, k = 65536, 7, 21
+    sets = [to_dev(*kmer_inputs(rng, R, 16 * W)) for _ in range(4)]
+    before = launch_counts()
+    kern_ms = queued_ms(lambda *a: KC.kmer_keys_cuda(*a, k), sets)
+    ms = B.cuda_ms(lambda *a: K.kmer_keys(*a, k), sets, 20)
+    plain_ms = one_call_ms(lambda *a: K._keys_plain(*a, k), sets[0])
+    restore(before)
+    m = 16 * W - k + 1
+    nbytes = sum(x.numel() * 4 for x in sets[0]) + 8 * R * m
+    bound, by = B.bound_ms(0, nbytes)
+    g = KC.geometry(R, W, k)
+    regs, local = KC.kernel_attrs(g.vec)
+    row = dict(shape=f"R {R}, W {W}, k {k} ({g.rows} reads a tile, "
+                     f"{g.vec} slots a thread, {g.tiles} blocks, {g.smem} "
+                     "B shared)",
+               ms=ms, kernel_ms=kern_ms, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=by, pct_of_bound=100 * bound / kern_ms,
+               registers=regs, local_bytes=local)
+    log(f"  kmer_keys at the count's batch: kernel {kern_ms:.4f} ms, "
+        f"wrapper {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} "
+        f"ms ({by}), {row['pct_of_bound']:.1f}% of it; {regs} registers, "
+        f"{local} B local")
+    log(f"  phase k: {time.perf_counter() - t0:.1f} s")
+    return 0, {"phase k count_reads": dict(path)}, row
 
 def myers_edges(rng, N, Lq, Lt, edges=(0, 1, 31, 32, 62)):
     """Planted pairs with K1's edge cases: qlen `edges` and Lq - 1 (those
@@ -3891,9 +4023,10 @@ def main() -> int:
     ap.add_argument("--phase10-len", type=int, default=PHASE10_GENOME,
                     help=f"genome length of phase 10 (default "
                          f"{PHASE10_GENOME:,} bp)")
-    ap.add_argument("--phases", default="0123456789abcde",
-                    help="phases to run, 'a' for phase 10, 'b', 'c', 'd' "
-                         "and 'e' for phases b, c, d and e (default all)")
+    ap.add_argument("--phases", default="0123456789abcdek",
+                    help="phases to run, 'a' for phase 10, 'b', 'c', 'd', "
+                         "'e' and 'k' for phases b, c, d, e and k (default "
+                         "all)")
     ap.add_argument("--phase10", default="repeats+circular",
                     help="phase 10's genomes, comma-separated among "
                          + ", ".join(PHASE10_GENOMES))
@@ -3920,6 +4053,7 @@ def main() -> int:
     from hga_tpu_torch.ops import align as A
     from hga_tpu_torch.ops import align_cuda as AC
     from hga_tpu_torch.ops import cuda_build
+    from hga_tpu_torch.ops import kmer_cuda as KC
     from hga_tpu_torch.ops import myers as M
     from hga_tpu_torch.ops import myers_cuda as MC
     from hga_tpu_torch.ops import pileup as PU
@@ -3934,7 +4068,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = cuda_build.build_all(force=True)
     built = {n: dict(cuda_build.BUILD_INFO[n]) for n in libs}
-    for mod in (MC, AC, VM, MM, SV):
+    for mod in (MC, AC, VM, MM, SV, KC):
         mod._lib()
     MC._gate_lib()
     MC._votes_lib()
@@ -3946,12 +4080,14 @@ def main() -> int:
     # K1': both designs to 24 words, the split design to 34, the wide
     # route; K2; K2s to 34 words and its wide route; K2': 7 register
     # instances on both homes, the wide route; K3', K3'', K3''' (8 register
-    # instances, its slots in memory twice), K3 twice
+    # instances, its slots in memory twice), K3 twice; the harnesses'; the
+    # k-mer key kernel
     expect = ((2 * MC.SINGLE_MAX_WORDS - 1)
               + (MC.REGISTER_MAX_WORDS - MC.SINGLE_MAX_WORDS) + 1
               + MC.THREAD_MAX_WORDS + MC.REGISTER_MAX_WORDS + 1 + 2 * 7 + 1
               + len(AC.DIAG_SLOTS) + len(AC.BAND_SLOTS) + AC.WIDE_SLOTS + 2
-              + 2 + MM.REGISTER_WORDS + 1 + len(SV.BUILT) + len(VM.BUILT))
+              + 2 + MM.REGISTER_WORDS + 1 + len(SV.BUILT) + len(VM.BUILT)
+              + 3)
     log(f"  ptxas report: {len(report)} of {expect} kernel instantiations "
         "parsed")
     for kern, by in (("K1'", "W, lanes a pair"), ("K2", "W"),
@@ -3960,7 +4096,8 @@ def main() -> int:
                      ("K3'", "slots a lane"), ("K3''", "slots a lane"),
                      ("K3'''", "slots a lane, or slots in memory"),
                      ("K3", "buffer"), ("X1", "words a lane"),
-                     ("X2", "route"), ("X3", "C, STEPS")):
+                     ("X2", "route"), ("X3", "C, STEPS"),
+                     ("kmer", "slots a thread")):
         rows = [r for r in report if r[0] == kern]
         log(f"  ptxas {kern} registers by {by}: "
             + " ".join(f"{w}:{regs}" for _, w, regs, _ in rows))
@@ -3977,6 +4114,12 @@ def main() -> int:
     err = dict.fromkeys(KERNELS)     # None: the kernel's check did not run
     workdir = tempfile.mkdtemp(prefix="hga_smoke_")
     paths = {}
+    kmer_row = {}
+    if "k" in ph:
+        err["kmer_keys"], k_paths, kmer_row = phase_kmer(
+            np.random.default_rng(18))
+        paths.update(k_paths)
+        done("k")
     # the CPU side of phases 5, 8, b and e, each run in a process of its
     # own at the lowest priority, from here on beside every phase on the
     # card; each phase holds its runs against theirs once they have ended
@@ -4023,6 +4166,7 @@ def main() -> int:
         kernel_ms=None, plain_ms=None, bound_ms=None, bound_by=None,
         library_ms=None, gcups=None, shape=None, registers=None,
         local_bytes=None) for name, (src, rep) in KERNELS.items()}
+    entries["kmer_keys"].update(kmer_row)
     if "6" in ph:
         rows, split = phase_times(rng, MC, M, PU, SEGMENT_GENOME)
         rows.update(phase_times_k3(rng, AC, A))
@@ -4044,7 +4188,7 @@ def main() -> int:
                  matches_plain=None if err[name] is None else err[name] == 0)
     log("  no single PyTorch call computes Myers edit distance (per pair or "
         "against a shared row), its traceback votes, banded local SW or the "
-        "add/max chains: library_ms is null")
+        "add/max chains, nor canonical k-mer keys: library_ms is null")
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

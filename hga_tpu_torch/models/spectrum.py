@@ -82,9 +82,7 @@ def _batch_keys(pr: PackedReads, sel: np.ndarray, k: int,
     spans.count("spectrum.h2d_bytes", packed.nbytes + bad.nbytes
                 + length.nbytes)
     with spans.span("spectrum.extract"):
-        kb = K.extract_kmers(*args, k)
-        key = C.pack_key(kb.hi, kb.lo)
-        return torch.where(kb.valid, key, C.SENTINEL_KEY).reshape(-1)
+        return K.kmer_keys(*args, k)
 
 
 def count_reads(

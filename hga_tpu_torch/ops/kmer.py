@@ -1,8 +1,12 @@
 """L1 device ops — unpack 2-bit reads and extract canonical k-mers (PyTorch).
 
 Counterpart of ``hga_tpu.ops.kmer``: the whole (reads x positions) plane is
-computed at once from k shifted views.  Packed words arrive as int32 or int64
-tensors holding the uint32 bit patterns of ``PackedReads.packed``; k-mer
+computed at once from k shifted views.  ``kmer_keys`` gives the counting
+stage's flat sentinel-masked int64 keys: on a CUDA tensor one launch of the
+hand-written kernel (ops/kmer_cuda.py, csrc/kmer.cu), on a CPU tensor its
+plain version, ``extract_kmers`` → ``pack_key`` → ``where``.  Packed words
+arrive as int32 or int64 tensors holding the uint32 bit patterns of
+``PackedReads.packed`` (int32 alone on the kernel's route); k-mer
 halves (hi, lo) are int64 tensors holding uint32 values, because PyTorch's
 uint32 support is partial.  All 32-bit wrap-around arithmetic (the minimizer
 hash) is done in int64 and masked with 0xFFFFFFFF, without ever overflowing
@@ -15,6 +19,9 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from hga_tpu_torch.ops import count as C
+from hga_tpu_torch.ops import kmer_cuda
 
 BASES_PER_WORD = 16
 MASK_BITS_PER_WORD = 32
@@ -100,6 +107,46 @@ def extract_kmers(packed: torch.Tensor, bad: torch.Tensor,
     window_bad = badcum[:, k:k + m] - badcum[:, :m]
     valid = in_range & (window_bad == 0)
     return KmerBatch(hi=hi, lo=lo, strand=strand, valid=valid)
+
+
+def kmer_keys(packed: torch.Tensor, bad: torch.Tensor, length: torch.Tensor,
+              k: int) -> torch.Tensor:
+    """Flat canonical k-mer keys of a read batch: int64 (R * m,), read r's
+    slots at r * m, ``pack_key`` of the canonical k-mer where `valid`,
+    ``SENTINEL_KEY`` elsewhere.
+
+    packed (R, W) and bad (R, >= ceil(W / 2)) words, length (R,).  On a
+    CUDA tensor the kernel of ops/kmer_cuda (contiguous int32 operands; it
+    launches or raises); on a CPU tensor the plain version.
+    """
+    if not (1 <= k <= 32):
+        raise ValueError("k must be in [1, 32]")
+    if packed.dim() != 2 or bad.dim() != 2 or length.dim() != 1:
+        raise ValueError("kmer_keys takes packed (R, W), bad (R, BW) and "
+                         "length (R,)")
+    R, W = packed.shape
+    if bad.shape[0] != R or length.shape[0] != R:
+        raise ValueError(f"row counts differ: packed {R}, bad "
+                         f"{bad.shape[0]}, length {length.shape[0]}")
+    L = W * BASES_PER_WORD
+    if L - k + 1 <= 0:
+        raise ValueError(f"pad length {L} shorter than k={k}")
+    if bad.shape[1] * MASK_BITS_PER_WORD < L:
+        raise ValueError(f"{bad.shape[1]} bad-flag words cover fewer than "
+                         f"the pad's {L} bases")
+    if not packed.device == bad.device == length.device:
+        raise ValueError("kmer_keys takes its operands on one device")
+    if packed.device.type == "cuda":
+        return kmer_cuda.kmer_keys_cuda(packed, bad, length, k)
+    return _keys_plain(packed, bad, length, k)
+
+
+def _keys_plain(packed: torch.Tensor, bad: torch.Tensor,
+                length: torch.Tensor, k: int) -> torch.Tensor:
+    """kmer_keys' plain version (and the kernel's yardstick)."""
+    kb = extract_kmers(packed, bad, length, k)
+    key = C.pack_key(kb.hi, kb.lo)
+    return torch.where(kb.valid, key, C.SENTINEL_KEY).reshape(-1)
 
 
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:

@@ -95,13 +95,6 @@ def ring_shift(x: torch.Tensor) -> torch.Tensor:
 
 # ---------------------------------------------------------------- k-mers
 
-def _batch_keys(packed, bad, length, k: int) -> torch.Tensor:
-    """Flat canonical k-mer keys of a read block, sentinel where invalid."""
-    kb = K.extract_kmers(packed, bad, length, k)
-    key = C.pack_key(kb.hi, kb.lo)
-    return torch.where(kb.valid, key, C.SENTINEL_KEY).reshape(-1)
-
-
 def _owner_lanes(key: torch.Tensor, n_shards: int, bucket_cap: int
                  ) -> Tuple[torch.Tensor, int]:
     """Slot each valid key into the lane of its owner rank (kmer_hash32 %
@@ -148,7 +141,7 @@ def count_kmers_bucketed(mesh: Mesh, packed, bad, length, k: int,
     counts of the k-mers this rank owns (compact, capacity P * bucket_cap,
     `n` this shard's distinct count; the shards' k-mer sets are disjoint)
     and the overflow summed over ranks."""
-    lanes, ovf = _owner_lanes(_batch_keys(packed, bad, length, k),
+    lanes, ovf = _owner_lanes(K.kmer_keys(packed, bad, length, k),
                               mesh.size, bucket_cap)
     got = all_to_all(lanes).reshape(-1)
     hi, lo = C.unpack_key(got)
@@ -168,7 +161,7 @@ def spectrum_hist_bucketed(mesh: Mesh, packed, bad, length, k: int,
 
 def _local_count(packed, bad, length, k: int, cap: int) -> C.CountedKmers:
     """This rank's counted k-mers, compacted to a fixed capacity `cap`."""
-    key = _batch_keys(packed, bad, length, k)
+    key = K.kmer_keys(packed, bad, length, k)
     hi, lo = C.unpack_key(key)
     ck = C.sort_and_count(hi, lo, torch.ones_like(key))
     n = key.numel()

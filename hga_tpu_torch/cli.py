@@ -267,7 +267,7 @@ def cmd_correct(args) -> int:
 
 
 def cmd_eval(args) -> int:
-    from hga_tpu_torch.io.fastq import iter_records
+    from hga_tpu_torch.io.fastq import iter_records, read_reference
     from hga_tpu_torch.utils.evalx import (alignment_identity,
                                            evaluate_contigs,
                                            exact_contig_match,
@@ -276,14 +276,16 @@ def cmd_eval(args) -> int:
     contigs = [(r.name, r.seq) for r in iter_records(args.contigs)]
     out = {}
     if args.reference:
-        ref = "".join(r.seq for r in iter_records(args.reference))
-        out.update(evaluate_contigs(contigs, ref, k=args.k or 21))
+        records = read_reference(args.reference)
+        out.update(evaluate_contigs(contigs, records, k=args.k or 21))
         if args.align:
-            out.update(alignment_identity(contigs, ref, device=args.device))
+            joined = "".join(s for _, s, _ in records)
+            out.update(alignment_identity(contigs, joined,
+                                          device=args.device))
         if args.segs:
             from hga_tpu_torch.parallel.mesh import auto_mesh
 
-            out.update(segment_identity(contigs, ref, device=args.device,
+            out.update(segment_identity(contigs, records, device=args.device,
                                         mesh=auto_mesh()))
     if args.exact:
         # byte-for-byte contig-set diff against another assembler's output
@@ -358,7 +360,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         p.set_defaults(fn=fn)
     p = sub.add_parser("eval")
     p.add_argument("--contigs", required=True)
-    p.add_argument("--reference", help="reference genome FASTA")
+    p.add_argument("--reference",
+                   help="reference genome FASTA: each record judged on "
+                        "its own, circular where its header carries "
+                        "circular=true (--align joins them)")
     p.add_argument("--exact", metavar="FASTA",
                    help="another assembler's contigs: byte-for-byte set diff")
     p.add_argument("--align", action="store_true",

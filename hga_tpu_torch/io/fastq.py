@@ -101,6 +101,20 @@ def read_sequence_files(
         yield from iter_records(path, category=cat)
 
 
+def read_reference(path: str) -> List[Tuple[str, str, bool]]:
+    """A reference's records as (name, seq, circular), in file order.  A
+    FASTA record is circular when its header carries ``circular=true``
+    (Unicycler's convention, e.g. ``>1 length=5315120 circular=true``);
+    FASTQ records are linear."""
+    recs = list(iter_records(path))
+    with _open(path) as fh:
+        heads = ([fh.readline()] + [h for h in fh if h.startswith(">")]
+                 if fh.read(1) == ">" else [])
+    circ = ["circular=true" in h.lstrip(">").split()[1:] for h in heads]
+    circ += [False] * (len(recs) - len(circ))
+    return [(r.name, r.seq, c) for r, c in zip(recs, circ)]
+
+
 def write_fasta(path: str, records: Iterable[Tuple[str, str]], width: int = 80) -> None:
     with open(path, "w") as fh:
         for name, seq in records:

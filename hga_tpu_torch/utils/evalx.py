@@ -8,11 +8,16 @@ for ``"cpu"``): ``alignment_identity`` through the long-read overlap engine
 (models/overlap_long, K1'), ``segment_identity`` through K1''s shared-target
 mode, every contig segment against one row that holds the genome and its
 reverse complement.
+
+A reference is one sequence (``str``, one linear record, as in the JAX
+package) or a sequence of records ``(name, seq, circular)``: a chromosome
+and its plasmids, each judged on its own and a circular one across its
+origin (``evaluate_contigs``, ``segment_identity``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -54,7 +59,11 @@ def _kmers_u64(seq: str, k: int, canonical: bool) -> np.ndarray:
     return fwd[(badc[k:] - badc[:-k]) == 0]
 
 
-def evaluate_contigs(contigs: List[Tuple[str, str]], reference: str,
+Record = Tuple[str, str, bool]          # (name, seq, circular)
+Reference = Union[str, Sequence[Record]]
+
+
+def evaluate_contigs(contigs: List[Tuple[str, str]], reference: Reference,
                      k: int = 21, circular: bool = False) -> Dict[str, float]:
     """Alignment-free evaluation: k-mer precision/recall vs the reference.
 
@@ -62,14 +71,25 @@ def evaluate_contigs(contigs: List[Tuple[str, str]], reference: str,
                 agnostic): measures base accuracy + chimera-freeness.
     genome_fraction — fraction of reference k-mers covered by contigs.
 
-    circular=True treats the reference as a circle: the k-1 origin-spanning
-    k-mers join the reference set, so a correctly-assembled circular contig
-    (an arbitrary rotation of the reference) scores identity 1.0.
+    circular=True treats a ``str`` reference as a circle: the k-1
+    origin-spanning k-mers join the reference set, so a correctly-assembled
+    circular contig (an arbitrary rotation of the reference) scores
+    identity 1.0.  A reference of records takes each record's k-mers on
+    their own (none across two records), a circular record's with its k-1
+    origin-spanning ones; `circular` is then not read.
     """
-    if circular and len(reference) > k:
-        reference = reference + reference[: k - 1]
+    if isinstance(reference, str):
+        reference = [("", reference, circular)]
+    seqs = [s + s[: k - 1] if circ and len(s) > k else s
+            for _, s, circ in reference]
+
+    def ref_kmers(canonical: bool) -> np.ndarray:
+        return np.unique(np.concatenate(
+            [_kmers_u64(s, k, canonical) for s in seqs]
+            or [np.zeros(0, np.uint64)]))
+
     lengths = [len(s) for _, s in contigs]
-    ref_canon = np.unique(_kmers_u64(reference, k, canonical=True))
+    ref_canon = ref_kmers(True)
     hit = 0
     tot = 0
     contig_sets = []
@@ -85,7 +105,7 @@ def evaluate_contigs(contigs: List[Tuple[str, str]], reference: str,
                     else np.zeros(0, np.uint64))
     # denominator: distinct FORWARD reference k-mers; one is covered iff its
     # canonical value appears in any contig (strand-agnostic)
-    ref_fwd = np.unique(_kmers_u64(reference, k, canonical=False))
+    ref_fwd = ref_kmers(False)
     mask = np.uint64((1 << (2 * k)) - 1)
     rc = np.zeros_like(ref_fwd)
     v = ref_fwd.copy()
@@ -124,7 +144,7 @@ def exact_contig_match(contigs: List[Tuple[str, str]],
     )
 
 
-def segment_identity(contigs: List[Tuple[str, str]], reference: str,
+def segment_identity(contigs: List[Tuple[str, str]], reference: Reference,
                      seg: int = 384, batch: int = 4096,
                      device="cuda", mesh=None) -> Dict[str, float]:
     """Placement-free verification: every `seg`-sized contig segment's
@@ -139,9 +159,55 @@ def segment_identity(contigs: List[Tuple[str, str]], reference: str,
     several ranks the reference's columns are split over the ranks and the
     DP streams through the ring engine (parallel/ring_myers.py, K1''s
     carried-state mode), each rank holding Lt / P columns.
+
+    A reference is one sequence (``str``, one linear record, as the JAX
+    package has it) or records ``(name, seq, circular)``, laid out by
+    ``record_row``: a segment pays its best distance in any record on
+    either strand, a circular record read across its origin, and a
+    separator matches nothing.
     """
     with spans.span("evalseg.segment_identity"):
         return _segment_identity(contigs, reference, seg, batch, device, mesh)
+
+
+def record_row(records: Sequence[Record], seg: int, P: int = 1
+               ) -> Tuple[np.ndarray, int]:
+    """The shared row of a reference of records: int32 codes, sentinel-
+    padded to a multiple of P (the ring's chunks), and its true columns.
+
+    The forward half takes the records in order, one SENT_BASE separator
+    between two: each record's codes and, for a circular record, its first
+    min(L, 2 seg - 1) bases again (the wrap).  The row is the forward half,
+    one separator, then the forward half's reverse complement with its
+    separators kept as separators; one linear record gives genome .
+    sentinel . revcomp(genome).  The wrap is exact for a circular record of
+    at least 2 seg - 1 bases: a segment of qlen <= seg bases has distance
+    at most qlen, so an optimal alignment spans at most 2 qlen columns, and
+    every such stretch of the circle, through the origin too, lies whole in
+    the record and its wrap.
+    """
+    from hga_tpu_torch.models.overlap import SENT_BASE
+    from hga_tpu_torch.parallel.mesh import pad_to_multiple
+
+    if not records:
+        raise ValueError("a reference of records needs at least one record")
+    codes = [encode_bases(seq)[0] for _, seq, _ in records]
+    wraps = [min(len(c), 2 * seg - 1) if circ else 0
+             for c, (_, _, circ) in zip(codes, records)]
+    half = sum(len(c) + w for c, w in zip(codes, wraps)) + len(codes) - 1
+    t_true = 2 * half + 1
+    row = np.full(pad_to_multiple(t_true, P), SENT_BASE, np.int32)
+    o, seps = 0, []
+    for c, w in zip(codes, wraps):
+        row[o : o + len(c)] = c
+        row[o + len(c) : o + len(c) + w] = c[:w]
+        o += len(c) + w
+        seps.append(o)                      # the separator stays SENT_BASE
+        o += 1
+    np.subtract(3, row[:half][::-1], out=row[half + 1 : t_true])
+    # the forward separator at p lands at t_true - 1 - p on the reverse
+    row[t_true - 1 - np.asarray(seps[:-1], np.int64)] = SENT_BASE
+    return row, t_true
 
 
 def _segment_identity(contigs, reference, seg, batch, device, mesh):
@@ -149,25 +215,22 @@ def _segment_identity(contigs, reference, seg, batch, device, mesh):
 
     from hga_tpu_torch.config import AssemblerConfig
     from hga_tpu_torch.models.overlap import SENT_BASE, default_edit
-    from hga_tpu_torch.parallel.mesh import pad_to_multiple
     from hga_tpu_torch.utils.device import resolve_device
 
+    spans.count("evalseg.calls")
     if not contigs:
         return dict(segment_identity=0.0, n_segments=0)
     dev = resolve_device(device)
     P = mesh.size if mesh is not None else 1
+    if isinstance(reference, str):
+        reference = [("", reference, False)]
     with spans.span("evalseg.encode_reference"):
-        # shared target: genome . sentinel . revcomp(genome), sentinel-
+        # shared target: the records and their reverse complement, sentinel-
         # padded to a multiple of the mesh size (the ring's chunks)
-        g_fwd, _ = encode_bases(reference)
-        g_rc = 3 - g_fwd[::-1]
-        t_true = len(g_fwd) * 2 + 1
-        Lt = pad_to_multiple(t_true, P)
-        t_row = np.full(Lt, SENT_BASE, np.int32)
-        t_row[: len(g_fwd)] = g_fwd
-        t_row[len(g_fwd) + 1 : t_true] = g_rc
+        t_row, t_true = record_row(reference, seg, P)
     with spans.span("evalseg.h2d"):
         t1 = torch.from_numpy(t_row[None, :]).to(dev)
+    h2d = t_row.nbytes
 
     with spans.span("evalseg.cut"):
         # cut contigs into fixed-width segments
@@ -197,11 +260,13 @@ def _segment_identity(contigs, reference, seg, batch, device, mesh):
                              device=dev)
             args = (torch.from_numpy(qb).to(dev), t1,
                     torch.from_numpy(qlb).to(dev), tlb)
+            h2d += qb.nbytes + qlb.nbytes
         with spans.span("evalseg.sweep"):
             r = edit(*args)
         del args            # the batch's codes leave before the next's come
         with spans.span("evalseg.reduce"):
             total_dist += int(r.dist.to(torch.int64).sum())
+    spans.count("evalseg.h2d_bytes", h2d)
     span = int(ql.sum())
     return dict(segment_identity=1.0 - total_dist / max(span, 1),
                 n_segments=int(n_seg), segment_dist=int(total_dist))
